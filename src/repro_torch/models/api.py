@@ -1,0 +1,118 @@
+"""Model API of the port: init, prefill and decode entry points.
+
+The port of :mod:`repro.models.api` for token-prompt dense decoders. Decode
+state is a list of per-layer :class:`KVCache`. ``init_params`` and
+``init_state`` run on ``cuda`` unless the caller passes ``device="cpu"``;
+the other entry points run where their tensors are.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from . import transformer as tf_mod
+from .attention import KVCache
+
+__all__ = [
+    "resolve_device",
+    "init_params",
+    "init_state",
+    "prefill",
+    "decode",
+    "prefill_bucketed",
+    "decode_at",
+]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` or, by default, ``cuda``. A CUDA device on a machine
+    without one raises; nothing quietly moves to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run the port on the CPU"
+        )
+    return dev
+
+
+def init_params(
+    cfg: ArchConfig, generator: Optional[torch.Generator] = None, device=None
+) -> Dict[str, Any]:
+    """Random parameters on ``device`` (default ``cuda``) in
+    ``cfg.param_dtype``, drawn from ``generator`` (a generator on that
+    device; seed 0 when omitted)."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return tf_mod.init_lm_params(cfg, generator, dev)
+
+
+def init_state(
+    cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None
+) -> List[KVCache]:
+    """Decode caches sized for ``max_len`` positions."""
+    return tf_mod.init_caches(cfg, batch, max_len, dtype, resolve_device(device))
+
+
+def prefill(
+    cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], max_len: int,
+    cache_dtype=torch.bfloat16, *, backend=None,
+) -> Tuple[torch.Tensor, List[KVCache]]:
+    """Process the full prompt; return (last-token logits [B, V], caches)."""
+    tokens = batch["tokens"]
+    caches = tf_mod.init_caches(cfg, tokens.shape[0], max_len, cache_dtype, tokens.device)
+    hidden, caches = tf_mod.lm_forward(
+        params, tokens, cfg, mode="prefill", caches=caches, backend=backend
+    )
+    return tf_mod.lm_logits(params, hidden[:, -1:], cfg)[:, 0], caches
+
+
+def decode(
+    cfg: ArchConfig, params, token: torch.Tensor, caches: List[KVCache], pos,
+    *, backend=None,
+) -> Tuple[torch.Tensor, List[KVCache]]:
+    """One lockstep decode step at position ``pos`` (an int). token: [B, 1]
+    -> (logits [B, V], caches)."""
+    b = token.shape[0]
+    positions = torch.full((b, 1), int(pos), dtype=torch.int64, device=token.device)
+    hidden, caches = tf_mod.lm_forward(
+        params, token, cfg, mode="decode", caches=caches, positions=positions,
+        backend=backend,
+    )
+    return tf_mod.lm_logits(params, hidden, cfg)[:, 0], caches
+
+
+def prefill_bucketed(
+    cfg: ArchConfig, params, tokens: torch.Tensor, lengths: torch.Tensor,
+    cache_dtype=torch.bfloat16, *, backend=None,
+) -> Tuple[torch.Tensor, List[KVCache]]:
+    """Prefill a right-padded prompt bucket: tokens [B, Lb], lengths [B].
+    Causal attention hides the pad from every real token, so the logits read
+    at each row's ``lengths[b] - 1`` are the unpadded prefill logits."""
+    b, lb = tokens.shape
+    caches = tf_mod.init_caches(cfg, b, lb, cache_dtype, tokens.device)
+    hidden, caches = tf_mod.lm_forward(
+        params, tokens, cfg, mode="prefill", caches=caches, backend=backend
+    )
+    rows = torch.arange(b, device=tokens.device)
+    last = hidden[rows, lengths.to(torch.int64) - 1]
+    return tf_mod.lm_logits(params, last[:, None], cfg)[:, 0], caches
+
+
+def decode_at(
+    cfg: ArchConfig, params, token: torch.Tensor, caches: List[KVCache],
+    pos: torch.Tensor, *, backend=None,
+) -> Tuple[torch.Tensor, List[KVCache]]:
+    """Slot-indexed decode step: row ``b`` appends at ``pos[b]`` and attends
+    over its own history. ``pos`` [B] is the source of truth for every
+    layer's fill point."""
+    pos = pos.to(torch.int64)
+    caches = [KVCache(c.k, c.v, pos) for c in caches]
+    hidden, caches = tf_mod.lm_forward(
+        params, token, cfg, mode="decode", caches=caches, positions=pos[:, None],
+        backend=backend,
+    )
+    return tf_mod.lm_logits(params, hidden, cfg)[:, 0], caches

@@ -1,0 +1,110 @@
+"""The port's CUDA kernel on the card (marked ``gpu``; skips without one).
+
+Run on a machine with a GPU: ``PYTHONPATH=src python -m pytest -q -m gpu
+tests/test_torch_gpu.py``. This file imports no JAX, so it runs where only
+the port's dependencies are installed. Tolerances are those of
+``chip_smoke.py``: fp32 out rtol 1e-4 / atol 1e-3 against the plain version;
+bf16 out within one bf16 ulp of the plain fp32 result (plus 1e-5 of its
+largest magnitude, for sum-order noise where it nearly cancels); int8 within
+1 (a rounding boundary may fall between two sum orders).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import epilogue as tep
+from repro_torch.kernels import opope_gemm as tk
+from repro_torch.models import api
+from repro_torch.serve import ContinuousEngine, poisson_trace
+
+pytestmark = pytest.mark.gpu
+
+SHAPES = [(5, 40, 24), (130, 300, 200), (128, 256, 128), (4, 4096, 256)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernel has no CPU form")
+    return torch.device("cuda")
+
+
+def _check(got, a, b, c, out_dtype, steps, operands):
+    if out_dtype == torch.int8:
+        want = tk.opope_gemm_plain(a, b, c, out_dtype=out_dtype, epilogue=steps,
+                                   epilogue_operands=operands)
+        assert (got.int() - want.int()).abs().max() <= 1
+        return
+    ref = tk.opope_gemm_plain(a, b, c, out_dtype=torch.float32, epilogue=steps,
+                              epilogue_operands=operands)
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-3)
+    else:
+        _, e = torch.frexp(ref)
+        tol = torch.ldexp(torch.ones_like(ref), e - 8) + 1e-5 * ref.abs().max()
+        assert ((got.float() - ref).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernel_matches_plain_for_every_op(cuda_device, shape, dtype):
+    m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
+    b = (torch.randn((k, n), generator=gen, device=cuda_device) * k ** -0.5).to(dtype)
+    row = torch.randn((1, n), generator=gen, device=cuda_device)
+    full = torch.randn((m, n), generator=gen, device=cuda_device).to(dtype)
+    for c in (None, torch.randn((n,), generator=gen, device=cuda_device).to(dtype), full):
+        for op in tep.epilogue_ops():
+            kind = tep.op_kind(op)
+            operands = {"none": (), "row": (row,), "full": (full,),
+                        "scalar": (torch.full((1, 1), 0.05, device=cuda_device),)}[kind]
+            out_dtype = torch.int8 if op == "requant_int8" else dtype
+            before = tk.opope_gemm.launches
+            got = tk.opope_gemm(a, b, c, out_dtype=out_dtype, epilogue=(op,),
+                                epilogue_operands=operands)
+            torch.cuda.synchronize()
+            assert tk.opope_gemm.launches == before + 1
+            _check(got, a, b, c, out_dtype, (op,), operands)
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda_device):
+    a = torch.ones((4, 8), device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        tk.opope_gemm(a, a.t().contiguous())
+    a = torch.ones((8, 4), device=cuda_device).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.opope_gemm(a, torch.ones((8, 4), device=cuda_device))
+
+
+def _reduced_bf16():
+    return dataclasses.replace(get_config("chatglm3-6b").reduced(), param_dtype="bfloat16")
+
+
+def test_reduced_model_prefill_on_the_kernel_matches_the_plain_backend(cuda_device):
+    cfg = _reduced_bf16()
+    params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 24)))
+    tokens = tokens.to(cuda_device)
+    with torch.inference_mode():
+        ref, _ = api.prefill(cfg, params, {"tokens": tokens}, 32, backend="torch")
+        before = tk.opope_gemm.launches
+        got, _ = api.prefill(cfg, params, {"tokens": tokens}, 32)
+    assert tk.opope_gemm.launches - before == 7 * cfg.n_layers
+    assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+def test_continuous_engine_runs_every_gemm_on_the_kernel(cuda_device):
+    cfg = _reduced_bf16()
+    params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    trace = poisson_trace(6, seed=1, vocab=cfg.vocab, prompt_lens=(5, 12, 20),
+                          gen_lens=(3, 7), mean_interarrival=1.0)
+    before = tk.opope_gemm.launches
+    report = ContinuousEngine(cfg=cfg, params=params, n_slots=2, max_len=32).serve(trace)
+    launches = tk.opope_gemm.launches - before
+    assert launches == 7 * cfg.n_layers * (report.decode_steps + report.prefill_batches)
+    assert all(len(report.outputs[r.rid]) == r.max_new_tokens for r in trace)
