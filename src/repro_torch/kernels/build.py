@@ -2,9 +2,13 @@
 
 Each source compiles on first use into its own shared library with a plain C
 interface, loaded with :mod:`ctypes`. Libraries are named by a hash of their
-source, so an edited kernel rebuilds and an unchanged one loads at once. The
-build directory is ``build/repro_torch/`` at the root of the checkout (listed
-in ``.gitignore``). Nothing here runs at import time.
+source, so an edited kernel rebuilds and an unchanged one loads at once.
+Nothing here runs at import time.
+
+The build directory is ``$REPRO_TORCH_BUILD_DIR`` when that is set, else
+``build/repro_torch/`` at the root of the source checkout that holds this
+package (listed in ``.gitignore``). An installed copy outside a checkout has
+no such root and must be given the variable.
 """
 
 from __future__ import annotations
@@ -14,22 +18,35 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "build", "build_all", "load"]
+__all__ = ["CSRC_DIR", "NVCC_FLAGS", "build_dir", "sources", "build", "build_all", "load"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """Where kernel libraries are built: ``$REPRO_TORCH_BUILD_DIR``, else
+    ``<checkout>/build/repro_torch`` when this package lies in a checkout's
+    ``src/``. Raises otherwise rather than write outside the package."""
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    pkg = Path(__file__).resolve().parents[1]
+    root = pkg.parents[1]
+    if pkg.parent.name == "src" and (root / "pyproject.toml").is_file():
+        return root / "build" / "repro_torch"
+    raise RuntimeError(
+        f"{pkg} is not in a source checkout: set REPRO_TORCH_BUILD_DIR to a "
+        "writable directory for the CUDA kernel builds"
+    )
 
 
 def sources() -> Sequence[str]:
@@ -50,43 +67,47 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    return build_dir() / f"lib{name}_{digest}.so"
+
+
+def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, Path]:
+    """Compile ``csrc/<name>.cu`` for each name (every source by default)
+    whose library does not exist yet: one ``nvcc`` per source, all started
+    together. The compiler's report (registers, shared memory, spills) is
+    kept beside each library as ``<lib>.log``."""
+    names = sources() if names is None else names
+    libs = {name: _lib_path(name) for name in names}
+    jobs = []
+    for name, lib in libs.items():
+        if lib.exists():
+            continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        with open(lib.with_suffix(".log"), "w") as log:
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        jobs.append((name, lib, tmp, proc))
+    failed = []
+    for name, lib, tmp, proc in jobs:
+        if proc.wait() != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
+                          + lib.with_suffix(".log").read_text())
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of this source exists.
-    The compiler's report (registers, shared memory, spills) is kept beside
-    the library as ``<lib>.log``."""
-    lib = _lib_path(name)
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib
-
-
-def build_all() -> Dict[str, Path]:
-    """Build every kernel source at once, one ``nvcc`` per source."""
-    names = sources()
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        futures = {n: pool.submit(build, n) for n in names}
-        return {n: f.result() for n, f in futures.items()}
+    """Compile ``csrc/<name>.cu`` unless a library of this source exists."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
-    with _LOCK:
-        lib = _LOADED.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _LOADED[name] = lib
-        return lib
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
+    return lib

@@ -194,7 +194,10 @@ class ContinuousEngine:
                 prefill_batches += 1
                 generated += n_gen  # one token per request, prefill logits
                 joined = True
-                ts = wall()  # the first token exists: TTFT closes here
+                # TTFT closes when the first token's work is issued, as in
+                # the JAX engine; without ``sync`` the card may not have
+                # run it yet, so TTFT and ITL are host-issue times.
+                ts = wall()
                 for r in batch:
                     ttfts.append(ts - arrive.get(r.rid, ts))
                     last_tok[r.rid] = ts

@@ -77,6 +77,22 @@ def test_launch_serve_runs_on_the_cpu_when_asked(capsys):
     assert '"engine": "continuous"' in capsys.readouterr().out
 
 
+def test_kernel_build_dir_lies_in_the_checkout_or_is_named(monkeypatch, tmp_path):
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
+    assert kbuild.build_dir() == ROOT / "build" / "repro_torch"
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    assert kbuild.build_dir() == tmp_path
+
+
+def test_kernel_build_dir_outside_a_checkout_raises(monkeypatch, tmp_path):
+    # An installed copy: site-packages/repro_torch/kernels/build.py.
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
+    monkeypatch.setattr(kbuild, "__file__",
+                        str(tmp_path / "site-packages" / "repro_torch" / "kernels" / "build.py"))
+    with pytest.raises(RuntimeError, match="REPRO_TORCH_BUILD_DIR"):
+        kbuild.build_dir()
+
+
 def _run_smoke(cwd: Path):
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
                           text=True, timeout=120)
