@@ -6,14 +6,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 1. environment: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: every kernel under ``src/repro_torch/kernels/csrc`` (one ``nvcc``
    per source, started together);
-3. the O-POPE GEMM kernel against its plain PyTorch version on the card, at
-   the main path's shapes and chains (timed beside ``torch.matmul`` and the
-   card's bound) and at small ragged shapes for every epilogue op;
+3. the O-POPE GEMM kernel (K1) against its plain PyTorch version on the
+   card, at chatglm3-6b's shapes and chains (timed beside ``torch.matmul``
+   and the card's bound) and at small ragged shapes for every epilogue op;
 4. full-width chatglm3-6b (28 layers, bf16, random weights from seed 0):
    (a) prefill logits through the kernel against the plain backend,
-   (b) the continuous-batching engine on a Poisson trace — the main path,
-       whose kernel launches are counted — (c) the lockstep engine, and
-   (d) a lockstep decode step's wall time beside its GEMM kernel time.
+   (b) the continuous-batching engine on a Poisson trace — the first main
+       path, whose kernel launches are counted — (c) the lockstep engine, and
+   (d) a lockstep decode step's wall time beside its GEMM kernel time;
+5. the grouped O-POPE GEMM kernel (K4) against its plain version on the
+   card, at deepseek-moe-16b's expert shapes and chains (timed beside
+   ``torch.bmm`` and the card's bound) and at small ragged shapes for every
+   epilogue op and C form;
+6. full-width deepseek-moe-16b (28 layers, bf16, random weights from seed 0),
+   after chatglm3-6b's weights are freed:
+   (a) routing in a full prefill on the kernels against the plain router on
+       the same layer inputs, the drift of two free-running prefills beside
+       that of two valid summation orders, and one MoE layer on both
+       backends with the same routing,
+   (b) the continuous-batching engine on a Poisson trace — the second main
+       path, whose K1 and K4 launches are counted — and the lockstep engine,
+   (c) a lockstep decode step's wall time beside its K1 and K4 device time.
 
 The last lines are a JSON ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
@@ -23,11 +36,14 @@ it exits with code 2.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -76,22 +92,20 @@ def ulp(torch, x, dtype):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - mant)
 
 
-def check_close(torch, kmod, out, a, b, c, out_dtype, steps, ops_, what):
-    """Kernel output against the plain version on the same inputs:
-    fp32 within rtol 1e-4 / atol 1e-3 (only the order of sums differs);
-    bf16/fp16 within one ulp of the plain fp32 result, plus 1e-5 of its
-    largest magnitude for sum-order noise where the result nearly cancels;
-    int8 within 1 (a rounding boundary may fall between two sum orders).
-    Returns the largest absolute difference."""
+def check_close(torch, out, plain, out_dtype, what):
+    """Kernel output against the plain version on the same inputs
+    (``plain(out_dtype)`` computes it): fp32 within rtol 1e-4 / atol 1e-3
+    (only the order of sums differs); bf16/fp16 within one ulp of the plain
+    fp32 result, plus 1e-5 of its largest magnitude for sum-order noise where
+    the result nearly cancels; int8 within 1 (a rounding boundary may fall
+    between two sum orders). Returns the largest absolute difference."""
     if out_dtype == torch.int8:
-        ref = kmod.opope_gemm_plain(a, b, c, out_dtype=torch.int8, epilogue=steps,
-                                    epilogue_operands=ops_)
+        ref = plain(torch.int8)
         err = (out.int() - ref.int()).abs().max().item() if out.numel() else 0
         if err > 1:
             raise AssertionError(f"{what}: int8 off by {err}")
         return float(err)
-    ref = kmod.opope_gemm_plain(a, b, c, out_dtype=torch.float32, epilogue=steps,
-                                epilogue_operands=ops_)
+    ref = plain(torch.float32)
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"{what}: non-finite output")
     diff = (out.float() - ref).abs()
@@ -104,6 +118,12 @@ def check_close(torch, kmod, out, a, b, c, out_dtype, steps, ops_, what):
         if bad:
             raise AssertionError(f"{what}: {bad} elements beyond 1 ulp (max err {err})")
     return err
+
+
+def k1_plain(kmod, a, b, c, steps, ops_):
+    """K1's plain version on these inputs, as a function of the out dtype."""
+    return lambda out_dtype: kmod.opope_gemm_plain(
+        a, b, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ops_)
 
 
 def gemm_bound(m, k, n, n_full_operands, elem=2):
@@ -143,8 +163,8 @@ def kernel_phase(torch, kmod, ep, cfg, dev):
                 steps, ops_ = operands(m, n, chain, torch.bfloat16)
                 out = kmod.opope_gemm(a, b, None, epilogue=steps, epilogue_operands=ops_)
                 sync(torch, dev)
-                err = check_close(torch, kmod, out, a, b, None, torch.bfloat16, steps, ops_,
-                                  f"main M={m} K={kk} N={n} {chain}")
+                err = check_close(torch, out, k1_plain(kmod, a, b, None, steps, ops_),
+                                  torch.bfloat16, f"main M={m} K={kk} N={n} {chain}")
                 max_err = max(max_err, err)
                 log(f"check main-path M={m} K={kk} N={n} chain={chain}: max_abs_err={err:.3g} ok")
 
@@ -165,8 +185,8 @@ def kernel_phase(torch, kmod, ep, cfg, dev):
             lib_ms = time_ms(torch, lambda i: torch.matmul(a, bs[i]), n_bufs)
             bound_ms, bound_by = gemm_bound(m, kk, n, len(ops_))
             out = kmod.opope_gemm(a, bs[0], None, epilogue=steps, epilogue_operands=ops_)
-            err = check_close(torch, kmod, out, a, bs[0], None, torch.bfloat16, steps, ops_,
-                              f"timed M={m} K={kk} N={n} {chain}")
+            err = check_close(torch, out, k1_plain(kmod, a, bs[0], None, steps, ops_),
+                              torch.bfloat16, f"timed M={m} K={kk} N={n} {chain}")
             max_err = max(max_err, err)
             row = {"m": m, "k": kk, "n": n, "epilogue": chain, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -199,7 +219,7 @@ def kernel_phase(torch, kmod, ep, cfg, dev):
                     out = kmod.opope_gemm(a, b, c, out_dtype=out_dtype, epilogue=(name,),
                                           epilogue_operands=ops_)
                     sync(torch, dev)
-                    check_close(torch, kmod, out, a, b, c, out_dtype, (name,), ops_,
+                    check_close(torch, out, k1_plain(kmod, a, b, c, (name,), ops_), out_dtype,
                                 f"coverage {m}x{kk}x{n} {dt} C={c_name} {name}")
                     n_cov += 1
             # One long chain, fp16 out, and the requant chain into int8.
@@ -209,7 +229,7 @@ def kernel_phase(torch, kmod, ep, cfg, dev):
                 out = kmod.opope_gemm(a, b, cs["row"], out_dtype=out_dtype, epilogue=chain,
                                       epilogue_operands=ops_)
                 sync(torch, dev)
-                check_close(torch, kmod, out, a, b, cs["row"], out_dtype, chain, ops_,
+                check_close(torch, out, k1_plain(kmod, a, b, cs["row"], chain, ops_), out_dtype,
                             f"coverage chain {m}x{kk}x{n} {dt} -> {out_dtype}")
                 n_cov += 1
             chain = ("silu", "mul", "requant_int8")
@@ -218,7 +238,7 @@ def kernel_phase(torch, kmod, ep, cfg, dev):
             out = kmod.opope_gemm(a, b, out_dtype=torch.int8, epilogue=chain,
                                   epilogue_operands=ops_)
             sync(torch, dev)
-            check_close(torch, kmod, out, a, b, None, torch.int8, chain, ops_,
+            check_close(torch, out, k1_plain(kmod, a, b, None, chain, ops_), torch.int8,
                         f"coverage requant chain {m}x{kk}x{n} {dt}")
             n_cov += 1
     log(f"coverage: {n_cov} ragged/dtype/C/epilogue cases within tolerance")
@@ -310,11 +330,331 @@ def model_phase(torch, np, cfg, ops, kmod, dev):
     return {"continuous": report, "launches": launches, "decode_step_ms": step_ms}
 
 
-def decode_profile(torch, step, step_ms, n_steps: int = 4) -> None:
+def k4_plain(k4, a, b, c, steps, ops_):
+    """K4's plain version on these inputs, as a function of the out dtype."""
+    return lambda out_dtype: k4.opope_gemm_grouped_plain(
+        a, b, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ops_)
+
+
+def grouped_phase(torch, k4, ops, ep, cfg, dev):
+    """Phase 5. Returns the expert FFN's 3 grouped GEMMs, the per-shape
+    timing rows and the largest error."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    g, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    # The 3 grouped GEMMs of one MoE layer: (name, K, N, chain, out dtype).
+    ffn = [("w_up", d, f, "none", bf16), ("w_gate", d, f, "silu+mul", bf16),
+           ("w_down", f, d, "none", f32)]
+    rows, max_err = [], 0.0
+    # M = the expert capacity: a 4-slot decode step (1), and a prefill of
+    # 4 x 64 (30) and 4 x 128 (60) prompt tokens.
+    for m in (1, 30, 60):
+        for name, kk, n, chain, out_dtype in ffn:
+            a = torch.randn((g, m, kk), generator=gen, device=dev).to(bf16)
+            b = (torch.randn((g, kk, n), generator=gen, device=dev) * kk ** -0.5).to(bf16)
+            steps, ops_ = (), ()
+            if chain == "silu+mul":
+                steps = ("silu", "mul")
+                ops_ = (torch.randn((g, m, n), generator=gen, device=dev).to(bf16),)
+            out = k4.opope_gemm_grouped(a, b, out_dtype=out_dtype, epilogue=steps,
+                                        epilogue_operands=ops_)
+            sync(torch, dev)
+            err = check_close(torch, out, k4_plain(k4, a, b, None, steps, ops_), out_dtype,
+                              f"grouped G={g} M={m} K={kk} N={n} {chain}")
+            max_err = max(max_err, err)
+            # One call reads all G experts' weights (>= 184 MB, several
+            # times the 50 MB L2), so each call finds them cold.
+            ms = time_ms(torch, lambda i: k4.opope_gemm_grouped(
+                a, b, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ops_), 1)
+            plain_ms = time_ms(torch, lambda i: k4.opope_gemm_grouped_plain(
+                a, b, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ops_), 1)
+            lib_ms = time_ms(torch, lambda i: torch.bmm(a, b), 1)
+            out_elem = 4 if out_dtype == f32 else 2
+            nbytes = 2 * g * (m * kk + kk * n + m * n * len(ops_)) + out_elem * g * m * n
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * g * m * n * kk / BF16_FLOPS
+            row = {"g": g, "m": m, "k": kk, "n": n, "name": name, "epilogue": chain,
+                   "out_dtype": str(out_dtype).replace("torch.", ""), "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": 1e3 * max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "max_abs_err": err}
+            rows.append(row)
+            log(f"grouped G={g} M={m} K={kk} N={n} {name} chain={chain} -> {row['out_dtype']}: "
+                f"kernel {ms:.4f} ms, torch.bmm {lib_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), max_abs_err {err:.3g}")
+            del a, b, ops_, out
+
+    # Coverage: G = 3 ragged shapes, fp32 and bf16 in, every C form and op,
+    # through grouped_matmul on the kernel against it on the plain version.
+    n_cov, gc_ = 0, 3
+    for m, kk, n in ((5, 40, 24), (130, 300, 200)):
+        for dt in (f32, bf16):
+            a = torch.randn((gc_, m, kk), generator=gen, device=dev).to(dt)
+            b = torch.randn((gc_, kk, n), generator=gen, device=dev).to(dt)
+            cs = {"none": None,
+                  "row": torch.randn((gc_, n), generator=gen, device=dev).to(dt),
+                  "full": torch.randn((gc_, m, n), generator=gen, device=dev).to(dt)}
+            rows_ = {"[N]": torch.randn((n,), generator=gen, device=dev),
+                     "[G,N]": torch.randn((gc_, n), generator=gen, device=dev)}
+            full_op = torch.randn((gc_, m, n), generator=gen, device=dev).to(dt)
+            acc_max = k4.opope_gemm_grouped_plain(a, b, out_dtype=f32).abs().max()
+            for c_name, c in cs.items():
+                for name in ep.epilogue_ops():
+                    kind = ep.op_kind(name)
+                    specs = {"none": {"": name},
+                             "row": {r: (name, x) for r, x in rows_.items()},
+                             "full": {"": (name, full_op)},
+                             "scalar": {"": (name, acc_max / 100.0)}}[kind]
+                    for form, spec in specs.items():
+                        out_dtypes = (torch.int8,) if name == "requant_int8" else (dt, f32)
+                        for out_dtype in out_dtypes:
+                            def run(be, od, c=c, spec=spec):
+                                return ops.grouped_matmul(a, b, c, backend=be, out_dtype=od,
+                                                          epilogue=[spec])
+                            out = run("cuda", out_dtype)
+                            sync(torch, dev)
+                            check_close(torch, out, lambda od: run("torch", od), out_dtype,
+                                        f"grouped coverage {gc_}x{m}x{kk}x{n} {dt} C={c_name} "
+                                        f"{name}{form} -> {out_dtype}")
+                            n_cov += 1
+            # One long chain into fp16.
+            chain = ["gelu", ("scale", rows_["[G,N]"]), ("residual", full_op),
+                     ("mul", full_op), "relu", ("bias", rows_["[N]"])]
+            out = ops.grouped_matmul(a, b, cs["row"], backend="cuda", out_dtype=torch.float16,
+                                     epilogue=chain)
+            sync(torch, dev)
+            check_close(torch, out, lambda od: ops.grouped_matmul(
+                a, b, cs["row"], backend="torch", out_dtype=od, epilogue=chain),
+                torch.float16, f"grouped coverage chain {gc_}x{m}x{kk}x{n} {dt}")
+            n_cov += 1
+    log(f"grouped coverage: {n_cov} ragged/dtype/C/epilogue cases within tolerance")
+    return ffn, rows, max_err
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    """``obj.name = value`` inside the block; yields the original."""
+    orig = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield orig
+    finally:
+        setattr(obj, name, orig)
+
+
+def _fp64_plain(torch, ep):
+    """The plain versions' function with fp64 products and sums, rounded
+    once to fp32 before the epilogue: another valid summation order, to
+    measure how far routing drifts under rounding alone."""
+    def fn(a, b, c=None, *, out_dtype=None, epilogue=(), epilogue_operands=()):
+        acc = torch.matmul(a.double(), b.double()).float()
+        if c is not None:
+            acc = acc + (c.float()[:, None, :] if a.ndim == 3 and c.ndim == 2 else c.float())
+        acc = ep.apply_epilogue(acc, tuple(epilogue), tuple(epilogue_operands))
+        return acc.to(out_dtype or a.dtype)
+    return fn
+
+
+def _routed_prefill(api, moe_mod, cfg, params, tokens, backend):
+    """Prefill logits and every layer's (router params, router input,
+    top-k indices)."""
+    rec, orig = [], moe_mod._route
+
+    def recording(p, xf, top_k, backend=None):
+        out = orig(p, xf, top_k, backend)
+        rec.append((p, xf, out[2]))
+        return out
+
+    with _patched(moe_mod, "_route", recording):
+        logits, _ = api.prefill(cfg, params, {"tokens": tokens}, tokens.shape[1],
+                                backend=backend)
+    return logits, rec
+
+
+def _agreement(idx_a, idx_b):
+    """Share of top-k assignments of ``idx_a`` that ``idx_b`` also makes
+    (per token, in any order), per layer."""
+    return (idx_a[..., :, None] == idx_b[..., None, :]).any(-1).float().mean((-1, -2))
+
+
+def moe_phase(torch, np, cfg, ops, ep, k1, k4, dev):
+    """Phase 6: full-width deepseek-moe-16b."""
+    from repro_torch.models import api
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve import ContinuousEngine, ServeEngine, poisson_trace
+
+    n_k1, n_k4 = 8 * cfg.n_layers, 3 * cfg.n_layers  # launches per forward
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    sync(torch, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != api.param_count(cfg):
+        raise AssertionError(f"{n_params} parameters drawn, {api.param_count(cfg)} counted")
+    log(f"init {cfg.name}: {n_params / 1e9:.3f} B params "
+        f"({api.active_param_count(cfg) / 1e9:.3f} B active per token) on {dev} in "
+        f"{time.perf_counter() - t0:.1f} s; allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    # (a) routing in a full prefill on the kernels: the plain router on the
+    # same layer inputs (gated), and two free-running prefills (reported).
+    # Free-running, a 1-ulp difference upstream flips a near-tied expert
+    # choice and the flip grows through the later layers, so the same
+    # comparison between two valid summation orders of the plain versions
+    # (fp32 and fp64 sums) is printed beside it.
+    m = cfg.moe
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(dev)
+    with torch.inference_mode():
+        got, rec_c = _routed_prefill(api, moe_mod, cfg, params, tokens, "cuda")
+        ref, rec_t = _routed_prefill(api, moe_mod, cfg, params, tokens, "torch")
+        fp64 = _fp64_plain(torch, ep)
+        plain = ops.backend("torch")
+        with _patched(plain, "fn", fp64), _patched(plain, "grouped_fn", fp64):
+            _, rec_64 = _routed_prefill(api, moe_mod, cfg, params, tokens, "torch")
+        idx_c, idx_t, idx_64 = (torch.stack([r[2] for r in rec]) for rec in (rec_c, rec_t, rec_64))
+        idx_same = torch.stack([moe_mod._route(p, xf, m.top_k, "torch")[2] for p, xf, _ in rec_c])
+    if not (torch.isfinite(ref).all() and torch.isfinite(got).all()):
+        raise AssertionError("prefill logits not finite")
+    if tuple(got.shape) != (2, cfg.vocab) or tuple(idx_c.shape) != (cfg.n_layers, 128, m.top_k):
+        raise AssertionError(f"prefill logits {tuple(got.shape)}, routing {tuple(idx_c.shape)}")
+    same = _agreement(idx_c, idx_same).mean().item()
+    free, free_64 = _agreement(idx_c, idx_t), _agreement(idx_t, idx_64)
+    log(f"(a) prefill 2x64, {idx_c.numel()} routing assignments: plain router on the kernel "
+        f"run's layer inputs agrees on {same:.5f} (gated >= 0.99)")
+    log(f"(a) free-running prefills (not gated): kernels vs plain agree on "
+        f"{free.mean().item():.5f}, plain fp32 sums vs plain fp64 sums on "
+        f"{free_64.mean().item():.5f}; per layer (kernels vs plain) "
+        + " ".join(f"{x:.3f}" for x in free.tolist()))
+    log(f"(a) logits (not gated): max|dlogits| {(got - ref).abs().max().item():.4g}, max|logits| "
+        f"{ref.abs().max().item():.4g}, argmax agreement "
+        f"{(got.argmax(-1) == ref.argmax(-1)).float().mean().item():.2f}")
+    if same < 0.99:
+        raise AssertionError(f"routing agreement on the same layer inputs {same} < 0.99")
+    agree = {"same_input": same, "free_running": free.mean().item(),
+             "free_running_plain_fp32_vs_fp64": free_64.mean().item()}
+    del rec_c, rec_t, rec_64
+
+    # (a2) one full-width MoE layer on both backends with the same routing,
+    # taken from the kernel run's router: prefill- and decode-shaped inputs.
+    p = params["blocks"][0]["moe"]
+    kw = dict(n_experts=m.n_experts, top_k=m.top_k, capacity_factor=m.capacity_factor,
+              dispatch=m.dispatch, group_size=m.group_size, dropless=m.dropless)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    layer_err = 0.0
+    for shape in ((4, 128), (4, 1)):
+        x = torch.randn(shape + (cfg.d_model,), generator=gen, device=dev).to(torch.bfloat16)
+        with torch.inference_mode():
+            fixed = moe_mod._route(p, x.reshape(-1, cfg.d_model), m.top_k, "cuda")
+            with _patched(moe_mod, "_route", lambda *a, **k: fixed):
+                y_c, aux_c = moe_mod.moe_apply(p, x, backend="cuda", **kw)
+                y_t, aux_t = moe_mod.moe_apply(p, x, backend="torch", **kw)
+        delta, scale = (y_c.float() - y_t.float()).abs().max().item(), y_t.float().abs().max().item()
+        # Kernel and plain version differ by at most one bf16 ulp in the
+        # expert hidden state and the shared MLP's outputs; a few ulps of
+        # the largest output bound the layer.
+        if not torch.isfinite(y_c.float()).all() or delta > 2e-2 * scale:
+            raise AssertionError(f"MoE layer {shape}: max|dy| {delta} > 2e-2 * {scale}")
+        if abs(aux_c.item() - aux_t.item()) > 1e-6:
+            raise AssertionError(f"MoE layer {shape}: aux {aux_c.item()} != {aux_t.item()}")
+        layer_err = max(layer_err, delta)
+        log(f"(a) one MoE layer, tokens {shape}, fixed routing: max|dy| {delta:.4g} "
+            f"<= 2e-2 * max|y| {scale:.4g}")
+
+    # (b) the second main path: continuous batching over a Poisson trace.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        eng = ContinuousEngine(cfg=cfg, params=params, n_slots=4, max_len=256)
+    for w in caught:
+        log(f"(b) warning: {w.message}")
+    eng.serve(poisson_trace(2, seed=1, vocab=cfg.vocab, prompt_lens=(32,), gen_lens=(4,)))
+    trace = poisson_trace(8, seed=0, vocab=cfg.vocab, prompt_lens=(32, 64, 128),
+                          gen_lens=(8, 16, 32))
+    ops.reset_counts()
+    k1.opope_gemm.launches = 0
+    k4.opope_gemm_grouped.launches = 0
+    report = eng.timed_serve(trace)
+    launches = {"k1": k1.opope_gemm.launches, "k4": k4.opope_gemm_grouped.launches}
+    forwards = report.decode_steps + report.prefill_batches
+    plain = ops.backend("torch")
+    if (launches["k4"] != n_k4 * forwards or launches["k1"] != n_k1 * forwards
+            or plain.calls or plain.grouped_calls
+            or ops.backend("cuda").grouped_calls != launches["k4"]):
+        raise AssertionError(f"launches {launches} != K1 {n_k1 * forwards}, K4 "
+                             f"{n_k4 * forwards} (plain calls {plain.calls}, "
+                             f"{plain.grouped_calls} grouped)")
+    for r in trace:
+        out = report.outputs[r.rid]
+        if len(out) != r.max_new_tokens or not all(0 <= t < cfg.vocab for t in out):
+            raise AssertionError(f"request {r.rid}: bad output {out}")
+    log(f"(b) continuous: {len(trace)} requests, {report.generated_tokens} tokens, "
+        f"decode_steps {report.decode_steps}, prefill_batches {report.prefill_batches}, "
+        f"mean_occupancy {report.mean_occupancy:.3f}, wall {report.wall_time_s:.3f} s, "
+        f"{report.tokens_per_sec:.1f} tokens/s, TTFT p50 {report.ttft_p50 * 1e3:.1f} ms, "
+        f"ITL p50 {report.itl_p50 * 1e3:.1f} ms (host-issue times); K4 launches "
+        f"{launches['k4']} = 3 * {cfg.n_layers} * ({report.decode_steps} + "
+        f"{report.prefill_batches}), K1 launches {launches['k1']} = 8 * {cfg.n_layers} * (...)")
+    del eng
+
+    # (b) the lockstep engine.
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))).to(dev)
+    k1.opope_gemm.launches = k4.opope_gemm_grouped.launches = 0
+    t0 = time.perf_counter()
+    toks = ServeEngine(cfg=cfg, params=params, max_len=80).generate({"tokens": prompts}, 16)
+    toks_host = toks.cpu()
+    dt = time.perf_counter() - t0
+    if tuple(toks_host.shape) != (4, 16) or not ((toks_host >= 0) & (toks_host < cfg.vocab)).all():
+        raise AssertionError(f"static engine output {tuple(toks_host.shape)}")
+    if (k4.opope_gemm_grouped.launches, k1.opope_gemm.launches) != (n_k4 * 16, n_k1 * 16):
+        raise AssertionError(f"static launches K4 {k4.opope_gemm_grouped.launches}, "
+                             f"K1 {k1.opope_gemm.launches}")
+    log(f"(b) static: 4 x 64-token prompts, 16 tokens each in {dt:.3f} s "
+        f"({64 / dt:.1f} tokens/s), K4 launches {k4.opope_gemm_grouped.launches}, "
+        f"K1 launches {k1.opope_gemm.launches}")
+
+    # (c) one lockstep decode step at 4 rows.
+    with torch.inference_mode():
+        logits, caches = api.prefill(cfg, params, {"tokens": prompts}, 96)
+        tok = logits.argmax(-1)[:, None]
+        for i in range(3):
+            logits, caches = api.decode(cfg, params, tok, caches, 64 + i)
+        sync(torch, dev)
+        n_steps = 8
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            logits, caches = api.decode(cfg, params, tok, caches, 67 + i)
+        sync(torch, dev)
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        prof = None
+        if dev.type == "cuda":
+            prof = decode_profile(torch, lambda i: api.decode(cfg, params, tok, caches, 75 + i),
+                                  step_ms, tag="(c)")
+    # Byte bounds of the step's GEMMs: every weight read once (the 4 rows
+    # of activations add < 0.1 %); 3-D weights are the experts' (K4).
+    bound_ms = {"k1": 0.0, "k4": 0.0}
+    for t in _leaves(params["blocks"]):
+        if t.ndim >= 2:
+            bound_ms["k4" if t.ndim == 3 else "k1"] += (
+                1e3 * t.numel() * t.element_size() / HBM_BYTES_PER_S)
+    dev_ms = None
+    if prof is not None:
+        dev_ms = {name: sum(ms for key, ms, _ in prof if kernel in key)
+                  for name, kernel in (("k4", "opope_grouped_kernel"),
+                                       ("k1", "opope_gemm_kernel"))}
+        dev_ms["busy"] = sum(ms for _, ms, _ in prof)
+        dev_ms.update({f"{k}_byte_bound": v for k, v in bound_ms.items()})
+        log(f"(c) decode step, 4 rows: {step_ms:.3f} ms wall; device busy "
+            f"{dev_ms['busy']:.3f} ms, K4 {dev_ms['k4']:.3f} ms ({n_k4} launches, byte bound "
+            f"{bound_ms['k4']:.3f} ms), K1 {dev_ms['k1']:.3f} ms ({n_k1} launches, byte bound "
+            f"{bound_ms['k1']:.3f} ms)")
+    return {"continuous": report, "launches": launches, "decode_step_ms": step_ms,
+            "device_ms": dev_ms, "routing_agreement": agree, "layer_err": layer_err}
+
+
+def decode_profile(torch, step, step_ms, n_steps: int = 4, tag: str = "(d)"):
     """Device time by kernel over ``n_steps`` decode steps (torch.profiler),
     beside the steps' host wall time: the device's busy share (kernels run
     one at a time on the one stream) and the top kernels. Prints "not
-    measured" when the trace holds no device time."""
+    measured" and returns None when the trace holds no device time; else
+    returns ``(key, ms per step, launches per step)`` rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -330,12 +670,13 @@ def decode_profile(torch, step, step_ms, n_steps: int = 4) -> None:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in rows)
     if not rows:
-        log("(d) profiler: device time not measured (no device events in the trace)")
-        return
-    log(f"(d) profiled decode step: {wall_ms:.3f} ms host wall (unprofiled {step_ms:.3f} ms), "
+        log(f"{tag} profiler: device time not measured (no device events in the trace)")
+        return None
+    log(f"{tag} profiled decode step: {wall_ms:.3f} ms host wall (unprofiled {step_ms:.3f} ms), "
         f"{busy_ms:.3f} ms device busy ({100 * busy_ms / wall_ms:.1f}%)")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:10]:
-        log(f"(d)   {ms:8.3f} ms  x{count:<4d} {key[:90]}")
+        log(f"{tag}   {ms:8.3f} ms  x{count:<4d} {key[:90]}")
+    return rows
 
 
 def _leaves(tree):
@@ -367,6 +708,7 @@ def main() -> int:
     from repro_torch.kernels import epilogue as ep
     from repro_torch.kernels import ops
     from repro_torch.kernels import opope_gemm as kmod
+    from repro_torch.kernels import opope_grouped as k4mod
 
     smi = nvidia_smi()
     print(smi, flush=True)
@@ -397,12 +739,31 @@ def main() -> int:
     log(f"(d) lockstep decode step, 4 rows: {res['decode_step_ms']:.3f} ms wall; its "
         f"{7 * cfg.n_layers} GEMMs take {gemm_ms_step:.3f} ms on the kernel "
         f"(cold-L2 timings above; bound {cfg.n_layers * sums['bound_ms']:.3f} ms)")
+    # Free chatglm3-6b before deepseek-moe-16b's 33 GB are drawn.
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"allocated after chatglm3-6b: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    mcfg = get_config("deepseek-moe-16b")
+    ffn, g_rows, g_err = grouped_phase(torch, k4mod, ops, ep, mcfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mres = moe_phase(torch, np, mcfg, ops, ep, kmod, k4mod, dev)
+    # One MoE layer's 3 grouped GEMMs of a 4-slot decode step (capacity 1).
+    g_decode = [r for r in g_rows if r["m"] == 1]
+    g_sums = {key: sum(r[key] for r in g_decode)
+              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"(c) deepseek decode step: its {3 * mcfg.n_layers} grouped GEMMs take "
+        f"{mcfg.n_layers * g_sums['ms']:.3f} ms on K4 (cold-L2 timings above; byte bound "
+        f"{mcfg.n_layers * g_sums['bound_ms']:.3f} ms)")
+
     record = {
         "name": "opope_gemm",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/opope_gemm.cu",
         "replaces": "src/repro/kernels/opope_gemm.py:293",
-        "launches": res["launches"],
+        "launches": res["launches"] + mres["launches"]["k1"],
+        "launches_by_path": {cfg.name: res["launches"], mcfg.name: mres["launches"]["k1"]},
         "max_abs_err": max_err,
         "ms": sums["ms"],
         "plain_ms": sums["plain_ms"],
@@ -413,8 +774,27 @@ def main() -> int:
                 "(per-shape rows under 'shapes')",
         "shapes": rows,
     }
+    g_record = {
+        "name": "opope_gemm_grouped",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/opope_grouped.cu",
+        "replaces": "src/repro/kernels/opope_grouped.py:228",
+        "launches": mres["launches"]["k4"],
+        "launches_by_path": {mcfg.name: mres["launches"]["k4"]},
+        "max_abs_err": g_err,
+        "ms": g_sums["ms"],
+        "plain_ms": g_sums["plain_ms"],
+        "bound_ms": g_sums["bound_ms"],
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in g_decode) else "operations",
+        "library_ms": g_sums["library_ms"],
+        "work": "the 3 grouped GEMMs (64 experts) of one deepseek-moe-16b layer in a 4-slot "
+                "decode step (per-shape rows under 'shapes')",
+        "decode_step_device_ms": mres["device_ms"],
+        "routing_agreement": mres["routing_agreement"],
+        "shapes": g_rows,
+    }
     print(smi, flush=True)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [record, g_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,8 @@
 
 Each source compiles on first use into its own shared library with a plain C
 interface, loaded with :mod:`ctypes`. Libraries are named by a hash of their
-source, so an edited kernel rebuilds and an unchanged one loads at once.
+source and the shared headers (``csrc/*.cuh``), so an edited kernel rebuilds
+and an unchanged one loads at once.
 Nothing here runs at import time.
 
 The build directory is ``$REPRO_TORCH_BUILD_DIR`` when that is set, else
@@ -65,7 +66,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # The shared headers (csrc/*.cuh) are part of every kernel's source.
+    src = b"".join(p.read_bytes() for p in [CSRC_DIR / f"{name}.cu",
+                                            *sorted(CSRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}_{digest}.so"
 

@@ -19,7 +19,7 @@ full      ``[..., N]`` matching out    (M, N)
 
 Each op has an fp32 ``apply`` (the plain PyTorch version, used on the CPU
 and as the reference on the card) and a fixed integer code that the CUDA
-kernel (``csrc/opope_gemm.cu``) switches on. The names, kinds and fp32
+kernels (``csrc/opope_tile.cuh``) switch on. The names, kinds and fp32
 arithmetic match the JAX registry op for op.
 """
 
@@ -93,7 +93,7 @@ _register("scale", "row", lambda acc, o: acc * o)
 _register("requant_int8", "scalar", _requant_int8)
 
 # gelu 0, silu 1, swish 2, relu 3, bias 4, residual 5, mul 6, scale 7,
-# requant_int8 8 — the enum in csrc/opope_gemm.cu.
+# requant_int8 8 — the enum in csrc/opope_tile.cuh.
 OP_CODES: Dict[str, int] = {name: op.code for name, op in _REGISTRY.items()}
 
 
@@ -174,11 +174,17 @@ def canonicalize_operands(
     *,
     n: int,
     m: int,
+    groups: int = 0,
     device: Optional[torch.device] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Reshape raw operands broadcast-ready against the [M, N] accumulator:
-    scalar -> (1, 1) fp32; row [N] -> (1, N); full [..., N] -> (M, N).
-    Shapes are validated; dtypes other than the scalar's are kept."""
+    """Reshape raw operands broadcast-ready against the [M, N] (or, with
+    ``groups``, the [G, M, N]) accumulator, validating shapes:
+
+    dense:   scalar -> (1, 1) fp32;    row [N] -> (1, N);  full -> (M, N)
+    grouped: scalar -> (1, 1, 1) fp32; row [G, N] or [N] -> (G, 1, N);
+             full -> (G, M, N)
+
+    Dtypes other than the scalar's are kept."""
     out: List[torch.Tensor] = []
     it = iter(operands)
     for name in steps:
@@ -192,21 +198,31 @@ def canonicalize_operands(
                     f"epilogue op {name!r} wants a scalar operand; got "
                     f"shape {tuple(x.shape)}"
                 )
-            out.append(x.to(torch.float32).reshape(1, 1))
+            out.append(x.to(torch.float32).reshape((1, 1, 1) if groups else (1, 1)))
         elif kind == "row":
-            if tuple(x.shape) != (n,):
-                raise ValueError(
-                    f"epilogue op {name!r} row operand shape {tuple(x.shape)} "
-                    f"!= {(n,)}"
-                )
-            out.append(x.reshape(1, n))
+            if groups:
+                if tuple(x.shape) == (n,):
+                    x = x.expand(groups, n)
+                if tuple(x.shape) != (groups, n):
+                    raise ValueError(
+                        f"epilogue op {name!r} row operand shape {tuple(x.shape)} "
+                        f"!= {(groups, n)} (or broadcastable {(n,)})"
+                    )
+                out.append(x.reshape(groups, 1, n))
+            else:
+                if tuple(x.shape) != (n,):
+                    raise ValueError(
+                        f"epilogue op {name!r} row operand shape {tuple(x.shape)} "
+                        f"!= {(n,)}"
+                    )
+                out.append(x.reshape(1, n))
         else:
-            if x.numel() != m * n or x.shape[-1] != n:
+            if x.numel() != (groups or 1) * m * n or x.shape[-1] != n:
                 raise ValueError(
                     f"epilogue op {name!r} full operand shape {tuple(x.shape)} "
-                    f"incompatible with output [{m}, {n}]"
+                    f"incompatible with output {(groups, m, n) if groups else (m, n)}"
                 )
-            out.append(x.reshape(m, n))
+            out.append(x.reshape((groups, m, n) if groups else (m, n)))
     return tuple(out)
 
 

@@ -17,19 +17,20 @@ cast to ``out_dtype`` at the end.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 
 from . import build as _build
 from . import epilogue as _ep
 
-__all__ = ["opope_gemm", "opope_gemm_plain", "MAX_EPILOGUE_STEPS"]
+__all__ = ["opope_gemm", "opope_gemm_plain", "full_fp32", "MAX_EPILOGUE_STEPS"]
 
 MAX_EPILOGUE_STEPS = 8
 
-# dtype codes shared with csrc/opope_gemm.cu
+# dtype codes shared with csrc/opope_tile.cuh
 _DTYPE_CODES = {
     torch.float32: 0,
     torch.bfloat16: 1,
@@ -41,7 +42,7 @@ _OPERAND_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 class _Epilogue(ctypes.Structure):
-    """Mirror of ``struct OpopeEpilogue`` in csrc/opope_gemm.cu."""
+    """Mirror of ``struct OpopeEpilogue`` in csrc/opope_tile.cuh."""
 
     _fields_ = [
         ("n_steps", ctypes.c_int),
@@ -50,6 +51,18 @@ class _Epilogue(ctypes.Structure):
         ("dtype", ctypes.c_int * MAX_EPILOGUE_STEPS),
         ("ptr", ctypes.c_void_p * MAX_EPILOGUE_STEPS),
     ]
+
+
+@contextlib.contextmanager
+def full_fp32() -> Iterator[None]:
+    """fp32 products on the card in full fp32, never TF32, inside the block
+    (the plain versions and the model's fp32 einsums run in it)."""
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
 
 
 def _launcher():
@@ -79,6 +92,48 @@ def _check_shapes(a, b, c, out_dtype, epilogue, epilogue_operands):
     return m, n
 
 
+def _check_launch_operands(fn, a, b, c, out_dtype, epilogue, epilogue_operands):
+    """What a kernel launch takes: bf16 or fp32 inputs of one dtype, a known
+    out dtype, at most 8 epilogue steps, contiguous operands on one device."""
+    if a.dtype not in _IN_DTYPES or b.dtype != a.dtype:
+        raise TypeError(
+            f"{fn} takes bf16 or fp32 inputs of one dtype, got {a.dtype} @ {b.dtype}"
+        )
+    if out_dtype not in _DTYPE_CODES:
+        raise TypeError(f"unsupported out_dtype {out_dtype}")
+    if len(epilogue) > MAX_EPILOGUE_STEPS:
+        raise ValueError(f"at most {MAX_EPILOGUE_STEPS} epilogue steps, got {len(epilogue)}")
+    tensors = [a, b] + ([c] if c is not None else []) + list(epilogue_operands)
+    for t in tensors:
+        if t.device != a.device:
+            raise ValueError(f"operand on {t.device}, GEMM on {a.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn} takes contiguous operands")
+    for t in tensors[2:]:
+        if t.dtype not in _OPERAND_DTYPES:
+            raise TypeError(f"unsupported C/epilogue operand dtype {t.dtype}")
+
+
+def _epilogue_struct(epilogue, epilogue_operands, shapes) -> _Epilogue:
+    """The chain as the kernels' by-value struct; ``shapes`` maps each
+    operand kind to the canonical shape its operand must have."""
+    ep = _Epilogue()
+    ep.n_steps = len(epilogue)
+    it = iter(epilogue_operands)
+    for s, name in enumerate(epilogue):
+        op = _ep.op_def(name)
+        ep.op[s] = op.code
+        ep.kind[s] = _ep.KIND_CODES[op.kind]
+        if op.kind != "none":
+            x = next(it)
+            want = shapes[op.kind]
+            if tuple(x.shape) != want:
+                raise ValueError(f"epilogue {name!r} operand {tuple(x.shape)} != {want}")
+            ep.dtype[s] = _DTYPE_CODES[x.dtype]
+            ep.ptr[s] = x.data_ptr()
+    return ep
+
+
 def opope_gemm_plain(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -92,12 +147,8 @@ def opope_gemm_plain(
     C added in fp32, the epilogue chain in fp32, one cast."""
     out_dtype = out_dtype or a.dtype
     _check_shapes(a, b, c, out_dtype, epilogue, epilogue_operands)
-    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with full_fp32():
         acc = a.float() @ b.float()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
     if c is not None:
         acc = acc + c.float()
     acc = _ep.apply_epilogue(acc, tuple(epilogue), tuple(epilogue_operands))
@@ -131,39 +182,9 @@ def opope_gemm(
     out_dtype = out_dtype or a.dtype
     m, n = _check_shapes(a, b, c, out_dtype, epilogue, epilogue_operands)
     k = a.shape[1]
-    if a.dtype not in _IN_DTYPES or b.dtype != a.dtype:
-        raise TypeError(
-            f"opope_gemm takes bf16 or fp32 inputs of one dtype, got "
-            f"{a.dtype} @ {b.dtype}"
-        )
-    if out_dtype not in _DTYPE_CODES:
-        raise TypeError(f"unsupported out_dtype {out_dtype}")
-    if len(epilogue) > MAX_EPILOGUE_STEPS:
-        raise ValueError(f"at most {MAX_EPILOGUE_STEPS} epilogue steps, got {len(epilogue)}")
-    tensors = [a, b] + ([c] if c is not None else []) + list(epilogue_operands)
-    for t in tensors:
-        if t.device != a.device:
-            raise ValueError(f"operand on {t.device}, GEMM on {a.device}")
-        if not t.is_contiguous():
-            raise ValueError("opope_gemm takes contiguous operands")
-    for t in tensors[2:]:
-        if t.dtype not in _OPERAND_DTYPES:
-            raise TypeError(f"unsupported C/epilogue operand dtype {t.dtype}")
-
-    ep = _Epilogue()
-    ep.n_steps = len(epilogue)
-    it = iter(epilogue_operands)
-    for s, name in enumerate(epilogue):
-        op = _ep.op_def(name)
-        ep.op[s] = op.code
-        ep.kind[s] = _ep.KIND_CODES[op.kind]
-        if op.kind != "none":
-            x = next(it)
-            want = {"scalar": (1, 1), "row": (1, n), "full": (m, n)}[op.kind]
-            if tuple(x.shape) != want:
-                raise ValueError(f"epilogue {name!r} operand {tuple(x.shape)} != {want}")
-            ep.dtype[s] = _DTYPE_CODES[x.dtype]
-            ep.ptr[s] = x.data_ptr()
+    _check_launch_operands("opope_gemm", a, b, c, out_dtype, epilogue, epilogue_operands)
+    ep = _epilogue_struct(epilogue, epilogue_operands,
+                          {"scalar": (1, 1), "row": (1, n), "full": (m, n)})
 
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:

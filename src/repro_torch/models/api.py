@@ -1,6 +1,6 @@
 """Model API of the port: init, prefill and decode entry points.
 
-The port of :mod:`repro.models.api` for token-prompt dense decoders. Decode
+The port of :mod:`repro.models.api` for token-prompt dense and MoE decoders. Decode
 state is a list of per-layer :class:`KVCache`. ``init_params`` and
 ``init_state`` run on ``cuda`` unless the caller passes ``device="cpu"``;
 the other entry points run where their tensors are.
@@ -8,7 +8,7 @@ the other entry points run where their tensors are.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -24,6 +24,8 @@ __all__ = [
     "decode",
     "prefill_bucketed",
     "decode_at",
+    "param_count",
+    "active_param_count",
 ]
 
 
@@ -64,7 +66,7 @@ def prefill(
     """Process the full prompt; return (last-token logits [B, V], caches)."""
     tokens = batch["tokens"]
     caches = tf_mod.init_caches(cfg, tokens.shape[0], max_len, cache_dtype, tokens.device)
-    hidden, caches = tf_mod.lm_forward(
+    hidden, caches, _ = tf_mod.lm_forward(
         params, tokens, cfg, mode="prefill", caches=caches, backend=backend
     )
     return tf_mod.lm_logits(params, hidden[:, -1:], cfg)[:, 0], caches
@@ -78,7 +80,7 @@ def decode(
     -> (logits [B, V], caches)."""
     b = token.shape[0]
     positions = torch.full((b, 1), int(pos), dtype=torch.int64, device=token.device)
-    hidden, caches = tf_mod.lm_forward(
+    hidden, caches, _ = tf_mod.lm_forward(
         params, token, cfg, mode="decode", caches=caches, positions=positions,
         backend=backend,
     )
@@ -94,7 +96,7 @@ def prefill_bucketed(
     at each row's ``lengths[b] - 1`` are the unpadded prefill logits."""
     b, lb = tokens.shape
     caches = tf_mod.init_caches(cfg, b, lb, cache_dtype, tokens.device)
-    hidden, caches = tf_mod.lm_forward(
+    hidden, caches, _ = tf_mod.lm_forward(
         params, tokens, cfg, mode="prefill", caches=caches, backend=backend
     )
     rows = torch.arange(b, device=tokens.device)
@@ -111,8 +113,39 @@ def decode_at(
     layer's fill point."""
     pos = pos.to(torch.int64)
     caches = [KVCache(c.k, c.v, pos) for c in caches]
-    hidden, caches = tf_mod.lm_forward(
+    hidden, caches, _ = tf_mod.lm_forward(
         params, token, cfg, mode="decode", caches=caches, positions=pos[:, None],
         backend=backend,
     )
     return tf_mod.lm_logits(params, hidden, cfg)[:, 0], caches
+
+
+def _leaves(tree) -> Iterator[torch.Tensor]:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def param_count(cfg: ArchConfig) -> int:
+    """Parameters of ``cfg``, counted from shapes alone (on the meta
+    device, nothing is allocated)."""
+    params = tf_mod.init_lm_params(cfg, None, torch.device("meta"))
+    return sum(x.numel() for x in _leaves(params))
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Parameters one token runs through: the routed experts count
+    ``top_k`` of ``n_experts``."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    expert_params_per_layer = 3 * cfg.d_model * cfg.moe.d_ff_expert
+    n_moe_layers = cfg.n_periods * sum(1 for b in cfg.pattern if b.ffn == "moe")
+    routed_total = n_moe_layers * cfg.moe.n_experts * expert_params_per_layer
+    routed_active = n_moe_layers * cfg.moe.top_k * expert_params_per_layer
+    return total - routed_total + routed_active

@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -109,6 +110,17 @@ class ContinuousEngine:
 
     def __post_init__(self) -> None:
         check_supported(self.cfg)
+        if self.cfg.moe is not None and not self.cfg.moe.dropless:
+            # Token-choice capacity dropping routes by whole-batch content:
+            # one request's load would change another's outputs. Dropless
+            # routing is per-token, keeping slots independent.
+            warnings.warn(
+                "continuous batching with capacity-dropping MoE couples "
+                "requests through the router; set moe.dropless for "
+                "request-isolated serving",
+                RuntimeWarning,
+                stacklevel=2,
+            )
         for name in ("kv_format", "prefill_chunk", "prefix_cache", "slo_ttft_ms", "slo_itl_ms"):
             if getattr(self, name):
                 raise NotImplementedError(f"ContinuousEngine.{name} is not ported yet")

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card (marked ``gpu``; skips without one).
+"""The port's CUDA kernels on the card (marked ``gpu``; skips without one).
 
 Run on a machine with a GPU: ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``. This file imports no JAX, so it runs where only
@@ -17,7 +17,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import epilogue as tep
+from repro_torch.kernels import ops
 from repro_torch.kernels import opope_gemm as tk
+from repro_torch.kernels import opope_grouped as tg
 from repro_torch.models import api
 from repro_torch.serve import ContinuousEngine, poisson_trace
 
@@ -33,14 +35,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _check(got, a, b, c, out_dtype, steps, operands):
+def _check(got, a, b, c, out_dtype, steps, operands, plain=tk.opope_gemm_plain):
     if out_dtype == torch.int8:
-        want = tk.opope_gemm_plain(a, b, c, out_dtype=out_dtype, epilogue=steps,
-                                   epilogue_operands=operands)
+        want = plain(a, b, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=operands)
         assert (got.int() - want.int()).abs().max() <= 1
         return
-    ref = tk.opope_gemm_plain(a, b, c, out_dtype=torch.float32, epilogue=steps,
-                              epilogue_operands=operands)
+    ref = plain(a, b, c, out_dtype=torch.float32, epilogue=steps, epilogue_operands=operands)
     if out_dtype == torch.float32:
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-3)
     else:
@@ -81,8 +81,46 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         tk.opope_gemm(a, torch.ones((8, 4), device=cuda_device))
 
 
-def _reduced_bf16():
-    return dataclasses.replace(get_config("chatglm3-6b").reduced(), param_dtype="bfloat16")
+GROUPED_SHAPES = [(3, 5, 40, 24), (3, 130, 300, 200), (64, 1, 2048, 1408), (64, 30, 1408, 2048)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", GROUPED_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_grouped_kernel_matches_plain_for_every_op(cuda_device, shape, dtype):
+    g, m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(g + m + k + n)
+    a = torch.randn((g, m, k), generator=gen, device=cuda_device).to(dtype)
+    b = (torch.randn((g, k, n), generator=gen, device=cuda_device) * k ** -0.5).to(dtype)
+    row = torch.randn((g, 1, n), generator=gen, device=cuda_device)
+    full = torch.randn((g, m, n), generator=gen, device=cuda_device).to(dtype)
+    for c in (None, torch.randn((g, n), generator=gen, device=cuda_device).to(dtype), full):
+        for op in tep.epilogue_ops():
+            kind = tep.op_kind(op)
+            operands = {"none": (), "row": (row,), "full": (full,),
+                        "scalar": (torch.full((1, 1, 1), 0.05, device=cuda_device),)}[kind]
+            for out_dtype in ((torch.int8,) if op == "requant_int8" else (dtype, torch.float32)):
+                before = tg.opope_gemm_grouped.launches
+                got = tg.opope_gemm_grouped(a, b, c, out_dtype=out_dtype, epilogue=(op,),
+                                            epilogue_operands=operands)
+                torch.cuda.synchronize()
+                assert tg.opope_gemm_grouped.launches == before + 1
+                _check(got, a, b, c, out_dtype, (op,), operands,
+                       plain=tg.opope_gemm_grouped_plain)
+
+
+def test_grouped_kernel_rejects_what_it_does_not_take(cuda_device):
+    a = torch.ones((2, 4, 8), device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        tg.opope_gemm_grouped(a, a.transpose(1, 2).contiguous())
+    a = torch.ones((2, 8, 4), device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tg.opope_gemm_grouped(a, torch.ones((2, 8, 4), device=cuda_device))
+    with pytest.raises(ValueError):
+        ops.grouped_matmul(torch.ones((2, 4, 8)), torch.ones((2, 8, 4)), backend="cuda")
+
+
+def _reduced_bf16(arch="chatglm3-6b"):
+    return dataclasses.replace(get_config(arch).reduced(), param_dtype="bfloat16")
 
 
 def test_reduced_model_prefill_on_the_kernel_matches_the_plain_backend(cuda_device):
@@ -107,4 +145,17 @@ def test_continuous_engine_runs_every_gemm_on_the_kernel(cuda_device):
     report = ContinuousEngine(cfg=cfg, params=params, n_slots=2, max_len=32).serve(trace)
     launches = tk.opope_gemm.launches - before
     assert launches == 7 * cfg.n_layers * (report.decode_steps + report.prefill_batches)
+    assert all(len(report.outputs[r.rid]) == r.max_new_tokens for r in trace)
+
+
+def test_reduced_deepseek_serves_every_expert_gemm_on_the_grouped_kernel(cuda_device):
+    cfg = _reduced_bf16("deepseek-moe-16b")
+    params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    trace = poisson_trace(6, seed=1, vocab=cfg.vocab, prompt_lens=(5, 12, 20),
+                          gen_lens=(3, 7), mean_interarrival=1.0)
+    k1, k4 = tk.opope_gemm.launches, tg.opope_gemm_grouped.launches
+    report = ContinuousEngine(cfg=cfg, params=params, n_slots=2, max_len=32).serve(trace)
+    forwards = report.decode_steps + report.prefill_batches
+    assert tg.opope_gemm_grouped.launches - k4 == 3 * cfg.n_layers * forwards
+    assert tk.opope_gemm.launches - k1 == 8 * cfg.n_layers * forwards
     assert all(len(report.outputs[r.rid]) == r.max_new_tokens for r in trace)

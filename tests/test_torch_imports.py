@@ -45,10 +45,11 @@ def test_port_file_imports_neither_jax_nor_the_reference(path):
 
 def test_every_port_module_is_scanned():
     names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES[:-1]}
-    for mod in ("repro_torch/kernels/opope_gemm.py", "repro_torch/serve/continuous.py",
+    for mod in ("repro_torch/kernels/opope_gemm.py", "repro_torch/kernels/opope_grouped.py",
+                "repro_torch/models/moe.py", "repro_torch/serve/continuous.py",
                 "repro_torch/models/api.py", "repro_torch/configs/base.py"):
         assert mod in names
-    assert kbuild.sources() == ["opope_gemm"]
+    assert kbuild.sources() == ["opope_gemm", "opope_grouped"]
 
 
 @pytest.fixture
