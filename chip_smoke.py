@@ -50,6 +50,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 L2_BYTES = 50 * 2**20
+# Free-running full-prefill routing, kernels vs plain: at least the share
+# two plain summation orders (fp32, fp64) agree on in the same run, less
+# this margin, and never below the absolute floor.
+FREE_ROUTING_MARGIN = 0.02
+FREE_ROUTING_FLOOR = 0.9
 
 
 def log(msg: str) -> None:
@@ -495,11 +500,11 @@ def moe_phase(torch, np, cfg, ops, ep, k1, k4, dev):
         f"{time.perf_counter() - t0:.1f} s; allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
 
     # (a) routing in a full prefill on the kernels: the plain router on the
-    # same layer inputs (gated), and two free-running prefills (reported).
-    # Free-running, a 1-ulp difference upstream flips a near-tied expert
-    # choice and the flip grows through the later layers, so the same
-    # comparison between two valid summation orders of the plain versions
-    # (fp32 and fp64 sums) is printed beside it.
+    # same layer inputs, and two free-running prefills. Free-running, a
+    # 1-ulp difference upstream flips a near-tied expert choice and the flip
+    # grows through the later layers, so the kernels-vs-plain agreement is
+    # held to the floor this run measures between two valid summation
+    # orders of the plain versions (fp32 and fp64 sums), less a margin.
     m = cfg.moe
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(dev)
@@ -517,20 +522,25 @@ def moe_phase(torch, np, cfg, ops, ep, k1, k4, dev):
     if tuple(got.shape) != (2, cfg.vocab) or tuple(idx_c.shape) != (cfg.n_layers, 128, m.top_k):
         raise AssertionError(f"prefill logits {tuple(got.shape)}, routing {tuple(idx_c.shape)}")
     same = _agreement(idx_c, idx_same).mean().item()
-    free, free_64 = _agreement(idx_c, idx_t), _agreement(idx_t, idx_64)
+    free_l = _agreement(idx_c, idx_t)
+    free, free_64 = free_l.mean().item(), _agreement(idx_t, idx_64).mean().item()
+    free_min = max(free_64 - FREE_ROUTING_MARGIN, FREE_ROUTING_FLOOR)
     log(f"(a) prefill 2x64, {idx_c.numel()} routing assignments: plain router on the kernel "
         f"run's layer inputs agrees on {same:.5f} (gated >= 0.99)")
-    log(f"(a) free-running prefills (not gated): kernels vs plain agree on "
-        f"{free.mean().item():.5f}, plain fp32 sums vs plain fp64 sums on "
-        f"{free_64.mean().item():.5f}; per layer (kernels vs plain) "
-        + " ".join(f"{x:.3f}" for x in free.tolist()))
+    log(f"(a) free-running prefills: kernels vs plain agree on {free:.5f} (gated >= "
+        f"{free_min:.5f} = max(fp64 floor - {FREE_ROUTING_MARGIN}, {FREE_ROUTING_FLOOR})), "
+        f"plain fp32 sums vs plain fp64 sums (the floor) on {free_64:.5f}; per layer "
+        f"(kernels vs plain) " + " ".join(f"{x:.3f}" for x in free_l.tolist()))
     log(f"(a) logits (not gated): max|dlogits| {(got - ref).abs().max().item():.4g}, max|logits| "
         f"{ref.abs().max().item():.4g}, argmax agreement "
         f"{(got.argmax(-1) == ref.argmax(-1)).float().mean().item():.2f}")
     if same < 0.99:
         raise AssertionError(f"routing agreement on the same layer inputs {same} < 0.99")
-    agree = {"same_input": same, "free_running": free.mean().item(),
-             "free_running_plain_fp32_vs_fp64": free_64.mean().item()}
+    if free < free_min:
+        raise AssertionError(f"free-running routing agreement {free} < {free_min} "
+                             f"(fp64 floor {free_64})")
+    agree = {"same_input": same, "free_running": free,
+             "free_running_plain_fp32_vs_fp64": free_64}
     del rec_c, rec_t, rec_64
 
     # (a2) one full-width MoE layer on both backends with the same routing,

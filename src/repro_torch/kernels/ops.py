@@ -184,8 +184,6 @@ def grouped_matmul(
             f"grouped_matmul wants a [G, M, K] @ [G, K, N]; got "
             f"{tuple(a.shape)} @ {tuple(b.shape)}"
         )
-    if a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1]:
-        raise ValueError(f"bad grouped GEMM shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     out_dtype = out_dtype or a.dtype
     name = resolve_backend(backend, a.device)
     g, m, n = a.shape[0], a.shape[1], b.shape[2]
