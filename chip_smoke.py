@@ -26,7 +26,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
        backends with the same routing,
    (b) the continuous-batching engine on a Poisson trace — the second main
        path, whose K1 and K4 launches are counted — and the lockstep engine,
-   (c) a lockstep decode step's wall time beside its K1 and K4 device time.
+   (c) a lockstep decode step's wall time beside its K1 and K4 device time;
+7. the int8 GEMM kernels K2 and K5 against their plain versions on the card,
+   bitwise where the chain has no transcendental op, at the shapes of both
+   models' quantized GEMMs (timed beside ``torch._int_mm``, the card's bound
+   and one per-call weight quantization) and at small ragged shapes;
+8. full-width chatglm3-6b under ``mlp_q8_policy()`` (run after phase 4, on its
+   weights) and full-width deepseek-moe-16b under
+   ``PrecisionPolicy(rules={"moe": "q8"})`` (after phase 6): (a) one layer on
+   the kernels against the plain backends, (b) the all-layer prefill logits
+   against a floor this run measures, (c) the q8-vs-bf16 logit difference,
+   (d) the quantized main path — a 4 x 64-token prefill and 16 greedy decode
+   steps through ``api.prefill``/``api.decode`` with exact launch counts —
+   and (e) a decode step's wall and device time and its kernel split.
 
 The last lines are a JSON ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
@@ -49,12 +61,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
 L2_BYTES = 50 * 2**20
 # Free-running full-prefill routing, kernels vs plain: at least the share
 # two plain summation orders (fp32, fp64) agree on in the same run, less
 # this margin, and never below the absolute floor.
 FREE_ROUTING_MARGIN = 0.02
 FREE_ROUTING_FLOOR = 0.9
+# All-layer prefill logits under a q8 policy, kernels vs plain: their RMS
+# difference at most this many times that of two plain summation orders
+# (fp32, fp64) in the same run. An int8 value that rounds the other way
+# after a 1-ulp difference upstream moves the logits by one quantization
+# step in both comparisons alike.
+Q8_LOGIT_FLOOR_FACTOR = 3.0
 
 
 def log(msg: str) -> None:
@@ -92,7 +111,7 @@ def time_ms(torch, fn, n_bufs: int, iters: int = 0, warmup: int = 2) -> float:
 
 def ulp(torch, x, dtype):
     """One unit in the last place of ``dtype`` at the magnitude of ``x``."""
-    mant = {torch.bfloat16: 8, torch.float16: 11}[dtype]
+    mant = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}[dtype]
     _, e = torch.frexp(x.float())
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - mant)
 
@@ -332,7 +351,8 @@ def model_phase(torch, np, cfg, ops, kmod, dev):
         step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
         if dev.type == "cuda":
             decode_profile(torch, lambda i: api.decode(cfg, params, tok, caches, 83 + i), step_ms)
-    return {"continuous": report, "launches": launches, "decode_step_ms": step_ms}
+    return {"continuous": report, "launches": launches, "decode_step_ms": step_ms,
+            "params": params}
 
 
 def k4_plain(k4, a, b, c, steps, ops_):
@@ -656,7 +676,359 @@ def moe_phase(torch, np, cfg, ops, ep, k1, k4, dev):
             f"{bound_ms['k4']:.3f} ms), K1 {dev_ms['k1']:.3f} ms ({n_k1} launches, byte bound "
             f"{bound_ms['k1']:.3f} ms)")
     return {"continuous": report, "launches": launches, "decode_step_ms": step_ms,
-            "device_ms": dev_ms, "routing_agreement": agree, "layer_err": layer_err}
+            "device_ms": dev_ms, "routing_agreement": agree, "layer_err": layer_err,
+            "params": params}
+
+def q8_check(torch, out, want, transcendental, what):
+    """K2/K5 output against the plain version's on the same int8 inputs:
+    bitwise where the chain has no transcendental op (and for int8 out);
+    else within one ulp of the output dtype, plus 1e-6 of the largest
+    magnitude where gelu cancels. Returns the largest absolute difference."""
+    if out.dtype == torch.int8 or not transcendental:
+        if not torch.equal(out, want):
+            bad = (out != want).sum().item()
+            raise AssertionError(f"{what}: {bad} elements differ from the plain version "
+                                 "(bitwise gate)")
+        return 0.0
+    ref = want.float()
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError(f"{what}: non-finite output")
+    diff = (out.float() - ref).abs()
+    tol = ulp(torch, ref, out.dtype) + 1e-6 * ref.abs().max()
+    bad = (diff > tol).sum().item()
+    if bad:
+        raise AssertionError(f"{what}: {bad} elements beyond 1 ulp (max err {diff.max().item()})")
+    return diff.max().item() if out.numel() else 0.0
+
+
+def q8_bound(g, m, k, n, out_elem, n_full_operands):
+    """Least time in ms of one int8 GEMM (G = g groups) on the card, and what
+    bounds it: int8 A and B, the fp32 scales, the output and the bf16 full
+    operands moved once each, or 2MNK at the int8 tensor-core rate."""
+    nbytes = g * (m * k + k * n + 4 * (m + n) + out_elem * m * n + 2 * m * n * n_full_operands)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * g * m * n * k / INT8_OPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+Q8_CHAINS = {"none": (), "silu+mul": ("silu", "mul"), "residual": ("residual",),
+             "requant_int8": ("requant_int8",)}
+
+
+def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
+    """Phase 7. Returns the timing rows and the largest error of K2 and K5."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, dff = cfg.d_model, cfg.d_ff
+    md, mf, ne = mcfg.d_model, mcfg.moe.d_ff_expert, mcfg.moe.n_experts
+    msh = mcfg.moe.d_ff_shared or mcfg.moe.n_shared * mf
+    # The quantized GEMMs of one layer: (path, name, G (0: K2), Ms, K, N,
+    # chain on the path, out dtype on the path).
+    gemms = [
+        ("chatglm3-6b mlp", "w_up", 0, (4, 512), d, dff, "none", bf16),
+        ("chatglm3-6b mlp", "w_gate", 0, (4, 512), d, dff, "silu+mul", bf16),
+        ("chatglm3-6b mlp", "w_down", 0, (4, 512), dff, d, "residual", bf16),
+        ("deepseek-moe-16b shared", "w_up", 0, (4, 256), md, msh, "none", bf16),
+        ("deepseek-moe-16b shared", "w_gate", 0, (4, 256), md, msh, "silu+mul", bf16),
+        ("deepseek-moe-16b shared", "w_down", 0, (4, 256), msh, md, "residual", bf16),
+        ("deepseek-moe-16b experts", "w_up", ne, (1, 30, 60), md, mf, "none", bf16),
+        ("deepseek-moe-16b experts", "w_gate", ne, (1, 30, 60), md, mf, "silu+mul", bf16),
+        ("deepseek-moe-16b experts", "w_down", ne, (1, 30, 60), mf, md, "none", f32),
+    ]
+
+    def quantized(g, m, k, n):
+        """The path's int8 operands: bf16 activations and weights quantized
+        as the q8 backends do (per row / column, per group for K5)."""
+        lead = (g,) if g else ()
+        a = torch.randn(lead + (m, k), generator=gen, device=dev).to(bf16)
+        b = (torch.randn(lead + (k, n), generator=gen, device=dev) * k ** -0.5).to(bf16)
+        aq, bq = (qb.quantize_grouped_operands if g else qb.quantize_operands)(a, b)
+        return b, aq.q, aq.scale, bq.q, bq.scale
+
+    def chain_operands(chain, g, m, n, out_dtype):
+        steps = Q8_CHAINS[chain]
+        full = (torch.randn(((g,) if g else ()) + (m, n), generator=gen, device=dev).to(bf16),)
+        scalar = (torch.full((1, 1, 1) if g else (1, 1), 0.02, device=dev),)
+        ops_ = {"none": (), "silu+mul": full, "residual": full, "requant_int8": scalar}[chain]
+        return steps, ops_, (torch.int8 if chain == "requant_int8" else out_dtype)
+
+    errs = {"k2": 0.0, "k5": 0.0}
+    n_checks = 0
+    # Correctness at every path shape, every chain.
+    for g, ms, kk, n, out_dtype in sorted({(g, ms, kk, n, od) for _, _, g, ms, kk, n, _, od in gemms},
+                                          key=str):
+        kern, plain = ((q8.opope_gemm_q8_grouped, q8.opope_gemm_q8_grouped_plain) if g else
+                       (q8.opope_gemm_q8, q8.opope_gemm_q8_plain))
+        for m in ms:
+            _, a, sa, b, sb = quantized(g, m, kk, n)
+            for chain in Q8_CHAINS:
+                steps, ops_, od = chain_operands(chain, g, m, n, out_dtype)
+                out = kern(a, sa, b, sb, out_dtype=od, epilogue=steps, epilogue_operands=ops_)
+                sync(torch, dev)
+                want = plain(a, sa, b, sb, out_dtype=od, epilogue=steps, epilogue_operands=ops_)
+                what = f"q8 G={g} M={m} K={kk} N={n} {chain}"
+                err = q8_check(torch, out, want, "silu" in steps, what)
+                errs["k5" if g else "k2"] = max(errs["k5" if g else "k2"], err)
+                n_checks += 1
+                log(f"check {what} -> {str(od).replace('torch.', '')}: max_abs_err {err:.3g} ok")
+            del a, b, out, want
+
+    # Timing at the path's (shape, chain) pairs, weights cold in L2, beside
+    # the plain version, torch._int_mm (K2 only) and one per-call weight
+    # quantization (what the q8 backends run before each kernel).
+    rows = []
+    for path, name, g, ms, kk, n, chain, out_dtype in gemms:
+        kern, plain = ((q8.opope_gemm_q8_grouped, q8.opope_gemm_q8_grouped_plain) if g else
+                       (q8.opope_gemm_q8, q8.opope_gemm_q8_plain))
+        n_bufs = max(1, min(64, math.ceil(3 * L2_BYTES / (max(g, 1) * kk * n))))
+        bufs = [quantized(g, max(ms), kk, n) for _ in range(n_bufs)]
+        for m in ms:
+            a, sa = bufs[0][1][..., :m, :].contiguous(), bufs[0][2][..., :m, :].contiguous()
+            steps, ops_, _ = chain_operands(chain, g, m, n, out_dtype)
+
+            def run(fn, i):
+                return fn(a, sa, bufs[i][3], bufs[i][4], out_dtype=out_dtype, epilogue=steps,
+                          epilogue_operands=ops_)
+
+            ms_k = time_ms(torch, lambda i: run(kern, i), n_bufs)
+            ms_p = time_ms(torch, lambda i: run(plain, i), n_bufs)
+            ms_q = time_ms(torch, lambda i: qz.quantize(
+                bufs[i][0], "int8", axis=(0, 2) if g else 1), n_bufs, warmup=n_bufs)
+            lib_ms = None
+            if not g:
+                # torch._int_mm needs M > 16: M is padded to 32 with zero rows.
+                m_lib = 32 if m <= 16 else m
+                a_lib = torch.zeros((m_lib, kk), dtype=torch.int8, device=dev)
+                a_lib[:m] = a
+                sa_lib = torch.ones((m_lib, 1), device=dev)
+                sa_lib[:m] = sa
+                b_cm = [x[3].t().contiguous().t() for x in bufs]
+                lib_ms = time_ms(torch, lambda i: torch._int_mm(a_lib, b_cm[i]).float()
+                                 * (sa_lib * bufs[i][4]), n_bufs)
+                del b_cm
+            out = run(kern, 0)
+            err = q8_check(torch, out, run(plain, 0), "silu" in steps, f"timed {path} {name} M={m}")
+            out_elem = out.element_size()
+            bound_ms, bound_by = q8_bound(max(g, 1), m, kk, n, out_elem, len(ops_))
+            row = {"path": path, "name": name, "g": g, "m": m, "k": kk, "n": n, "epilogue": chain,
+                   "out_dtype": str(out_dtype).replace("torch.", ""), "ms": ms_k,
+                   "plain_ms": ms_p, "library_ms": lib_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "weight_quant_ms": ms_q, "max_abs_err": err}
+            rows.append(row)
+            log(f"time {path} {name} G={g} M={m} K={kk} N={n} chain={chain}: kernel {ms_k:.4f} ms, "
+                f"plain {ms_p:.4f} ms, "
+                + (f"torch._int_mm+dequant {lib_ms:.4f} ms (M padded to {m_lib}), " if lib_ms
+                   is not None else "")
+                + f"bound {bound_ms:.4f} ms ({bound_by}); per-call weight quantization "
+                f"{ms_q:.4f} ms")
+        del bufs
+
+    # Coverage: ragged shapes, every C form, op and out dtype; K5 with G = 3.
+    n_cov = 0
+    for g in (0, 3):
+        kern, plain = ((q8.opope_gemm_q8_grouped, q8.opope_gemm_q8_grouped_plain) if g else
+                       (q8.opope_gemm_q8, q8.opope_gemm_q8_plain))
+        lead = (g,) if g else ()
+        for m, kk, n in ((5, 40, 24), (130, 300, 200), (64, 1000, 192)):
+            a = torch.randint(-127, 128, lead + (m, kk), generator=gen, device=dev,
+                              dtype=torch.int8)
+            b = torch.randint(-127, 128, lead + (kk, n), generator=gen, device=dev,
+                              dtype=torch.int8)
+            sa = torch.rand(lead + (m, 1), generator=gen, device=dev) * 1e-3
+            sb = torch.rand(lead + (1, n), generator=gen, device=dev) * 1e-2
+            row_op = torch.randn(lead + (1, n) if g else (1, n), generator=gen, device=dev)
+            full_op = torch.randn(lead + (m, n), generator=gen, device=dev).to(bf16)
+            scalar = torch.full((1, 1, 1) if g else (1, 1), 0.05, device=dev)
+            cs = {"none": None, "row": torch.randn(lead + (n,), generator=gen, device=dev),
+                  "full": torch.randn(lead + (m, n), generator=gen, device=dev).to(bf16)}
+            for c_name, c in cs.items():
+                for name in ep.epilogue_ops():
+                    ops_ = {"none": (), "row": (row_op,), "full": (full_op,),
+                            "scalar": (scalar,)}[ep.op_kind(name)]
+                    for od in ((torch.int8,) if name == "requant_int8" else (f32, bf16)):
+                        out = kern(a, sa, b, sb, c, out_dtype=od, epilogue=(name,),
+                                   epilogue_operands=ops_)
+                        sync(torch, dev)
+                        want = plain(a, sa, b, sb, c, out_dtype=od, epilogue=(name,),
+                                     epilogue_operands=ops_)
+                        q8_check(torch, out, want, name in ("gelu", "silu", "swish"),
+                                 f"q8 coverage G={g} {m}x{kk}x{n} C={c_name} {name} -> {od}")
+                        n_cov += 1
+            chain = ("bias", "scale", "residual", "mul", "relu", "requant_int8")
+            ops_ = (cs["row"].reshape(row_op.shape), row_op, full_op, full_op, scalar)
+            out = kern(a, sa, b, sb, cs["full"], out_dtype=torch.int8, epilogue=chain,
+                       epilogue_operands=ops_)
+            q8_check(torch, out, plain(a, sa, b, sb, cs["full"], out_dtype=torch.int8,
+                                       epilogue=chain, epilogue_operands=ops_), False,
+                     f"q8 coverage chain G={g} {m}x{kk}x{n}")
+            n_cov += 1
+            # The int32 accumulator is exact: with unit scales and
+            # |acc| < 2^24 the fp32 output is the integer product.
+            ones_a, ones_b = torch.ones_like(sa), torch.ones_like(sb)
+            out = kern(a, ones_a, b, ones_b)
+            exact = torch.matmul(a.double(), b.double())
+            if exact.abs().max() >= 2 ** 24 or not torch.equal(out.double(), exact):
+                raise AssertionError(f"q8 G={g} {m}x{kk}x{n}: accumulator not exact")
+            n_cov += 1
+    # K5 at decode: experts no token reached hold zero rows (scale 1e-12/127,
+    # q = 0) and must give exactly zero outputs.
+    x = torch.randn((ne, 1, md), generator=gen, device=dev).to(bf16)
+    x[::2] = 0
+    w = (torch.randn((ne, md, mf), generator=gen, device=dev) * md ** -0.5).to(bf16)
+    xq, wq = qb.quantize_grouped_operands(x, w)
+    out = q8.opope_gemm_q8_grouped(xq.q, xq.scale, wq.q, wq.scale)
+    if out[::2].any() or not out[1::2].any():
+        raise AssertionError("K5: zero capacity rows did not give exactly zero outputs")
+    log(f"q8: {n_checks} path-shape checks, {n_cov} ragged/C/epilogue/accumulator cases and "
+        f"the zero-capacity decode case bitwise (transcendental chains within 1 ulp)")
+    return rows, errs
+
+
+def _greedy_decode(torch, api, cfg, params, prompts, gen, policy):
+    """``benchmarks/quant_bench.py::greedy_decode``: prefill with fp32
+    caches, then ``gen - 1`` greedy decode steps; returns [B, gen] tokens."""
+    logits, caches = api.prefill(cfg, params, {"tokens": prompts}, prompts.shape[1] + gen + 1,
+                                 torch.float32, backend=policy)
+    tok = logits.argmax(-1)[:, None]
+    out = [tok]
+    for i in range(gen - 1):
+        logits, caches = api.decode(cfg, params, tok, caches, prompts.shape[1] + i,
+                                    backend=policy)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"decode step {i}: non-finite logits")
+        tok = logits.argmax(-1)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1)
+
+
+def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops, ep, kernels,
+                   dev, tag):
+    """Phase 8 for one model on its full-width weights, under ``policy`` on
+    the kernels and ``plain_policy`` on the plain versions. ``per_layer``
+    maps each kernel name of ``kernels`` to its launches per layer and
+    forward on the quantized main path."""
+    from repro_torch.models import api
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf_mod
+
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(4)
+    # (a) one layer, both backends, the same input (and, for MoE, the
+    # kernel run's routing).
+    layer_err = 0.0
+    for shape in ((4, 64), (4, 1)):
+        x = torch.randn(shape + (cfg.d_model,), generator=gen, device=dev).to(torch.bfloat16)
+        pos = torch.arange(shape[1], device=dev).expand(shape)
+        rec, orig = [], moe_mod._route
+
+        def recording(*a, **k):
+            rec.append(orig(*a, **k))
+            return rec[-1]
+
+        with torch.inference_mode():
+            with _patched(moe_mod, "_route", recording):
+                y_k = tf_mod._block_apply(cfg, params["blocks"][0], x, positions=pos, cache=None,
+                                          backend=policy)[0]
+            with _patched(moe_mod, "_route", lambda *a, **k: rec[0] if rec else orig(*a, **k)):
+                y_p = tf_mod._block_apply(cfg, params["blocks"][0], x, positions=pos, cache=None,
+                                          backend=plain_policy)[0]
+        delta, scale = (y_k.float() - y_p.float()).abs().max().item(), y_p.float().abs().max().item()
+        # K1 and its plain version differ by at most one bf16 ulp; an int8
+        # value downstream may round the other way, one quantization step.
+        if not torch.isfinite(y_k.float()).all() or delta > 2e-2 * scale:
+            raise AssertionError(f"{tag} layer {shape}: max|dy| {delta} > 2e-2 * {scale}")
+        layer_err = max(layer_err, delta)
+        log(f"{tag} (a) one layer, tokens {shape}: kernels vs plain max|dy| {delta:.4g} "
+            f"<= 2e-2 * max|y| {scale:.4g}")
+
+    # (b) all-layer prefill logits: kernels vs plain, against two plain
+    # summation orders (fp32 and fp64 sums) of the same run.
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(dev)
+    with torch.inference_mode():
+        got, _ = api.prefill(cfg, params, {"tokens": tokens}, 64, backend=policy)
+        ref, _ = api.prefill(cfg, params, {"tokens": tokens}, 64, backend=plain_policy)
+        fp64 = _fp64_plain(torch, ep)
+        plain = ops.backend("torch")
+        with _patched(plain, "fn", fp64), _patched(plain, "grouped_fn", fp64):
+            ref64, _ = api.prefill(cfg, params, {"tokens": tokens}, 64, backend=plain_policy)
+        bf, _ = api.prefill(cfg, params, {"tokens": tokens}, 64)
+    for name, t in (("kernels", got), ("plain", ref), ("plain fp64", ref64)):
+        if not torch.isfinite(t).all() or tuple(t.shape) != (2, cfg.vocab):
+            raise AssertionError(f"{tag} prefill logits ({name}) {tuple(t.shape)} not finite")
+
+    def rms(x):
+        return x.double().pow(2).mean().sqrt().item()
+
+    d_k, d_f = rms(got - ref), rms(ref - ref64)
+    logit_gate = Q8_LOGIT_FLOOR_FACTOR * d_f
+    log(f"{tag} (b) prefill 2x64 logits: kernels vs plain RMS {d_k:.4g} (max {(got - ref).abs().max().item():.4g}); "
+        f"plain fp32 vs fp64 sums RMS {d_f:.4g} (the floor; gate {Q8_LOGIT_FLOOR_FACTOR} x = "
+        f"{logit_gate:.4g}); max|logits| {ref.abs().max().item():.4g}; argmax agreement "
+        f"{(got.argmax(-1) == ref.argmax(-1)).float().mean().item():.2f}")
+    if d_k > logit_gate:
+        raise AssertionError(f"{tag} prefill logits: kernels vs plain RMS {d_k} > "
+                             f"{Q8_LOGIT_FLOOR_FACTOR} x floor {d_f}")
+    q8_vs_bf16 = {"rms": rms(got - bf), "max": (got - bf).abs().max().item(),
+                  "max_logit": bf.abs().max().item(),
+                  "argmax_agreement": (got.argmax(-1) == bf.argmax(-1)).float().mean().item()}
+    log(f"{tag} (c) q8 vs bf16 prefill logits (not gated): RMS {q8_vs_bf16['rms']:.4g}, "
+        f"max {q8_vs_bf16['max']:.4g} of max|logits| {q8_vs_bf16['max_logit']:.4g}, argmax "
+        f"agreement {q8_vs_bf16['argmax_agreement']:.2f}")
+    del got, ref, ref64, bf
+
+    # (d) the quantized main path: a 4 x 64-token prefill and 16 greedy
+    # decode steps through api.prefill / api.decode, every launch counted.
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))).to(dev)
+    n_fwd = 17
+    ops.reset_counts()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        toks = _greedy_decode(torch, api, cfg, params, prompts, n_fwd, policy)
+        toks_host = toks.cpu()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    want = {name: per_layer.get(name, 0) * L * n_fwd for name in kernels}
+    plain_calls = {name: (ops.backend(name).calls, ops.backend(name).grouped_calls)
+                   for name in ("torch", "torch_q8")}
+    if launches != want or any(sum(c) for c in plain_calls.values()):
+        raise AssertionError(f"{tag} launches {launches} != {want} (plain calls {plain_calls})")
+    if tuple(toks_host.shape) != (4, n_fwd) or not ((toks_host >= 0) & (toks_host < cfg.vocab)).all():
+        raise AssertionError(f"{tag} greedy tokens {tuple(toks_host.shape)}")
+    log(f"{tag} (d) greedy 4 x 64 prompt + 16 decode steps in {wall:.3f} s "
+        f"({4 * n_fwd / wall:.1f} tokens/s); launches {launches} = per layer "
+        f"{per_layer} x {L} layers x {n_fwd} forwards; plain calls 0")
+
+    # (e) one decode step at 4 rows: wall time and its kernel split.
+    with torch.inference_mode():
+        logits, caches = api.prefill(cfg, params, {"tokens": prompts}, 96, backend=policy)
+        tok = logits.argmax(-1)[:, None]
+        for i in range(3):
+            logits, caches = api.decode(cfg, params, tok, caches, 64 + i, backend=policy)
+        sync(torch, dev)
+        n_steps = 8
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            logits, caches = api.decode(cfg, params, tok, caches, 67 + i, backend=policy)
+        sync(torch, dev)
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        prof = decode_profile(torch, lambda i: api.decode(cfg, params, tok, caches, 75 + i,
+                                                          backend=policy), step_ms, tag=f"{tag} (e)")
+    dev_ms = None
+    if prof is not None:
+        names = {"K1": "opope_gemm_kernel", "K4": "opope_grouped_kernel",
+                 "K2": "opope_q8_gemm_kernel", "K5": "opope_q8_grouped_kernel"}
+        dev_ms = {k: sum(ms for key, ms, _ in prof if v in key) for k, v in names.items()}
+        dev_ms["busy"] = sum(ms for _, ms, _ in prof)
+        dev_ms["other"] = dev_ms["busy"] - sum(dev_ms[k] for k in names)
+        log(f"{tag} (e) decode step, 4 rows: {step_ms:.3f} ms wall; device busy "
+            f"{dev_ms['busy']:.3f} ms: " + ", ".join(f"{k} {dev_ms[k]:.3f} ms" for k in names)
+            + f", other kernels (the per-call quantization passes among them) "
+            f"{dev_ms['other']:.3f} ms")
+    return {"launches": launches, "layer_err": layer_err, "logits_rms": d_k,
+            "logits_floor_rms": d_f, "q8_vs_bf16": q8_vs_bf16, "greedy_s": wall,
+            "decode_step_ms": step_ms, "device_ms": dev_ms}
 
 
 def decode_profile(torch, step, step_ms, n_steps: int = 4, tag: str = "(d)"):
@@ -719,6 +1091,9 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels import opope_gemm as kmod
     from repro_torch.kernels import opope_grouped as k4mod
+    from repro_torch import quant as qz
+    from repro_torch.quant import backends as q8b
+    from repro_torch.quant import opope_q8 as q8mod
 
     smi = nvidia_smi()
     print(smi, flush=True)
@@ -749,16 +1124,29 @@ def main() -> int:
     log(f"(d) lockstep decode step, 4 rows: {res['decode_step_ms']:.3f} ms wall; its "
         f"{7 * cfg.n_layers} GEMMs take {gemm_ms_step:.3f} ms on the kernel "
         f"(cold-L2 timings above; bound {cfg.n_layers * sums['bound_ms']:.3f} ms)")
+    # Phases 7 and 8 on chatglm3-6b's weights: the int8 kernels at both
+    # models' shapes, then chatglm3-6b under mlp_q8_policy().
+    mcfg = get_config("deepseek-moe-16b")
+    q8_rows, q8_errs = q8_kernel_phase(torch, q8mod, qz, q8b, ep, cfg, mcfg, dev)
+    kernels = {"K1": kmod.opope_gemm, "K4": k4mod.opope_gemm_grouped,
+               "K2": q8mod.opope_gemm_q8, "K5": q8mod.opope_gemm_q8_grouped}
+    glm_q8 = q8_model_phase(
+        torch, np, cfg, res.pop("params"), qz.mlp_q8_policy(),
+        qz.PrecisionPolicy(rules={"mlp": "torch_q8", "moe": "torch_q8"}, default="torch"),
+        {"K1": 4, "K2": 3}, ops, ep, kernels, dev, "8 chatglm3-6b q8")
     # Free chatglm3-6b before deepseek-moe-16b's 33 GB are drawn.
     gc.collect()
     torch.cuda.empty_cache()
     log(f"allocated after chatglm3-6b: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
 
-    mcfg = get_config("deepseek-moe-16b")
     ffn, g_rows, g_err = grouped_phase(torch, k4mod, ops, ep, mcfg, dev)
     gc.collect()
     torch.cuda.empty_cache()
     mres = moe_phase(torch, np, mcfg, ops, ep, kmod, k4mod, dev)
+    ds_q8 = q8_model_phase(
+        torch, np, mcfg, mres.pop("params"), qz.PrecisionPolicy(rules={"moe": "q8"}),
+        qz.PrecisionPolicy(rules={"moe": "torch_q8"}, default="torch"),
+        {"K1": 5, "K2": 3, "K5": 3}, ops, ep, kernels, dev, "8 deepseek-moe-16b q8")
     # One MoE layer's 3 grouped GEMMs of a 4-slot decode step (capacity 1).
     g_decode = [r for r in g_rows if r["m"] == 1]
     g_sums = {key: sum(r[key] for r in g_decode)
@@ -767,13 +1155,16 @@ def main() -> int:
         f"{mcfg.n_layers * g_sums['ms']:.3f} ms on K4 (cold-L2 timings above; byte bound "
         f"{mcfg.n_layers * g_sums['bound_ms']:.3f} ms)")
 
+    k1_paths = {cfg.name: res["launches"], mcfg.name: mres["launches"]["k1"],
+                f"{cfg.name} q8": glm_q8["launches"]["K1"],
+                f"{mcfg.name} q8": ds_q8["launches"]["K1"]}
     record = {
         "name": "opope_gemm",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/opope_gemm.cu",
         "replaces": "src/repro/kernels/opope_gemm.py:293",
-        "launches": res["launches"] + mres["launches"]["k1"],
-        "launches_by_path": {cfg.name: res["launches"], mcfg.name: mres["launches"]["k1"]},
+        "launches": sum(k1_paths.values()),
+        "launches_by_path": k1_paths,
         "max_abs_err": max_err,
         "ms": sums["ms"],
         "plain_ms": sums["plain_ms"],
@@ -790,7 +1181,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/opope_grouped.cu",
         "replaces": "src/repro/kernels/opope_grouped.py:228",
         "launches": mres["launches"]["k4"],
-        "launches_by_path": {mcfg.name: mres["launches"]["k4"]},
+        "launches_by_path": {mcfg.name: mres["launches"]["k4"],
+                             f"{mcfg.name} q8": ds_q8["launches"]["K4"]},
         "max_abs_err": g_err,
         "ms": g_sums["ms"],
         "plain_ms": g_sums["plain_ms"],
@@ -803,8 +1195,53 @@ def main() -> int:
         "routing_agreement": mres["routing_agreement"],
         "shapes": g_rows,
     }
+    # K2: the 3 MLP GEMMs of one chatglm3-6b layer in a 4-slot decode step;
+    # K5: the 3 expert GEMMs of one deepseek-moe-16b layer (capacity 1).
+    q8_records = []
+    for name, src_line, sel, paths, work, lib in (
+            ("opope_gemm_q8", 243, lambda r: r["path"] == "chatglm3-6b mlp" and r["m"] == 4,
+             {f"{cfg.name} q8": glm_q8["launches"]["K2"],
+              f"{mcfg.name} q8": ds_q8["launches"]["K2"]},
+             "the 3 MLP GEMMs of one chatglm3-6b layer in a 4-slot decode step",
+             "torch._int_mm (M padded to 32 where M <= 16) plus the dequant multiply"),
+            ("opope_gemm_q8_grouped", 451,
+             lambda r: r["path"] == "deepseek-moe-16b experts" and r["m"] == 1,
+             {f"{mcfg.name} q8": ds_q8["launches"]["K5"]},
+             "the 3 grouped expert GEMMs (64 experts) of one deepseek-moe-16b layer in a "
+             "4-slot decode step",
+             "none: no single PyTorch call computes a grouped int8 GEMM")):
+        sel_rows = [r for r in q8_rows if sel(r)]
+        sums = {key: sum(r[key] for r in sel_rows)
+                for key in ("ms", "plain_ms", "bound_ms", "weight_quant_ms")}
+        q8_records.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/opope_q8.cu",
+            "replaces": f"src/repro/quant/pallas_q8.py:{src_line}",
+            "launches": sum(paths.values()),
+            "launches_by_path": paths,
+            "max_abs_err": q8_errs["k5" if "grouped" in name else "k2"],
+            "ms": sums["ms"],
+            "plain_ms": sums["plain_ms"],
+            "bound_ms": sums["bound_ms"],
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in sel_rows) else "operations",
+            "library_ms": (sum(r["library_ms"] for r in sel_rows) if "grouped" not in name
+                           else None),
+            "library": lib,
+            "weight_quant_ms": sums["weight_quant_ms"],
+            "work": work + " (per-shape rows of both models under 'shapes')",
+            "decode_step_device_ms": (glm_q8 if "grouped" not in name else ds_q8)["device_ms"],
+            "shapes": [r for r in q8_rows if (r["g"] > 0) == ("grouped" in name)],
+        })
+        log(f"{name}: {work}: kernel {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, "
+            f"bound {sums['bound_ms']:.4f} ms; per-call weight quantization of the same "
+            f"weights {sums['weight_quant_ms']:.4f} ms")
+    for tag, r in (("chatglm3-6b q8", glm_q8), ("deepseek-moe-16b q8", ds_q8)):
+        log(f"{tag}: prefill logits kernels vs plain RMS {r['logits_rms']:.4g} (floor "
+            f"{r['logits_floor_rms']:.4g}); q8 vs bf16 RMS {r['q8_vs_bf16']['rms']:.4g}; "
+            f"decode step {r['decode_step_ms']:.3f} ms wall")
     print(smi, flush=True)
-    print(json.dumps({"kernels": [record, g_record]}), flush=True)
+    print(json.dumps({"kernels": [record, g_record] + q8_records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,9 @@
 The port of :mod:`repro.models.api` for token-prompt dense and MoE decoders. Decode
 state is a list of per-layer :class:`KVCache`. ``init_params`` and
 ``init_state`` run on ``cuda`` unless the caller passes ``device="cpu"``;
-the other entry points run where their tensors are.
+the other entry points run where their tensors are. Their ``backend=`` is a
+backend name of :mod:`repro_torch.kernels.ops` or a precision policy
+(:class:`repro_torch.quant.PrecisionPolicy`), resolved per layer role.
 """
 
 from __future__ import annotations

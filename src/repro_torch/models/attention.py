@@ -20,7 +20,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import ops
-from .layers import Initializer, apply_rope, dense_init
+from .layers import Initializer, apply_rope, dense_init, role_backend
 
 __all__ = [
     "NEG_INF",
@@ -192,7 +192,7 @@ def attention_apply(
     cache: Optional[KVCache] = None,
     q_chunk: int = 512,
     kv_chunk: int = 1024,
-    backend: Optional[str] = None,
+    backend=None,
     residual: Optional[torch.Tensor] = None,
     chunk: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
@@ -201,14 +201,16 @@ def attention_apply(
 
     Modes: ``cache is None`` — prefill without cache; ``cache`` and one token
     — decode (append, attend); ``cache`` and a longer ``x`` — prefill that
-    fills and returns the cache. Chunked prefill is not ported yet.
+    fills and returns the cache. Chunked prefill is not ported yet. The
+    projections take the policy roles ``attn_qkv`` and ``attn_out``.
     """
     if chunk:
         raise NotImplementedError("chunked prefill is not ported yet")
     b, s, _ = x.shape
-    q = ops.linear(x, params["wq"]["w"], params["wq"].get("b"), backend=backend)
-    k = ops.linear(x, params["wk"]["w"], params["wk"].get("b"), backend=backend)
-    v = ops.linear(x, params["wv"]["w"], params["wv"].get("b"), backend=backend)
+    qkv_be = role_backend(backend, "attn_qkv")
+    q = ops.linear(x, params["wq"]["w"], params["wq"].get("b"), backend=qkv_be)
+    k = ops.linear(x, params["wk"]["w"], params["wk"].get("b"), backend=qkv_be)
+    v = ops.linear(x, params["wv"]["w"], params["wv"].get("b"), backend=qkv_be)
     q = q.reshape(b, s, n_heads, head_dim)
     k = k.reshape(b, s, n_kv, head_dim)
     v = v.reshape(b, s, n_kv, head_dim)
@@ -231,7 +233,8 @@ def attention_apply(
             cache.v[:, :s] = v.reshape(b, s, n_kv * head_dim).to(cache.v.dtype)
             new_cache = KVCache(cache.k, cache.v, s)
     out = ops.matmul(
-        o.reshape(b, s, n_heads * head_dim), params["wo"]["w"], backend=backend,
+        o.reshape(b, s, n_heads * head_dim), params["wo"]["w"],
+        backend=role_backend(backend, "attn_out"),
         epilogue=[("residual", residual)] if residual is not None else None,
     )
     return out, new_cache

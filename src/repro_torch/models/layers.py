@@ -3,6 +3,10 @@
 The port of :mod:`repro.models.layers`. Every matrix multiply goes through
 :func:`repro_torch.kernels.ops.matmul`, the O-POPE GEMM path. Norms compute
 in fp32 whatever the parameter dtype and cast back.
+
+Every ``backend=`` here is a backend name or a precision policy (anything
+with ``backend_for(role)``, e.g. :class:`repro_torch.quant.PrecisionPolicy`);
+each GEMM site resolves it for its role through :func:`role_backend`.
 """
 
 from __future__ import annotations
@@ -14,11 +18,13 @@ import torch
 
 from repro_torch.kernels import epilogue as _epilogue
 from repro_torch.kernels import ops
+from repro_torch.quant.quantize import QuantizedTensor
 
 __all__ = [
     "ACT2FN",
     "activation_fn",
     "Initializer",
+    "role_backend",
     "dense_init",
     "embedding_init",
     "rmsnorm_init",
@@ -43,6 +49,13 @@ def activation_fn(name: str):
         raise ValueError(
             f"unknown activation {name!r}; known: {sorted(ACT2FN)}"
         ) from None
+
+
+def role_backend(backend, role: str):
+    """The backend of one layer role: ``backend`` itself when it is a name
+    (or None), else ``backend.backend_for(role)`` (a precision policy)."""
+    resolver = getattr(backend, "backend_for", None)
+    return resolver(role) if resolver is not None else backend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,22 +167,39 @@ def mlp_init(d_model: int, d_ff: int, init: Initializer, *, gated: bool = True):
 
 def mlp_apply(
     params, x: torch.Tensor, *, activation: str = "silu", backend=None,
-    residual: Optional[torch.Tensor] = None,
+    role: str = "mlp", residual: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """SwiGLU (default) / GeGLU / plain MLP on the O-POPE matmul path.
 
     The activation and the gating multiply ride the gate GEMM's epilogue;
     ``residual`` rides the down projection's. ``up`` is cast to ``x.dtype``
-    before it becomes the ``mul`` operand, as in the reference.
+    before it becomes the ``mul`` operand, as in the reference. ``role``
+    keys the policy lookup (the shared-expert MLP of an MoE block passes
+    ``"moe"``). When the policy gives the role a ``requant_for`` scale and
+    a q8 backend, the gate GEMM writes the hidden activation on the int8
+    grid of that scale (a ``requant_int8`` epilogue step) and the down GEMM
+    consumes it pre-quantized.
     """
     activation_fn(activation)
+    resolver = getattr(backend, "requant_for", None)
+    rq = resolver(role) if resolver is not None else None
+    be = role_backend(backend, role)
+    if rq is not None and ops.family_of(ops.resolve_backend(be, x.device)) != "q8":
+        rq = None  # an int8 output only feeds a quantized consumer
     if "w_gate" in params:
-        up = ops.matmul(x, params["w_up"], backend=backend)
+        up = ops.matmul(x, params["w_up"], backend=be)
         hidden_ep = [activation, ("mul", up)]
         w_act = params["w_gate"]
     else:
         hidden_ep = [activation]
         w_act = params["w_up"]
-    h = ops.matmul(x, w_act, backend=backend, epilogue=hidden_ep, out_dtype=x.dtype)
+    if rq is not None:
+        scale = torch.tensor(rq, dtype=torch.float32, device=x.device)
+        h_q = ops.matmul(x, w_act, backend=be, epilogue=[*hidden_ep, ("requant_int8", scale)],
+                         out_dtype=torch.int8)
+        h = QuantizedTensor(h_q, scale)
+    else:
+        h = ops.matmul(x, w_act, backend=be, epilogue=hidden_ep, out_dtype=x.dtype)
     down_ep = [("residual", residual)] if residual is not None else None
-    return ops.matmul(h, params["w_down"], backend=backend, epilogue=down_ep)
+    return ops.matmul(h, params["w_down"], backend=be, epilogue=down_ep,
+                      out_dtype=x.dtype if rq is not None else None)

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.opope_gemm import full_fp32
-from .layers import Initializer, mlp_apply, mlp_init
+from .layers import Initializer, mlp_apply, mlp_init, role_backend
 
 __all__ = ["moe_init", "moe_apply", "router_load_balancing_loss"]
 
@@ -102,19 +102,21 @@ def moe_apply(
     dispatch: str = "sort",
     group_size: int = 512,
     dropless: bool = False,
-    backend: Optional[str] = None,
+    backend=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y, aux_loss).
 
     Tokens are routed in groups of ``group_size`` with per-group capacity
     (GShard semantics). ``dropless=True`` sets capacity to the group size,
     so no assignment can overflow. With shared experts, the routed sum rides
-    the shared MLP's down projection as its ``residual`` epilogue.
+    the shared MLP's down projection as its ``residual`` epilogue. Policy
+    roles: the router GEMM ``router``; the routed experts and the shared
+    MLP ``moe``.
     """
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
-    gates, top_vals, top_idx = _route(params, xf, top_k, backend)
+    gates, top_vals, top_idx = _route(params, xf, top_k, role_backend(backend, "router"))
     # Routing groups: the largest divisor of T that is <= group_size.
     g = min(group_size, t)
     while t % g:
@@ -127,15 +129,16 @@ def moe_apply(
     xg = xf.reshape(n_groups, g, d)
     vg = top_vals.reshape(n_groups, g, top_k)
     ig = top_idx.reshape(n_groups, g, top_k)
+    expert_be = role_backend(backend, "moe")
     if dispatch == "onehot":
-        y = _dispatch_onehot(params, xg, vg, ig, n_experts, capacity, backend)
+        y = _dispatch_onehot(params, xg, vg, ig, n_experts, capacity, expert_be)
     elif dispatch == "sort":
-        y = _dispatch_sort(params, xg, vg, ig, n_experts, capacity, backend)
+        y = _dispatch_sort(params, xg, vg, ig, n_experts, capacity, expert_be)
     else:
         raise ValueError(f"unknown MoE dispatch {dispatch!r}")
     y = y.reshape(t, d)
     if "shared" in params:
-        y = mlp_apply(params["shared"], xf, backend=backend, residual=y)
+        y = mlp_apply(params["shared"], xf, backend=backend, role="moe", residual=y)
     mask = _one_hot(top_idx, n_experts, torch.float32).sum(1)
     aux = router_load_balancing_loss(gates, mask)
     return y.reshape(b, s, d), aux

@@ -168,11 +168,12 @@ def lm_forward(
     mode: str = "prefill",
     caches: Optional[List[KVCache]] = None,
     positions: Optional[torch.Tensor] = None,
-    backend: Optional[str] = None,
+    backend=None,
 ) -> Tuple[torch.Tensor, Optional[List[KVCache]], torch.Tensor]:
     """Run the backbone. tokens: [B, S] -> (final-normed hidden [B, S, D],
     new caches or None, the MoE load-balancing loss summed over layers as a
-    0-d fp32 tensor, zero without MoE layers)."""
+    0-d fp32 tensor, zero without MoE layers). ``backend`` is a backend name
+    or a precision policy; each GEMM site resolves its own role."""
     check_supported(cfg)
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"lm_forward mode {mode!r} is not ported yet")

@@ -1,0 +1,296 @@
+"""int8 O-POPE GEMMs (K2, K5): the hand-written CUDA kernels and their plain
+versions.
+
+Ports :func:`repro.quant.pallas_q8.opope_gemm_q8` and
+:func:`repro.quant.pallas_q8.opope_gemm_q8_grouped` (the Pallas TPU kernels).
+All four functions here compute
+
+    O = epilogue((A_q @ B_q) * (a_scale * b_scale) (+ C)), one cast
+
+on int8 operands with fp32 scales: the int8 product is summed exactly in
+int32, then dequantized with the scale product formed first, C added in
+fp32, the epilogue chain run in fp32, and one cast to ``out_dtype`` (fp32 by
+default; bf16, fp16, or int8 behind ``requant_int8``).
+
+* :func:`opope_gemm_q8` / :func:`opope_gemm_q8_grouped` launch
+  ``kernels/csrc/opope_q8.cu`` for tensors on the card (design notes there
+  and in ``opope_q8_tile.cuh``) and raise on what the kernels do not take.
+  Given tensors on the CPU they run the plain versions: the kernels have no
+  CPU form. ``.launches`` counts kernel launches.
+* :func:`opope_gemm_q8_plain` / :func:`opope_gemm_q8_grouped_plain` form the
+  exact integer product (an int32 matmul on the CPU; on the card an fp64
+  one, exact while |acc| < 2^53, never fp32 or TF32), then the same
+  writeback: the CPU path and the reference the kernels are held against.
+
+The int32 accumulator is exact while K * 127^2 < 2^31, i.e. K <= ``MAX_K``;
+longer products raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels import epilogue as _ep
+from repro_torch.kernels.opope_gemm import (
+    _DTYPE_CODES,
+    _OPERAND_DTYPES,
+    MAX_EPILOGUE_STEPS,
+    _Epilogue,
+    _epilogue_struct,
+)
+
+__all__ = [
+    "MAX_K",
+    "opope_gemm_q8",
+    "opope_gemm_q8_plain",
+    "opope_gemm_q8_grouped",
+    "opope_gemm_q8_grouped_plain",
+]
+
+MAX_K = (2**31 - 1) // (127 * 127)
+
+
+def _launcher(name: str, grouped: bool):
+    fn = getattr(_build.load("opope_q8"), name)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([p] * 5 + [i] * (4 if grouped else 3) + [p] + [i] * 5
+                       + [ctypes.POINTER(_Epilogue), p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_common(k, c, c_shapes, out_dtype, epilogue, epilogue_operands):
+    if k > MAX_K:
+        raise ValueError(f"K = {k} > {MAX_K}: the int32 accumulator of int8 products "
+                         "could overflow")
+    if c is not None and tuple(c.shape) not in c_shapes:
+        raise ValueError(f"C preload shape {tuple(c.shape)} != one of {c_shapes}")
+    if out_dtype == torch.int8 and (not epilogue or epilogue[-1] != "requant_int8"):
+        raise ValueError("int8 output needs an epilogue chain ending in requant_int8")
+    n_ops = sum(1 for s in epilogue if _ep.op_kind(s) != "none")
+    if n_ops != len(epilogue_operands):
+        raise ValueError(
+            f"epilogue {epilogue} takes {n_ops} operands, got {len(epilogue_operands)}"
+        )
+
+
+def _check_shapes(a_q, a_scale, b_q, b_scale, c, out_dtype, epilogue, epilogue_operands):
+    if a_q.ndim != 2 or b_q.ndim != 2 or a_q.shape[1] != b_q.shape[0]:
+        raise ValueError(f"bad GEMM shapes {tuple(a_q.shape)} @ {tuple(b_q.shape)}")
+    (m, k), n = a_q.shape, b_q.shape[1]
+    if tuple(a_scale.shape) != (m, 1):
+        raise ValueError(f"a_scale shape {tuple(a_scale.shape)} != {(m, 1)}")
+    if tuple(b_scale.shape) != (1, n):
+        raise ValueError(f"b_scale shape {tuple(b_scale.shape)} != {(1, n)}")
+    _check_common(k, c, ((n,), (m, n)), out_dtype, epilogue, epilogue_operands)
+    return m, n, k
+
+
+def _check_grouped_shapes(a_q, a_scale, b_q, b_scale, c, out_dtype, epilogue,
+                          epilogue_operands):
+    if (a_q.ndim != 3 or b_q.ndim != 3 or a_q.shape[0] != b_q.shape[0]
+            or a_q.shape[2] != b_q.shape[1]):
+        raise ValueError(f"bad grouped GEMM shapes {tuple(a_q.shape)} @ {tuple(b_q.shape)}")
+    (g, m, k), n = a_q.shape, b_q.shape[2]
+    if tuple(a_scale.shape) != (g, m, 1):
+        raise ValueError(f"a_scale shape {tuple(a_scale.shape)} != {(g, m, 1)}")
+    if tuple(b_scale.shape) != (g, 1, n):
+        raise ValueError(f"b_scale shape {tuple(b_scale.shape)} != {(g, 1, n)}")
+    _check_common(k, c, ((g, n), (g, m, n)), out_dtype, epilogue, epilogue_operands)
+    return g, m, n, k
+
+
+def _check_launch_operands(fn, a_q, a_scale, b_q, b_scale, c, out_dtype, epilogue,
+                           epilogue_operands):
+    """What a kernel launch takes: int8 values, fp32 scales, a known out
+    dtype, at most 8 epilogue steps, contiguous operands on one device."""
+    if a_q.dtype != torch.int8 or b_q.dtype != torch.int8:
+        raise TypeError(f"{fn} takes int8 values, got {a_q.dtype} @ {b_q.dtype}")
+    if a_scale.dtype != torch.float32 or b_scale.dtype != torch.float32:
+        raise TypeError(f"{fn} takes fp32 scales, got {a_scale.dtype}, {b_scale.dtype}")
+    if out_dtype not in _DTYPE_CODES:
+        raise TypeError(f"unsupported out_dtype {out_dtype}")
+    if len(epilogue) > MAX_EPILOGUE_STEPS:
+        raise ValueError(f"at most {MAX_EPILOGUE_STEPS} epilogue steps, got {len(epilogue)}")
+    rest = ([c] if c is not None else []) + list(epilogue_operands)
+    for t in [a_q, a_scale, b_q, b_scale] + rest:
+        if t.device != a_q.device:
+            raise ValueError(f"operand on {t.device}, GEMM on {a_q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn} takes contiguous operands")
+    for t in rest:
+        if t.dtype not in _OPERAND_DTYPES:
+            raise TypeError(f"unsupported C/epilogue operand dtype {t.dtype}")
+
+
+def _exact_product(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
+    """The exact integer product of int8 operands (2-D or batched 3-D)."""
+    if a_q.device.type == "cpu":
+        return torch.matmul(a_q.to(torch.int32), b_q.to(torch.int32))
+    # No integer matmul on the card outside _int_mm; fp64 is exact here.
+    return torch.matmul(a_q.double(), b_q.double())
+
+
+def _writeback(acc, a_scale, b_scale, c, out_dtype, epilogue, epilogue_operands):
+    out = acc.float() * (a_scale.float() * b_scale.float())
+    if c is not None:
+        cf = c.float()
+        out = out + (cf[:, None, :] if acc.ndim == 3 and c.ndim == 2 else cf)
+    out = _ep.apply_epilogue(out, tuple(epilogue), tuple(epilogue_operands))
+    return out.to(out_dtype)
+
+
+def opope_gemm_q8_plain(
+    a_q: torch.Tensor,
+    a_scale: torch.Tensor,
+    b_q: torch.Tensor,
+    b_scale: torch.Tensor,
+    c: Optional[torch.Tensor] = None,
+    *,
+    out_dtype: Optional[torch.dtype] = None,
+    epilogue: Tuple[str, ...] = (),
+    epilogue_operands: Tuple[torch.Tensor, ...] = (),
+) -> torch.Tensor:
+    """Plain PyTorch ``epilogue((A_q @ B_q) * (a_scale * b_scale) (+ C))``:
+    the exact integer product, the same writeback as the kernel."""
+    out_dtype = out_dtype or torch.float32
+    _check_shapes(a_q, a_scale, b_q, b_scale, c, out_dtype, epilogue, epilogue_operands)
+    return _writeback(_exact_product(a_q, b_q), a_scale, b_scale, c, out_dtype,
+                      epilogue, epilogue_operands)
+
+
+def opope_gemm_q8_grouped_plain(
+    a_q: torch.Tensor,
+    a_scale: torch.Tensor,
+    b_q: torch.Tensor,
+    b_scale: torch.Tensor,
+    c: Optional[torch.Tensor] = None,
+    *,
+    out_dtype: Optional[torch.dtype] = None,
+    epilogue: Tuple[str, ...] = (),
+    epilogue_operands: Tuple[torch.Tensor, ...] = (),
+) -> torch.Tensor:
+    """Plain PyTorch grouped ``epilogue((A_q[g] @ B_q[g]) * (a_scale[g] *
+    b_scale[g]) (+ C[g]))``: the exact batched integer product, the same
+    writeback as the kernel."""
+    out_dtype = out_dtype or torch.float32
+    _check_grouped_shapes(a_q, a_scale, b_q, b_scale, c, out_dtype, epilogue,
+                          epilogue_operands)
+    return _writeback(_exact_product(a_q, b_q), a_scale, b_scale, c, out_dtype,
+                      epilogue, epilogue_operands)
+
+
+def _launch(fn_name, grouped, a_q, a_scale, b_q, b_scale, c, out, dims, out_dtype, ep):
+    k = a_q.shape[-1]
+    n = b_q.shape[-1]
+    # 16-byte A vectors stay inside a row (and every group's base aligned)
+    # when K is a multiple of 16; 4-byte B words likewise when N is of 4.
+    vec_a = k % 16 == 0 and a_q.data_ptr() % 16 == 0
+    vec_b = n % 4 == 0 and b_q.data_ptr() % 4 == 0
+    c_kind = 0 if c is None else (3 if c.ndim == a_q.ndim else 2)
+    launch = _launcher(fn_name, grouped)
+    with torch.cuda.device(a_q.device):
+        stream = torch.cuda.current_stream(a_q.device).cuda_stream
+        rc = launch(
+            a_q.data_ptr(), a_scale.data_ptr(), b_q.data_ptr(), b_scale.data_ptr(),
+            out.data_ptr(), *dims, None if c is None else c.data_ptr(), c_kind,
+            0 if c is None else _DTYPE_CODES[c.dtype], _DTYPE_CODES[out_dtype],
+            int(vec_a), int(vec_b), ctypes.byref(ep), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {rc}")
+
+
+def opope_gemm_q8(
+    a_q: torch.Tensor,
+    a_scale: torch.Tensor,
+    b_q: torch.Tensor,
+    b_scale: torch.Tensor,
+    c: Optional[torch.Tensor] = None,
+    *,
+    out_dtype: Optional[torch.dtype] = None,
+    epilogue: Tuple[str, ...] = (),
+    epilogue_operands: Tuple[torch.Tensor, ...] = (),
+) -> torch.Tensor:
+    """``O = epilogue((A_q @ B_q) * (a_scale * b_scale) (+ C))`` on the
+    hand-written CUDA kernel K2.
+
+    a_q: [M, K] int8 with row scales a_scale [M, 1] fp32; b_q: [K, N] int8
+    with column scales b_scale [1, N] fp32; c: [M, N] or [N]; all
+    contiguous. ``epilogue_operands`` carries one canonical operand per
+    operand-taking step (scalar ``(1,1)``, row ``(1,N)``, full ``(M,N)``).
+    ``out_dtype`` defaults to fp32.
+    """
+    if a_q.device.type == "cpu":
+        return opope_gemm_q8_plain(
+            a_q, a_scale, b_q, b_scale, c, out_dtype=out_dtype, epilogue=epilogue,
+            epilogue_operands=epilogue_operands,
+        )
+    if a_q.device.type != "cuda":
+        raise ValueError(f"opope_gemm_q8 runs on cuda tensors, got {a_q.device}")
+    out_dtype = out_dtype or torch.float32
+    m, n, k = _check_shapes(a_q, a_scale, b_q, b_scale, c, out_dtype, epilogue,
+                            epilogue_operands)
+    _check_launch_operands("opope_gemm_q8", a_q, a_scale, b_q, b_scale, c, out_dtype,
+                           epilogue, epilogue_operands)
+    ep = _epilogue_struct(epilogue, epilogue_operands,
+                          {"scalar": (1, 1), "row": (1, n), "full": (m, n)})
+    out = torch.empty((m, n), dtype=out_dtype, device=a_q.device)
+    if m == 0 or n == 0:
+        return out
+    _launch("opope_q8_gemm_launch", False, a_q, a_scale, b_q, b_scale, c, out,
+            (m, n, k), out_dtype, ep)
+    opope_gemm_q8.launches += 1
+    return out
+
+
+def opope_gemm_q8_grouped(
+    a_q: torch.Tensor,
+    a_scale: torch.Tensor,
+    b_q: torch.Tensor,
+    b_scale: torch.Tensor,
+    c: Optional[torch.Tensor] = None,
+    *,
+    out_dtype: Optional[torch.dtype] = None,
+    epilogue: Tuple[str, ...] = (),
+    epilogue_operands: Tuple[torch.Tensor, ...] = (),
+) -> torch.Tensor:
+    """Grouped ``O[g] = epilogue((A_q[g] @ B_q[g]) * (a_scale[g] *
+    b_scale[g]) (+ C[g]))`` on the hand-written CUDA kernel K5, every group
+    in one launch.
+
+    a_q: [G, M, K] int8 with scales [G, M, 1]; b_q: [G, K, N] int8 with
+    scales [G, 1, N]; c: [G, M, N] or [G, N]; all contiguous.
+    ``epilogue_operands``: scalar ``(1,1,1)``, row ``(G,1,N)``, full
+    ``(G,M,N)``. ``out_dtype`` defaults to fp32.
+    """
+    if a_q.device.type == "cpu":
+        return opope_gemm_q8_grouped_plain(
+            a_q, a_scale, b_q, b_scale, c, out_dtype=out_dtype, epilogue=epilogue,
+            epilogue_operands=epilogue_operands,
+        )
+    if a_q.device.type != "cuda":
+        raise ValueError(f"opope_gemm_q8_grouped runs on cuda tensors, got {a_q.device}")
+    out_dtype = out_dtype or torch.float32
+    g, m, n, k = _check_grouped_shapes(a_q, a_scale, b_q, b_scale, c, out_dtype,
+                                       epilogue, epilogue_operands)
+    _check_launch_operands("opope_gemm_q8_grouped", a_q, a_scale, b_q, b_scale, c,
+                           out_dtype, epilogue, epilogue_operands)
+    ep = _epilogue_struct(epilogue, epilogue_operands,
+                          {"scalar": (1, 1, 1), "row": (g, 1, n), "full": (g, m, n)})
+    out = torch.empty((g, m, n), dtype=out_dtype, device=a_q.device)
+    if g == 0 or m == 0 or n == 0:
+        return out
+    _launch("opope_q8_grouped_launch", True, a_q, a_scale, b_q, b_scale, c, out,
+            (g, m, n, k), out_dtype, ep)
+    opope_gemm_q8_grouped.launches += 1
+    return out
+
+
+opope_gemm_q8.launches = 0
+opope_gemm_q8_grouped.launches = 0

@@ -6,7 +6,11 @@ the port's dependencies are installed. Tolerances are those of
 ``chip_smoke.py``: fp32 out rtol 1e-4 / atol 1e-3 against the plain version;
 bf16 out within one bf16 ulp of the plain fp32 result (plus 1e-5 of its
 largest magnitude, for sum-order noise where it nearly cancels); int8 within
-1 (a rounding boundary may fall between two sum orders).
+1 (a rounding boundary may fall between two sum orders). The int8 kernels
+(K2, K5) sum exactly, so they are held bitwise against their plain versions
+for every chain without a transcendental op, and within one ulp of the
+output dtype (plus 1e-6 of the largest magnitude, where gelu cancels) with
+one.
 """
 
 import dataclasses
@@ -21,6 +25,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import opope_gemm as tk
 from repro_torch.kernels import opope_grouped as tg
 from repro_torch.models import api
+from repro_torch.quant import opope_q8 as tq8
+from repro_torch.quant import PrecisionPolicy, mlp_q8_policy
 from repro_torch.serve import ContinuousEngine, poisson_trace
 
 pytestmark = pytest.mark.gpu
@@ -159,3 +165,90 @@ def test_reduced_deepseek_serves_every_expert_gemm_on_the_grouped_kernel(cuda_de
     assert tg.opope_gemm_grouped.launches - k4 == 3 * cfg.n_layers * forwards
     assert tk.opope_gemm.launches - k1 == 8 * cfg.n_layers * forwards
     assert all(len(report.outputs[r.rid]) == r.max_new_tokens for r in trace)
+
+
+Q8_SHAPES = [(5, 40, 24), (130, 300, 200), (4, 4096, 256), (64, 1408, 2048)]
+TRANSCENDENTAL = {"gelu", "silu", "swish"}
+
+
+def _check_q8(got, want, op):
+    if op not in TRANSCENDENTAL or got.dtype == torch.int8:
+        assert torch.equal(got, want)
+        return
+    ref = want.float()
+    _, e = torch.frexp(ref)
+    mant = {torch.float32: 24, torch.bfloat16: 8}[got.dtype]
+    tol = torch.ldexp(torch.ones_like(ref), e - mant) + 1e-6 * ref.abs().max()
+    assert ((got.float() - ref).abs() <= tol).all()
+
+
+def _q8_operands(gen, dev, lead, k, n):
+    a = torch.randint(-127, 128, lead + (k,), generator=gen, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, lead[:-1] + (k, n), generator=gen, device=dev, dtype=torch.int8)
+    sa = torch.rand(lead + (1,), generator=gen, device=dev) * 1e-3
+    sb = torch.rand(lead[:-1] + (1, n), generator=gen, device=dev) * 1e-2
+    return a, sa, b, sb
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["k2", "k5"])
+@pytest.mark.parametrize("shape", Q8_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_int8_kernels_match_plain_for_every_op(cuda_device, shape, grouped):
+    m, k, n = shape
+    g = 3 if grouped else 0
+    lead = (g, m) if grouped else (m,)
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n + g)
+    a, sa, b, sb = _q8_operands(gen, cuda_device, lead, k, n)
+    row = torch.randn(((g, 1, n) if grouped else (1, n)), generator=gen, device=cuda_device)
+    full = torch.randn(lead + (n,), generator=gen, device=cuda_device).to(torch.bfloat16)
+    crow = torch.randn(((g, n) if grouped else (n,)), generator=gen, device=cuda_device)
+    kern, plain = ((tq8.opope_gemm_q8_grouped, tq8.opope_gemm_q8_grouped_plain) if grouped
+                   else (tq8.opope_gemm_q8, tq8.opope_gemm_q8_plain))
+    scalar = torch.full((1,) * (3 if grouped else 2), 0.05, device=cuda_device)
+    for c in (None, crow, full):
+        for op in tep.epilogue_ops():
+            kind = tep.op_kind(op)
+            operands = {"none": (), "row": (row,), "full": (full,), "scalar": (scalar,)}[kind]
+            for out_dtype in ((torch.int8,) if op == "requant_int8" else
+                              (torch.float32, torch.bfloat16)):
+                before = kern.launches
+                got = kern(a, sa, b, sb, c, out_dtype=out_dtype, epilogue=(op,),
+                           epilogue_operands=operands)
+                torch.cuda.synchronize()
+                assert kern.launches == before + 1
+                want = plain(a, sa, b, sb, c, out_dtype=out_dtype, epilogue=(op,),
+                             epilogue_operands=operands)
+                _check_q8(got, want, op)
+
+
+def test_int8_accumulator_is_exact(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    a, _, b, _ = _q8_operands(gen, cuda_device, (64,), 1000, 192)
+    ones_a, ones_b = torch.ones((64, 1), device=cuda_device), torch.ones((1, 192), device=cuda_device)
+    got = tq8.opope_gemm_q8(a, ones_a, b, ones_b)
+    exact = a.double() @ b.double()
+    assert exact.abs().max() < 2 ** 24
+    assert torch.equal(got.double(), exact)
+
+
+@pytest.mark.parametrize("arch,policy,counts", [
+    ("chatglm3-6b", mlp_q8_policy(), {"k1": 4, "k2": 3, "k5": 0}),
+    ("deepseek-moe-16b", PrecisionPolicy(rules={"moe": "q8"}), {"k1": 5, "k2": 3, "k5": 3}),
+], ids=["chatglm3-6b", "deepseek-moe-16b"])
+def test_reduced_models_under_the_q8_policy_run_on_the_kernels(cuda_device, arch, policy, counts):
+    cfg = _reduced_bf16(arch)
+    params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 24)))
+    tokens = tokens.to(cuda_device)
+    plain_policy = dataclasses.replace(
+        policy, rules={r: "torch_q8" for r in policy.rules}, default="torch")
+    with torch.inference_mode():
+        ref, _ = api.prefill(cfg, params, {"tokens": tokens}, 32, backend=plain_policy)
+        before = {"k1": tk.opope_gemm.launches, "k2": tq8.opope_gemm_q8.launches,
+                  "k5": tq8.opope_gemm_q8_grouped.launches}
+        got, _ = api.prefill(cfg, params, {"tokens": tokens}, 32, backend=policy)
+    after = {"k1": tk.opope_gemm.launches, "k2": tq8.opope_gemm_q8.launches,
+             "k5": tq8.opope_gemm_q8_grouped.launches}
+    assert {k: after[k] - before[k] for k in after} == {
+        k: v * cfg.n_layers for k, v in counts.items()}
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()

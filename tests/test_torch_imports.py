@@ -47,9 +47,11 @@ def test_every_port_module_is_scanned():
     names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES[:-1]}
     for mod in ("repro_torch/kernels/opope_gemm.py", "repro_torch/kernels/opope_grouped.py",
                 "repro_torch/models/moe.py", "repro_torch/serve/continuous.py",
-                "repro_torch/models/api.py", "repro_torch/configs/base.py"):
+                "repro_torch/models/api.py", "repro_torch/configs/base.py",
+                "repro_torch/quant/quantize.py", "repro_torch/quant/policy.py",
+                "repro_torch/quant/opope_q8.py", "repro_torch/quant/backends.py"):
         assert mod in names
-    assert kbuild.sources() == ["opope_gemm", "opope_grouped"]
+    assert kbuild.sources() == ["opope_gemm", "opope_grouped", "opope_q8"]
 
 
 @pytest.fixture
