@@ -38,7 +38,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    against a floor this run measures, (c) the q8-vs-bf16 logit difference,
    (d) the quantized main path — a 4 x 64-token prefill and 16 greedy decode
    steps through ``api.prefill``/``api.decode`` with exact launch counts —
-   and (e) a decode step's wall and device time and its kernel split.
+   and (e) a decode step's wall and device time and its kernel split;
+9. after deepseek-moe-16b's weights are freed, the ``kernels`` entry points
+   of K3 and K6: (a) ``opope_attention_bhsd`` at chatglm3-6b's attention
+   width (32 heads of 128, its 2 KV heads expanded) at a 4 x 2048 causal
+   prefill, a 512-row continuation over 2048 keys, a decode row and a
+   non-causal call, and ``opope_chunked_scan`` at jamba-v0.1's mamba scan
+   width (8192 x 16 columns, 4096 steps) — the slice's main path, its
+   launches counted — each against its plain version (K6 bitwise), timed
+   beside SDPA (K3) and the bound, plus ragged fp32/bf16 cases and
+   chatglm3-6b's prefill_32k sequence (kernel and SDPA only); (b) the
+   prefill against the model's own ``blockwise_attention``.
 
 The last lines are a JSON ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
@@ -144,9 +154,11 @@ def check_close(torch, out, plain, out_dtype, what):
     return err
 
 
-def k1_plain(kmod, a, b, c, steps, ops_):
+def k1_plain(a, b, c, steps, ops_):
     """K1's plain version on these inputs, as a function of the out dtype."""
-    return lambda out_dtype: kmod.opope_gemm_plain(
+    from repro_torch.kernels.opope_gemm import opope_gemm_plain
+
+    return lambda out_dtype: opope_gemm_plain(
         a, b, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ops_)
 
 
@@ -159,9 +171,11 @@ def gemm_bound(m, k, n, n_full_operands, elem=2):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(torch, kmod, ep, cfg, dev):
+def kernel_phase(torch, ep, cfg, dev):
     """Phase 3. Returns the layer's GEMMs, the per-shape timing rows and the
     largest error."""
+    from repro_torch.kernels.opope_gemm import opope_gemm, opope_gemm_plain
+
     gen = torch.Generator(device=dev).manual_seed(0)
     chains = {"none": (), "residual": ("residual",), "silu+mul": ("silu", "mul")}
 
@@ -185,9 +199,9 @@ def kernel_phase(torch, kmod, ep, cfg, dev):
             b = (torch.randn((kk, n), generator=gen, device=dev) * kk ** -0.5).to(torch.bfloat16)
             for chain in chains:
                 steps, ops_ = operands(m, n, chain, torch.bfloat16)
-                out = kmod.opope_gemm(a, b, None, epilogue=steps, epilogue_operands=ops_)
+                out = opope_gemm(a, b, None, epilogue=steps, epilogue_operands=ops_)
                 sync(torch, dev)
-                err = check_close(torch, out, k1_plain(kmod, a, b, None, steps, ops_),
+                err = check_close(torch, out, k1_plain(a, b, None, steps, ops_),
                                   torch.bfloat16, f"main M={m} K={kk} N={n} {chain}")
                 max_err = max(max_err, err)
                 log(f"check main-path M={m} K={kk} N={n} chain={chain}: max_abs_err={err:.3g} ok")
@@ -202,14 +216,14 @@ def kernel_phase(torch, kmod, ep, cfg, dev):
             a = torch.randn((m, kk), generator=gen, device=dev).to(torch.bfloat16)
             bs = [(torch.randn((kk, n), generator=gen, device=dev) * kk ** -0.5).to(torch.bfloat16)
                   for _ in range(n_bufs)]
-            ms = time_ms(torch, lambda i: kmod.opope_gemm(
+            ms = time_ms(torch, lambda i: opope_gemm(
                 a, bs[i], None, epilogue=steps, epilogue_operands=ops_), n_bufs)
-            plain_ms = time_ms(torch, lambda i: kmod.opope_gemm_plain(
+            plain_ms = time_ms(torch, lambda i: opope_gemm_plain(
                 a, bs[i], None, epilogue=steps, epilogue_operands=ops_), n_bufs)
             lib_ms = time_ms(torch, lambda i: torch.matmul(a, bs[i]), n_bufs)
             bound_ms, bound_by = gemm_bound(m, kk, n, len(ops_))
-            out = kmod.opope_gemm(a, bs[0], None, epilogue=steps, epilogue_operands=ops_)
-            err = check_close(torch, out, k1_plain(kmod, a, bs[0], None, steps, ops_),
+            out = opope_gemm(a, bs[0], None, epilogue=steps, epilogue_operands=ops_)
+            err = check_close(torch, out, k1_plain(a, bs[0], None, steps, ops_),
                               torch.bfloat16, f"timed M={m} K={kk} N={n} {chain}")
             max_err = max(max_err, err)
             row = {"m": m, "k": kk, "n": n, "epilogue": chain, "ms": ms, "plain_ms": plain_ms,
@@ -233,43 +247,44 @@ def kernel_phase(torch, kmod, ep, cfg, dev):
             row_op = torch.randn((1, n), generator=gen, device=dev)
             full_op = torch.randn((m, n), generator=gen, device=dev).to(dt)
             for c_name, c in cs.items():
-                acc_max = kmod.opope_gemm_plain(a, b, c, out_dtype=torch.float32).abs().max()
+                acc_max = opope_gemm_plain(a, b, c, out_dtype=torch.float32).abs().max()
                 scalar = (acc_max / 100.0).reshape(1, 1)
                 for name in ep.epilogue_ops():
                     kind = ep.op_kind(name)
                     ops_ = {"none": (), "row": (row_op,), "full": (full_op,),
                             "scalar": (scalar,)}[kind]
                     out_dtype = torch.int8 if name == "requant_int8" else dt
-                    out = kmod.opope_gemm(a, b, c, out_dtype=out_dtype, epilogue=(name,),
+                    out = opope_gemm(a, b, c, out_dtype=out_dtype, epilogue=(name,),
                                           epilogue_operands=ops_)
                     sync(torch, dev)
-                    check_close(torch, out, k1_plain(kmod, a, b, c, (name,), ops_), out_dtype,
+                    check_close(torch, out, k1_plain(a, b, c, (name,), ops_), out_dtype,
                                 f"coverage {m}x{kk}x{n} {dt} C={c_name} {name}")
                     n_cov += 1
             # One long chain, fp16 out, and the requant chain into int8.
             chain = ("gelu", "scale", "residual", "mul", "relu", "bias")
             ops_ = (row_op, full_op, full_op, row_op)
             for out_dtype in (torch.float16, dt):
-                out = kmod.opope_gemm(a, b, cs["row"], out_dtype=out_dtype, epilogue=chain,
+                out = opope_gemm(a, b, cs["row"], out_dtype=out_dtype, epilogue=chain,
                                       epilogue_operands=ops_)
                 sync(torch, dev)
-                check_close(torch, out, k1_plain(kmod, a, b, cs["row"], chain, ops_), out_dtype,
+                check_close(torch, out, k1_plain(a, b, cs["row"], chain, ops_), out_dtype,
                             f"coverage chain {m}x{kk}x{n} {dt} -> {out_dtype}")
                 n_cov += 1
             chain = ("silu", "mul", "requant_int8")
-            acc_max = kmod.opope_gemm_plain(a, b, out_dtype=torch.float32).abs().max()
+            acc_max = opope_gemm_plain(a, b, out_dtype=torch.float32).abs().max()
             ops_ = (full_op, (acc_max / 50.0).reshape(1, 1))
-            out = kmod.opope_gemm(a, b, out_dtype=torch.int8, epilogue=chain,
+            out = opope_gemm(a, b, out_dtype=torch.int8, epilogue=chain,
                                   epilogue_operands=ops_)
             sync(torch, dev)
-            check_close(torch, out, k1_plain(kmod, a, b, None, chain, ops_), torch.int8,
+            check_close(torch, out, k1_plain(a, b, None, chain, ops_), torch.int8,
                         f"coverage requant chain {m}x{kk}x{n} {dt}")
             n_cov += 1
     log(f"coverage: {n_cov} ragged/dtype/C/epilogue cases within tolerance")
     return layer, rows, max_err
 
 
-def model_phase(torch, np, cfg, ops, kmod, dev):
+def model_phase(torch, np, cfg, ops, dev):
+    from repro_torch.kernels.opope_gemm import opope_gemm
     from repro_torch.models import api
     from repro_torch.serve import ContinuousEngine, ServeEngine, poisson_trace
 
@@ -304,9 +319,9 @@ def model_phase(torch, np, cfg, ops, kmod, dev):
     trace = poisson_trace(8, seed=0, vocab=cfg.vocab, prompt_lens=(32, 64, 128),
                           gen_lens=(8, 16, 32))
     ops.reset_counts()
-    kmod.opope_gemm.launches = 0
+    opope_gemm.launches = 0
     report = eng.timed_serve(trace)
-    launches = kmod.opope_gemm.launches
+    launches = opope_gemm.launches
     want = per_forward * (report.decode_steps + report.prefill_batches)
     if launches != want or ops.backend("torch").calls != 0:
         raise AssertionError(f"kernel launches {launches} != {want} (torch calls "
@@ -324,17 +339,17 @@ def model_phase(torch, np, cfg, ops, kmod, dev):
 
     # (c) the lockstep engine.
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))).to(dev)
-    kmod.opope_gemm.launches = 0
+    opope_gemm.launches = 0
     t0 = time.perf_counter()
     toks = ServeEngine(cfg=cfg, params=params, max_len=80).generate({"tokens": prompts}, 16)
     toks_host = toks.cpu()
     dt = time.perf_counter() - t0
     if tuple(toks_host.shape) != (4, 16) or not ((toks_host >= 0) & (toks_host < cfg.vocab)).all():
         raise AssertionError(f"static engine output {tuple(toks_host.shape)}")
-    if kmod.opope_gemm.launches != per_forward * 16:
-        raise AssertionError(f"static launches {kmod.opope_gemm.launches} != {per_forward * 16}")
+    if opope_gemm.launches != per_forward * 16:
+        raise AssertionError(f"static launches {opope_gemm.launches} != {per_forward * 16}")
     log(f"(c) static: 4 x 64-token prompts, 16 tokens each in {dt:.3f} s "
-        f"({64 / dt:.1f} tokens/s), kernel launches {kmod.opope_gemm.launches}")
+        f"({64 / dt:.1f} tokens/s), kernel launches {opope_gemm.launches}")
 
     # (d) one lockstep decode step at 4 rows: host wall time per step.
     with torch.inference_mode():
@@ -502,8 +517,9 @@ def _agreement(idx_a, idx_b):
     return (idx_a[..., :, None] == idx_b[..., None, :]).any(-1).float().mean((-1, -2))
 
 
-def moe_phase(torch, np, cfg, ops, ep, k1, k4, dev):
+def moe_phase(torch, np, cfg, ops, ep, k4, dev):
     """Phase 6: full-width deepseek-moe-16b."""
+    from repro_torch.kernels.opope_gemm import opope_gemm
     from repro_torch.models import api
     from repro_torch.models import moe as moe_mod
     from repro_torch.serve import ContinuousEngine, ServeEngine, poisson_trace
@@ -599,10 +615,10 @@ def moe_phase(torch, np, cfg, ops, ep, k1, k4, dev):
     trace = poisson_trace(8, seed=0, vocab=cfg.vocab, prompt_lens=(32, 64, 128),
                           gen_lens=(8, 16, 32))
     ops.reset_counts()
-    k1.opope_gemm.launches = 0
+    opope_gemm.launches = 0
     k4.opope_gemm_grouped.launches = 0
     report = eng.timed_serve(trace)
-    launches = {"k1": k1.opope_gemm.launches, "k4": k4.opope_gemm_grouped.launches}
+    launches = {"k1": opope_gemm.launches, "k4": k4.opope_gemm_grouped.launches}
     forwards = report.decode_steps + report.prefill_batches
     plain = ops.backend("torch")
     if (launches["k4"] != n_k4 * forwards or launches["k1"] != n_k1 * forwards
@@ -626,19 +642,19 @@ def moe_phase(torch, np, cfg, ops, ep, k1, k4, dev):
 
     # (b) the lockstep engine.
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))).to(dev)
-    k1.opope_gemm.launches = k4.opope_gemm_grouped.launches = 0
+    opope_gemm.launches = k4.opope_gemm_grouped.launches = 0
     t0 = time.perf_counter()
     toks = ServeEngine(cfg=cfg, params=params, max_len=80).generate({"tokens": prompts}, 16)
     toks_host = toks.cpu()
     dt = time.perf_counter() - t0
     if tuple(toks_host.shape) != (4, 16) or not ((toks_host >= 0) & (toks_host < cfg.vocab)).all():
         raise AssertionError(f"static engine output {tuple(toks_host.shape)}")
-    if (k4.opope_gemm_grouped.launches, k1.opope_gemm.launches) != (n_k4 * 16, n_k1 * 16):
+    if (k4.opope_gemm_grouped.launches, opope_gemm.launches) != (n_k4 * 16, n_k1 * 16):
         raise AssertionError(f"static launches K4 {k4.opope_gemm_grouped.launches}, "
-                             f"K1 {k1.opope_gemm.launches}")
+                             f"K1 {opope_gemm.launches}")
     log(f"(b) static: 4 x 64-token prompts, 16 tokens each in {dt:.3f} s "
         f"({64 / dt:.1f} tokens/s), K4 launches {k4.opope_gemm_grouped.launches}, "
-        f"K1 launches {k1.opope_gemm.launches}")
+        f"K1 launches {opope_gemm.launches}")
 
     # (c) one lockstep decode step at 4 rows.
     with torch.inference_mode():
@@ -1031,6 +1047,259 @@ def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops,
             "decode_step_ms": step_ms, "device_ms": dev_ms}
 
 
+# K3 against its plain version: fp32 within rtol = atol = 2e-4 (the
+# reference's own tolerance; only the order of sums and the exp
+# implementation differ). bf16 (P and the output round to bf16 at places
+# that differ by the running max): each element within ATTN_BF16_TOL +
+# ATTN_BF16_TOL·|plain| (the H100 measured at most 0.0039 at the prefill
+# row, where |out| reaches 1), and the error's RMS within ATTN_BF16_RMS of
+# the plain output's RMS. Random attention outputs over 2048 keys are
+# about 0.04 in size, so the RMS gate is what catches a dropped or
+# misweighted KV panel there (one panel of 32 moves the RMS by ~0.18).
+ATTN_F32_TOL = 2e-4
+ATTN_BF16_TOL = 1e-2
+ATTN_BF16_RMS = 2e-2
+
+
+def attn_bound(b, h, s, t, d, causal, elem):
+    """Least time in ms of one K3 call, and what bounds it: q, k, v and the
+    output moved once each, or 4·D flops for each (query, valid key) pair
+    (causal: the pairs under the mask aligned to the end of the keys) at
+    the bf16 tensor-core rate."""
+    pairs = sum(max(0, min(r + t - s + 1, t)) for r in range(s)) if causal else s * t
+    t_bytes = elem * b * h * 2 * (s + t) * d / HBM_BYTES_PER_S
+    t_ops = 4 * b * h * pairs * d / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_check(torch, out, want, what):
+    """K3's output against its plain version's (or another attention's) on
+    the same inputs, at the gates of ``out``'s dtype; returns the largest
+    absolute difference and the difference's RMS over the reference's."""
+    bf16 = out.dtype == torch.bfloat16
+    out, want = out.float(), want.float()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: non-finite output")
+    diff = out - want
+    err = diff.abs().max().item()
+    rel_rms = (diff.square().mean().sqrt() / want.square().mean().sqrt().clamp(min=1e-30)).item()
+    tol = ATTN_BF16_TOL if bf16 else ATTN_F32_TOL
+    torch.testing.assert_close(out, want, rtol=tol, atol=tol, msg=lambda m: f"{what}: {m}")
+    if bf16 and rel_rms > ATTN_BF16_RMS:
+        raise AssertionError(f"{what}: error RMS {rel_rms} x the output's > {ATTN_BF16_RMS}")
+    return err, rel_rms
+
+
+def attention_scan_phase(torch, F, kscan, mattn, cfg, jcfg, shape_32k, dev):
+    """Phase 9: K3 and K6 through the ``kernels`` entry points, at the width
+    of chatglm3-6b's attention and of jamba-v0.1's mamba scan. Returns the
+    two kernels' records."""
+    from repro_torch.kernels.opope_attention import (
+        opope_attention, opope_attention_bhsd, opope_attention_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bf16, f32 = torch.bfloat16, torch.float32
+    h, hkv, d = cfg.n_heads, cfg.n_kv, cfg.head_dim_
+
+    def qkv(b, s, t):
+        """bf16 q [B, S, H, D] and k, v [B, T, Hkv, D]: the model's layout."""
+        return (torch.randn((b, s, h, d), generator=gen, device=dev).to(bf16),
+                torch.randn((b, t, hkv, d), generator=gen, device=dev).to(bf16),
+                torch.randn((b, t, hkv, d), generator=gen, device=dev).to(bf16))
+
+    def heads(q, k, v):
+        """[B, H, S, D] views of q and of k, v with their KV heads expanded."""
+        return (q.transpose(1, 2), k.repeat_interleave(h // hkv, dim=2).transpose(1, 2),
+                v.repeat_interleave(h // hkv, dim=2).transpose(1, 2))
+
+    # (a) the main path: chatglm3-6b's attention at a prefill, a chunk
+    # continuation, a decode row and without a mask, then one scan at
+    # jamba's width (d_inner * d_state columns, train_4k's sequence), all
+    # through the entry points with every launch counted.
+    attn_rows = [("prefill", 4, 2048, 2048, True), ("continuation", 4, 512, 2048, True),
+                 ("decode", 4, 1, 2048, True), ("non-causal", 4, 2048, 2048, False)]
+    inputs = {name: qkv(b, s, t) for name, b, s, t, _ in attn_rows}
+    views = {name: heads(*x) for name, x in inputs.items()}
+    s_scan, n_state = 4096, jcfg.mamba.expand * jcfg.d_model * jcfg.mamba.d_state
+    decay = 0.2 + 0.79 * torch.rand((s_scan, n_state), generator=gen, device=dev)
+    update = torch.randn((s_scan, n_state), generator=gen, device=dev)
+    sync(torch, dev)
+    opope_attention.launches = 0
+    kscan.opope_chunked_scan.launches = 0
+    outs = {name: opope_attention_bhsd(*views[name], causal=causal)
+            for name, _, _, _, causal in attn_rows}
+    states = kscan.opope_chunked_scan(decay, update)
+    sync(torch, dev)
+    launches = {"k3": opope_attention.launches, "k6": kscan.opope_chunked_scan.launches}
+    if launches != {"k3": len(attn_rows), "k6": 1}:
+        raise AssertionError(f"phase 9 launches {launches} != K3 {len(attn_rows)}, K6 1")
+    log(f"9 (a) main path: {len(attn_rows)} opope_attention_bhsd calls at {h} heads x head dim "
+        f"{d} and one opope_chunked_scan over [{s_scan}, {n_state}]: launches {launches}")
+
+    # Each output against the plain version, then the same call (the
+    # strided [B, H, S, D] views the kernel reads in place) timed beside the
+    # plain version, SDPA (the library lane: never called by the port) and
+    # the bound.
+    rows, k3_err = [], 0.0
+    for name, b, s, t, causal in attn_rows:
+        qh, kh, vh = views.pop(name)
+        want = opope_attention_plain(qh, kh, vh, causal=causal)
+        err, rel_rms = attn_check(torch, outs[name], want, f"K3 {name} B={b} S={s} T={t}")
+        k3_err = max(k3_err, err)
+        del want
+        ms = time_ms(torch, lambda i: opope_attention_bhsd(qh, kh, vh, causal=causal), 1)
+        plain_ms = time_ms(torch, lambda i: opope_attention_plain(qh, kh, vh, causal=causal),
+                           1, iters=3, warmup=1)
+        # SDPA's is_causal is aligned to the start of the keys: S != T takes
+        # the end-aligned mask explicitly.
+        mask = (torch.ones((s, t), dtype=torch.bool, device=dev).tril(t - s)
+                if causal and s != t else None)
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                 is_causal=causal and mask is None)
+        lib_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None), 1)
+        lib_diff = (lib_out.float() - outs[name].float()).abs().max().item()
+        bound_ms, bound_by = attn_bound(b, h, s, t, d, causal, 2)
+        rows.append({"name": name, "b": b, "h": h, "s": s, "t": t, "d": d, "causal": causal,
+                     "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+                     "err_rms_over_out_rms": rel_rms, "sdpa_max_abs_diff": lib_diff})
+        log(f"9 (a) K3 {name} B={b} H={h} S={s} T={t} D={d} causal={causal}: vs plain max abs "
+            f"err {err:.3g} (gate {ATTN_BF16_TOL} + {ATTN_BF16_TOL} |plain|), error RMS / output "
+            f"RMS {rel_rms:.3g} (gate {ATTN_BF16_RMS}); kernel {ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); |K3 - SDPA| max "
+            f"{lib_diff:.3g} (not gated)")
+        del qh, kh, vh, lib_out
+
+    # (b) the same prefill against the model's own attention, which takes
+    # the [B, S, H, D] layout and the 2 unexpanded KV heads.
+    q, k, v = inputs["prefill"]
+    with torch.inference_mode():
+        model_out = mattn.blockwise_attention(q, k, v, causal=True)
+    if not torch.isfinite(model_out.float()).all():
+        raise AssertionError("blockwise_attention: non-finite output")
+    model_err, model_rms = attn_check(torch, outs["prefill"].transpose(1, 2), model_out,
+                                      "K3 prefill vs blockwise_attention")
+    log(f"9 (b) K3 prefill against models/attention.py::blockwise_attention (GQA, {hkv} KV "
+        f"heads): max abs err {model_err:.3g}, error RMS / output RMS {model_rms:.3g} (the "
+        "bf16 gates of (a))")
+    del inputs, outs, model_out
+
+    # Coverage: every test shape of the reference (fp32 and bf16), S > T
+    # causal rows without a valid key at two block sizes, head dim 16.
+    n_cov = 0
+    cov = [(1, 1, 128, 128, 64, True, 64), (1, 1, 100, 160, 64, True, 64),
+           (1, 1, 96, 128, 32, False, 64), (1, 1, 77, 77, 64, True, 64),
+           (1, 1, 256, 256, 128, True, 64), (2, 3, 64, 64, 32, True, 32),
+           (1, 1, 96, 64, 64, True, 32), (1, 1, 96, 64, 64, True, 64),
+           (2, 2, 200, 70, 32, True, 64), (2, 2, 200, 70, 32, True, 128),
+           (2, 4, 96, 64, 16, True, 128), (1, 4, 1, 300, 128, True, 128)]
+    for dt in (f32, bf16):
+        for b, hh, s, t, dd, causal, blk in cov:
+            q, k, v = (torch.randn((b, hh, n, dd), generator=gen, device=dev).to(dt)
+                       for n in (s, t, t))
+            out = opope_attention_bhsd(q, k, v, causal=causal, block_q=blk, block_k=blk)
+            sync(torch, dev)
+            want = opope_attention_plain(q, k, v, causal=causal, block_q=blk, block_k=blk)
+            err, _ = attn_check(torch, out, want, f"K3 coverage {b}x{hh}x{s}x{t}x{dd} "
+                                                  f"causal={causal} blocks={blk} {dt}")
+            k3_err = max(k3_err, err)
+            out = opope_attention(q[0, 0], k[0, 0], v[0, 0], causal=causal, block_q=blk,
+                                  block_k=blk)
+            attn_check(torch, out, want[0, 0], f"K3 single-head coverage {s}x{t}x{dd} {dt}")
+            n_cov += 2
+    log(f"9 (a) K3 coverage: {n_cov} ragged/dtype/block/head-dim cases within tolerance")
+
+    # chatglm3-6b's prefill_32k sequence: kernel and SDPA only.
+    s32 = shape_32k.seq_len
+    qh, kh, vh = heads(*qkv(1, s32, s32))
+    out = opope_attention_bhsd(qh, kh, vh)
+    sync(torch, dev)
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError("K3 prefill_32k: non-finite output")
+    ms_32k = time_ms(torch, lambda i: opope_attention_bhsd(qh, kh, vh), 1, iters=3, warmup=1)
+    lib_32k = time_ms(torch, lambda i: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
+                      1, iters=3, warmup=1)
+    diff_32k = (F.scaled_dot_product_attention(qh, kh, vh, is_causal=True).float()
+                - out.float()).abs().max().item()
+    bound_32k, by_32k = attn_bound(1, h, s32, s32, d, True, 2)
+    rows.append({"name": shape_32k.name, "b": 1, "h": h, "s": s32, "t": s32, "d": d,
+                 "causal": True, "dtype": "bfloat16", "ms": ms_32k, "plain_ms": None,
+                 "library_ms": lib_32k, "bound_ms": bound_32k, "bound_by": by_32k,
+                 "max_abs_err": None, "sdpa_max_abs_diff": diff_32k})
+    log(f"9 (a) K3 {shape_32k.name} B=1 H={h} S=T={s32}: kernel {ms_32k:.3f} ms, SDPA "
+        f"{lib_32k:.3f} ms, bound {bound_32k:.3f} ms ({by_32k}); |K3 - SDPA| max {diff_32k:.3g} "
+        f"(not gated); plain version skipped: its fp32 scores alone would take "
+        f"{4 * h * s32 * s32 / 1e9:.0f} GB")
+    del qh, kh, vh, out
+
+    # (c) K6 at jamba's width, bitwise against its plain version.
+    want = kscan.opope_chunked_scan_plain(decay, update)
+    if not torch.equal(states, want):
+        bad = (states != want).sum().item()
+        raise AssertionError(f"K6 [{s_scan}, {n_state}]: {bad} states differ from the plain "
+                             "version (bitwise gate)")
+    del want
+    ms_scan = time_ms(torch, lambda i: kscan.opope_chunked_scan(decay, update), 1)
+    plain_scan = time_ms(torch, lambda i: kscan.opope_chunked_scan_plain(decay, update), 1,
+                         iters=1, warmup=0)
+    bound_scan = 1e3 * 3 * 4 * s_scan * n_state / HBM_BYTES_PER_S
+    log(f"9 (c) K6 [{s_scan}, {n_state}] fp32: bitwise equal to the plain version; kernel "
+        f"{ms_scan:.4f} ms, plain {plain_scan:.1f} ms, bound {bound_scan:.4f} ms (bytes)")
+    del decay, update, states
+    n_scan = 0
+    for s, n in ((100, 1), (100, 3), (100, 100), (1, 5), (130, 4096)):
+        for dts in ((f32, f32), (bf16, bf16), (f32, bf16), (bf16, f32)):
+            a = (0.2 + 0.79 * torch.rand((s, n), generator=gen, device=dev)).to(dts[0])
+            u = torch.randn((s, n), generator=gen, device=dev).to(dts[1])
+            got = kscan.opope_chunked_scan(a, u, chunk=16)
+            sync(torch, dev)
+            if not (torch.equal(got, kscan.opope_chunked_scan_plain(a, u))
+                    and torch.equal(got, kscan.opope_chunked_scan(a, u, chunk=64))):
+                raise AssertionError(f"K6 coverage [{s}, {n}] {dts}: not bitwise")
+            n_scan += 1
+    log(f"9 (c) K6 coverage: {n_scan} ragged/dtype cases bitwise, chunk 16 = chunk 64")
+
+    k3 = rows[0]
+    k3_record = {
+        "name": "opope_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/opope_attention.cu",
+        "replaces": "src/repro/kernels/opope_attention.py:118",
+        "launches": launches["k3"],
+        "launches_by_path": {"kernels entry point, chatglm3-6b attention width": launches["k3"]},
+        "max_abs_err": k3_err,
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": k3["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention",
+        "model_attention_max_abs_err": model_err,
+        "work": f"one causal prefill of chatglm3-6b's attention, B=4, H={h}, S=T=2048, D={d}, "
+                "bf16 (per-shape rows under 'shapes')",
+        "shapes": rows,
+    }
+    k6_record = {
+        "name": "opope_chunked_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/opope_scan.cu",
+        "replaces": "src/repro/kernels/opope_scan.py:65",
+        "launches": launches["k6"],
+        "launches_by_path": {"kernels entry point, jamba-v0.1 mamba scan width": launches["k6"]},
+        "max_abs_err": 0.0,
+        "ms": ms_scan,
+        "plain_ms": plain_scan,
+        "bound_ms": bound_scan,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library": "none: no single PyTorch call returns every state of a linear recurrence",
+        "work": f"all {s_scan} states of {n_state} fp32 columns (jamba-v0.1's d_inner x d_state "
+                "at train_4k)",
+    }
+    return k3_record, k6_record
+
+
 def decode_profile(torch, step, step_ms, n_steps: int = 4, tag: str = "(d)"):
     """Device time by kernel over ``n_steps`` decode steps (torch.profiler),
     beside the steps' host wall time: the device's busy share (kernels run
@@ -1085,12 +1354,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, shape_by_name
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import epilogue as ep
     from repro_torch.kernels import ops
-    from repro_torch.kernels import opope_gemm as kmod
+    from repro_torch.kernels.opope_gemm import opope_gemm
     from repro_torch.kernels import opope_grouped as k4mod
+    from repro_torch.kernels import opope_scan as kscan
+    from repro_torch.models import attention as mattn
+    import torch.nn.functional as F
     from repro_torch import quant as qz
     from repro_torch.quant import backends as q8b
     from repro_torch.quant import opope_q8 as q8mod
@@ -1110,8 +1382,8 @@ def main() -> int:
 
     cfg = get_config("chatglm3-6b")
     dev = torch.device("cuda")
-    layer, rows, max_err = kernel_phase(torch, kmod, ep, cfg, dev)
-    res = model_phase(torch, np, cfg, ops, kmod, dev)
+    layer, rows, max_err = kernel_phase(torch, ep, cfg, dev)
+    res = model_phase(torch, np, cfg, ops, dev)
 
     # One layer's 7 GEMMs of a 4-slot decode step, from the timed rows.
     by_key = {(r["m"], r["k"], r["n"], r["epilogue"]): r for r in rows}
@@ -1128,7 +1400,7 @@ def main() -> int:
     # models' shapes, then chatglm3-6b under mlp_q8_policy().
     mcfg = get_config("deepseek-moe-16b")
     q8_rows, q8_errs = q8_kernel_phase(torch, q8mod, qz, q8b, ep, cfg, mcfg, dev)
-    kernels = {"K1": kmod.opope_gemm, "K4": k4mod.opope_gemm_grouped,
+    kernels = {"K1": opope_gemm, "K4": k4mod.opope_gemm_grouped,
                "K2": q8mod.opope_gemm_q8, "K5": q8mod.opope_gemm_q8_grouped}
     glm_q8 = q8_model_phase(
         torch, np, cfg, res.pop("params"), qz.mlp_q8_policy(),
@@ -1142,11 +1414,18 @@ def main() -> int:
     ffn, g_rows, g_err = grouped_phase(torch, k4mod, ops, ep, mcfg, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    mres = moe_phase(torch, np, mcfg, ops, ep, kmod, k4mod, dev)
+    mres = moe_phase(torch, np, mcfg, ops, ep, k4mod, dev)
     ds_q8 = q8_model_phase(
         torch, np, mcfg, mres.pop("params"), qz.PrecisionPolicy(rules={"moe": "q8"}),
         qz.PrecisionPolicy(rules={"moe": "torch_q8"}, default="torch"),
         {"K1": 5, "K2": 3, "K5": 3}, ops, ep, kernels, dev, "8 deepseek-moe-16b q8")
+    # Phase 9 after deepseek-moe-16b's weights are freed: K3 and K6.
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"allocated after deepseek-moe-16b: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    k3_record, k6_record = attention_scan_phase(
+        torch, F, kscan, mattn, cfg, get_config("jamba-v0.1-52b"),
+        shape_by_name("prefill_32k"), dev)
     # One MoE layer's 3 grouped GEMMs of a 4-slot decode step (capacity 1).
     g_decode = [r for r in g_rows if r["m"] == 1]
     g_sums = {key: sum(r[key] for r in g_decode)
@@ -1241,7 +1520,8 @@ def main() -> int:
             f"{r['logits_floor_rms']:.4g}); q8 vs bf16 RMS {r['q8_vs_bf16']['rms']:.4g}; "
             f"decode step {r['decode_step_ms']:.3f} ms wall")
     print(smi, flush=True)
-    print(json.dumps({"kernels": [record, g_record] + q8_records}), flush=True)
+    print(json.dumps({"kernels": [record, g_record] + q8_records + [k3_record, k6_record]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -26,7 +26,7 @@ from repro.kernels import epilogue as jep
 from repro.kernels.opope_gemm import opope_gemm as j_opope_gemm
 from repro.kernels import ref as jref
 from repro_torch.kernels import epilogue as tep
-from repro_torch.kernels import opope_gemm as tk
+from repro_torch.kernels.opope_gemm import opope_gemm, opope_gemm_plain
 from repro_torch.kernels import ops
 
 SHAPES = [(5, 40, 24), (130, 300, 200), (128, 256, 128)]  # ragged and aligned
@@ -173,9 +173,9 @@ def test_cuda_backend_with_cpu_tensors_raises():
 def test_wrapper_on_cpu_runs_the_plain_version_without_a_launch():
     a = torch.randn(9, 17, generator=torch.Generator().manual_seed(0))
     b = torch.randn(17, 5, generator=torch.Generator().manual_seed(1))
-    before = tk.opope_gemm.launches
-    got = tk.opope_gemm(a, b, epilogue=("relu",))
-    assert tk.opope_gemm.launches == before
+    before = opope_gemm.launches
+    got = opope_gemm(a, b, epilogue=("relu",))
+    assert opope_gemm.launches == before
     torch.testing.assert_close(got, torch.relu(a @ b), rtol=1e-5, atol=1e-5)
 
 
@@ -189,6 +189,6 @@ def test_bad_specs_raise_like_the_reference():
     with pytest.raises(ValueError):
         ops.matmul(torch.ones(2, 3), torch.ones(3, 4), epilogue=[("bias", torch.ones(5))])
     with pytest.raises(ValueError, match="requant_int8"):
-        tk.opope_gemm_plain(torch.ones(2, 3), torch.ones(3, 4), out_dtype=torch.int8)
+        opope_gemm_plain(torch.ones(2, 3), torch.ones(3, 4), out_dtype=torch.int8)
     assert tep.epilogue_ops() == jep.epilogue_ops()
     assert tep.OP_CODES == {name: i for i, name in enumerate(OPS)}

@@ -10,7 +10,10 @@ largest magnitude, for sum-order noise where it nearly cancels); int8 within
 (K2, K5) sum exactly, so they are held bitwise against their plain versions
 for every chain without a transcendental op, and within one ulp of the
 output dtype (plus 1e-6 of the largest magnitude, where gelu cancels) with
-one.
+one. The attention kernel (K3) is held to its plain version within
+rtol = atol = 2e-4 (fp32), or (bf16) within 1e-2 + 1e-2·|plain| for each
+element and an error RMS at most 2e-2 of the plain output's RMS, as in
+``chip_smoke.py``; the scan (K6) bitwise.
 """
 
 import dataclasses
@@ -22,8 +25,11 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import epilogue as tep
 from repro_torch.kernels import ops
-from repro_torch.kernels import opope_gemm as tk
+from repro_torch.kernels.opope_attention import (
+    opope_attention, opope_attention_bhsd, opope_attention_plain)
+from repro_torch.kernels.opope_gemm import opope_gemm, opope_gemm_plain
 from repro_torch.kernels import opope_grouped as tg
+from repro_torch.kernels import opope_scan as tscan
 from repro_torch.models import api
 from repro_torch.quant import opope_q8 as tq8
 from repro_torch.quant import PrecisionPolicy, mlp_q8_policy
@@ -41,7 +47,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _check(got, a, b, c, out_dtype, steps, operands, plain=tk.opope_gemm_plain):
+def _check(got, a, b, c, out_dtype, steps, operands, plain=opope_gemm_plain):
     if out_dtype == torch.int8:
         want = plain(a, b, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=operands)
         assert (got.int() - want.int()).abs().max() <= 1
@@ -70,21 +76,21 @@ def test_kernel_matches_plain_for_every_op(cuda_device, shape, dtype):
             operands = {"none": (), "row": (row,), "full": (full,),
                         "scalar": (torch.full((1, 1), 0.05, device=cuda_device),)}[kind]
             out_dtype = torch.int8 if op == "requant_int8" else dtype
-            before = tk.opope_gemm.launches
-            got = tk.opope_gemm(a, b, c, out_dtype=out_dtype, epilogue=(op,),
-                                epilogue_operands=operands)
+            before = opope_gemm.launches
+            got = opope_gemm(a, b, c, out_dtype=out_dtype, epilogue=(op,),
+                             epilogue_operands=operands)
             torch.cuda.synchronize()
-            assert tk.opope_gemm.launches == before + 1
+            assert opope_gemm.launches == before + 1
             _check(got, a, b, c, out_dtype, (op,), operands)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     a = torch.ones((4, 8), device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
-        tk.opope_gemm(a, a.t().contiguous())
+        opope_gemm(a, a.t().contiguous())
     a = torch.ones((8, 4), device=cuda_device).t()
     with pytest.raises(ValueError, match="contiguous"):
-        tk.opope_gemm(a, torch.ones((8, 4), device=cuda_device))
+        opope_gemm(a, torch.ones((8, 4), device=cuda_device))
 
 
 GROUPED_SHAPES = [(3, 5, 40, 24), (3, 130, 300, 200), (64, 1, 2048, 1408), (64, 30, 1408, 2048)]
@@ -136,9 +142,9 @@ def test_reduced_model_prefill_on_the_kernel_matches_the_plain_backend(cuda_devi
     tokens = tokens.to(cuda_device)
     with torch.inference_mode():
         ref, _ = api.prefill(cfg, params, {"tokens": tokens}, 32, backend="torch")
-        before = tk.opope_gemm.launches
+        before = opope_gemm.launches
         got, _ = api.prefill(cfg, params, {"tokens": tokens}, 32)
-    assert tk.opope_gemm.launches - before == 7 * cfg.n_layers
+    assert opope_gemm.launches - before == 7 * cfg.n_layers
     assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
 
 
@@ -147,9 +153,9 @@ def test_continuous_engine_runs_every_gemm_on_the_kernel(cuda_device):
     params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
     trace = poisson_trace(6, seed=1, vocab=cfg.vocab, prompt_lens=(5, 12, 20),
                           gen_lens=(3, 7), mean_interarrival=1.0)
-    before = tk.opope_gemm.launches
+    before = opope_gemm.launches
     report = ContinuousEngine(cfg=cfg, params=params, n_slots=2, max_len=32).serve(trace)
-    launches = tk.opope_gemm.launches - before
+    launches = opope_gemm.launches - before
     assert launches == 7 * cfg.n_layers * (report.decode_steps + report.prefill_batches)
     assert all(len(report.outputs[r.rid]) == r.max_new_tokens for r in trace)
 
@@ -159,11 +165,11 @@ def test_reduced_deepseek_serves_every_expert_gemm_on_the_grouped_kernel(cuda_de
     params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
     trace = poisson_trace(6, seed=1, vocab=cfg.vocab, prompt_lens=(5, 12, 20),
                           gen_lens=(3, 7), mean_interarrival=1.0)
-    k1, k4 = tk.opope_gemm.launches, tg.opope_gemm_grouped.launches
+    k1, k4 = opope_gemm.launches, tg.opope_gemm_grouped.launches
     report = ContinuousEngine(cfg=cfg, params=params, n_slots=2, max_len=32).serve(trace)
     forwards = report.decode_steps + report.prefill_batches
     assert tg.opope_gemm_grouped.launches - k4 == 3 * cfg.n_layers * forwards
-    assert tk.opope_gemm.launches - k1 == 8 * cfg.n_layers * forwards
+    assert opope_gemm.launches - k1 == 8 * cfg.n_layers * forwards
     assert all(len(report.outputs[r.rid]) == r.max_new_tokens for r in trace)
 
 
@@ -243,12 +249,105 @@ def test_reduced_models_under_the_q8_policy_run_on_the_kernels(cuda_device, arch
         policy, rules={r: "torch_q8" for r in policy.rules}, default="torch")
     with torch.inference_mode():
         ref, _ = api.prefill(cfg, params, {"tokens": tokens}, 32, backend=plain_policy)
-        before = {"k1": tk.opope_gemm.launches, "k2": tq8.opope_gemm_q8.launches,
+        before = {"k1": opope_gemm.launches, "k2": tq8.opope_gemm_q8.launches,
                   "k5": tq8.opope_gemm_q8_grouped.launches}
         got, _ = api.prefill(cfg, params, {"tokens": tokens}, 32, backend=policy)
-    after = {"k1": tk.opope_gemm.launches, "k2": tq8.opope_gemm_q8.launches,
+    after = {"k1": opope_gemm.launches, "k2": tq8.opope_gemm_q8.launches,
              "k5": tq8.opope_gemm_q8_grouped.launches}
     assert {k: after[k] - before[k] for k in after} == {
         k: v * cfg.n_layers for k, v in counts.items()}
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+# K3: (B, H, S, T, D, causal) — the reference's test shapes, its batched
+# case, S > T with rows that have no valid key, and a decode row.
+ATTN_SHAPES = [(1, 1, 128, 128, 64, True), (1, 1, 100, 160, 64, True),
+               (1, 1, 96, 128, 32, False), (1, 1, 77, 77, 64, True),
+               (1, 1, 256, 256, 128, True), (2, 3, 64, 64, 32, True),
+               (2, 4, 96, 64, 16, True), (2, 2, 200, 70, 32, True), (1, 4, 1, 300, 128, True)]
+
+
+def _attn_close(got, want):
+    """K3 against its plain version: fp32 within rtol = atol = 2e-4 (the
+    reference's own tolerance). bf16 (P and the output round to bf16 at
+    places that differ by the running maximum) within 1e-2 + 1e-2·|plain|
+    for each element, and with an error RMS at most 2e-2 of the plain
+    output's RMS, so that a wrong panel cannot hide in the many small
+    outputs of a long key range."""
+    assert torch.isfinite(got.float()).all()
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        got, want = got.float(), want.float()
+        torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+        assert (got - want).square().mean().sqrt() <= 2e-2 * want.square().mean().sqrt()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_attention_kernel_matches_plain(cuda_device, shape, dtype):
+    b, h, s, t, d, causal = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(b * h + s + t + d)
+    q, k, v = (torch.randn((b, h, n, d), generator=gen, device=cuda_device).to(dtype)
+               for n in (s, t, t))
+    for block in ((32, 64) if causal and s > t else (128,)):
+        before = opope_attention.launches
+        got = opope_attention_bhsd(q, k, v, causal=causal, block_q=block, block_k=block)
+        torch.cuda.synchronize()
+        assert opope_attention.launches == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        _attn_close(got, opope_attention_plain(q, k, v, causal=causal, block_q=block,
+                                               block_k=block))
+    single = opope_attention(q[0, 0], k[0, 0], v[0, 0], causal=causal)
+    _attn_close(single, opope_attention_plain(q[0, 0], k[0, 0], v[0, 0], causal=causal))
+
+
+def test_attention_kernel_reads_strided_views_in_place(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((2, 80, 3, 3, 64), generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))  # [B, H, S, D] views of [B, S, H, D]
+    got = opope_attention_bhsd(q, k, v)
+    want = opope_attention_bhsd(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, want)
+
+
+def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.ones((1, 1, 8, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        opope_attention_bhsd(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="dtype"):
+        opope_attention_bhsd(x, x.bfloat16(), x)
+    with pytest.raises(ValueError, match="head dims"):
+        y = torch.ones((1, 1, 8, 48), device=cuda_device)
+        opope_attention_bhsd(y, y, y)
+    with pytest.raises(ValueError, match="cuda"):
+        opope_attention_bhsd(x, x.cpu(), x)
+
+
+SCAN_SHAPES = [(128, 64), (100, 3), (13, 1), (70, 300), (4096, 2048)]
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.bfloat16)],
+                         ids=["fp32", "bf16", "fp32-bf16"])
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_scan_kernel_matches_plain_bitwise(cuda_device, shape, dtypes):
+    s, d = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d)
+    decay = (0.2 + 0.79 * torch.rand((s, d), generator=gen, device=cuda_device)).to(dtypes[0])
+    update = torch.randn((s, d), generator=gen, device=cuda_device).to(dtypes[1])
+    before = tscan.opope_chunked_scan.launches
+    got = tscan.opope_chunked_scan(decay, update)
+    torch.cuda.synchronize()
+    assert tscan.opope_chunked_scan.launches == before + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, tscan.opope_chunked_scan_plain(decay, update))
+
+
+def test_scan_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.ones((4, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="takes"):
+        tscan.opope_chunked_scan(x.half(), x)
+    with pytest.raises(ValueError, match="cuda"):
+        tscan.opope_chunked_scan(x, x.cpu())

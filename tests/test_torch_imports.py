@@ -49,9 +49,12 @@ def test_every_port_module_is_scanned():
                 "repro_torch/models/moe.py", "repro_torch/serve/continuous.py",
                 "repro_torch/models/api.py", "repro_torch/configs/base.py",
                 "repro_torch/quant/quantize.py", "repro_torch/quant/policy.py",
-                "repro_torch/quant/opope_q8.py", "repro_torch/quant/backends.py"):
+                "repro_torch/quant/opope_q8.py", "repro_torch/quant/backends.py",
+                "repro_torch/kernels/ref.py", "repro_torch/kernels/opope_attention.py",
+                "repro_torch/kernels/opope_scan.py", "repro_torch/kernels/__init__.py"):
         assert mod in names
-    assert kbuild.sources() == ["opope_gemm", "opope_grouped", "opope_q8"]
+    assert kbuild.sources() == ["opope_attention", "opope_gemm", "opope_grouped", "opope_q8",
+                                "opope_scan"]
 
 
 @pytest.fixture
