@@ -7,13 +7,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 2. build: every kernel under ``src/repro_torch/kernels/csrc`` (one ``nvcc``
    per source, started together);
 3. the O-POPE GEMM kernel (K1) against its plain PyTorch version on the
-   card, at chatglm3-6b's shapes and chains (timed beside ``torch.matmul``
-   and the card's bound) and at small ragged shapes for every epilogue op;
+   card, at both models' K1 shapes and chains for M = 4, 64, 256 and 512
+   (the sm90 route, and bitwise equal on repeat), timed at chatglm3-6b's
+   on the sm90 route, on the tile route and beside ``torch.matmul`` and
+   the card's bound, and at small ragged shapes on both routes for every
+   epilogue op;
 4. full-width chatglm3-6b (28 layers, bf16, random weights from seed 0):
    (a) prefill logits through the kernel against the plain backend,
    (b) the continuous-batching engine on a Poisson trace — the first main
-       path, whose kernel launches are counted — (c) the lockstep engine, and
-   (d) a lockstep decode step's wall time beside its GEMM kernel time;
+       path, whose kernel launches are counted, every one on K1's sm90
+       route — (c) the lockstep engine, and (d) a lockstep decode step's
+       wall time beside its K1 device time;
 5. the grouped O-POPE GEMM kernel (K4) against its plain version on the
    card, at deepseek-moe-16b's expert shapes and chains (timed beside
    ``torch.bmm`` and the card's bound) and at small ragged shapes for every
@@ -119,6 +123,33 @@ def time_ms(torch, fn, n_bufs: int, iters: int = 0, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, n_bufs: int, iters: int = 0, warmup: int = 2) -> float:
+    """Mean device time of ``fn(i)`` by torch.profiler: the sum of the
+    kernels' own times over the loop, free of the host's issue rate, which
+    :func:`time_ms`'s CUDA events include once a kernel is shorter than
+    its launch. ``i`` cycles over ``n_bufs`` operand copies, as there."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    iters = iters or max(10, n_bufs)
+    for i in range(warmup):
+        fn(i % n_bufs)
+    torch.cuda.synchronize()
+    # A trace now and then comes back without its device events (one
+    # session in ~100 on the H100): that measurement is taken again.
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i % n_bufs)
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / iters
+        log(f"profiler trace {attempt + 1} of 3 held no device time; measuring again")
+    raise AssertionError("the profiler recorded no device time in 3 traces")
+
+
 def ulp(torch, x, dtype):
     """One unit in the last place of ``dtype`` at the magnitude of ``x``."""
     mant = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}[dtype]
@@ -154,6 +185,13 @@ def check_close(torch, out, plain, out_dtype, what):
     return err
 
 
+def check_routes(k1, launches, what):
+    """Every K1 launch counted since the reset went through the sm90 route."""
+    if k1.launches_by_route != {"sm90": launches, "tile": 0}:
+        raise AssertionError(f"{what}: K1 launches by route {k1.launches_by_route}, "
+                             f"want all {launches} on sm90")
+
+
 def k1_plain(a, b, c, steps, ops_):
     """K1's plain version on these inputs, as a function of the out dtype."""
     from repro_torch.kernels.opope_gemm import opope_gemm_plain
@@ -171,10 +209,16 @@ def gemm_bound(m, k, n, n_full_operands, elem=2):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(torch, ep, cfg, dev):
+K1_MS = (4, 64, 256, 512)  # rows of K1's checked and timed calls: decode slots to prefill
+
+
+def kernel_phase(torch, ep, cfg, mcfg, dev):
     """Phase 3. Returns the layer's GEMMs, the per-shape timing rows and the
     largest error."""
+    import importlib
+
     from repro_torch.kernels.opope_gemm import opope_gemm, opope_gemm_plain
+    k1mod = importlib.import_module("repro_torch.kernels.opope_gemm")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     chains = {"none": (), "residual": ("residual",), "silu+mul": ("silu", "mul")}
@@ -191,12 +235,20 @@ def kernel_phase(torch, ep, cfg, dev):
     layer = [("wq", d, dq, "none"), ("wk", d, dkv, "none"), ("wv", d, dkv, "none"),
              ("wo", dq, d, "residual"), ("w_up", d, dff, "none"),
              ("w_gate", d, dff, "silu+mul"), ("w_down", dff, d, "residual")]
+    # deepseek-moe-16b's K1 GEMMs: attention, router, shared experts.
+    md, mdq, msh = mcfg.d_model, mcfg.n_heads * mcfg.head_dim_, mcfg.moe.d_ff_shared
+    k1_shapes = {(k, n) for _, k, n, _ in layer} | {
+        (md, mdq), (mdq, md), (md, mcfg.moe.n_experts), (md, msh), (msh, md)}
     max_err = 0.0
-    # Correctness at the main path's shapes, every chain it uses.
-    for m in (4, 512):
-        for kk, n in sorted({(k, n) for _, k, n, _ in layer}):
+    # Correctness at both models' K1 shapes, every chain they use, on the
+    # route the plan gives them (every one the sm90 route).
+    for m in K1_MS:
+        for kk, n in sorted(k1_shapes):
             a = torch.randn((m, kk), generator=gen, device=dev).to(torch.bfloat16)
             b = (torch.randn((kk, n), generator=gen, device=dev) * kk ** -0.5).to(torch.bfloat16)
+            plan = k1mod._plan(m, n, kk, a.dtype, a.data_ptr(), b.data_ptr())
+            if plan.route != "sm90":
+                raise AssertionError(f"main-path shape M={m} K={kk} N={n} planned {plan}")
             for chain in chains:
                 steps, ops_ = operands(m, n, chain, torch.bfloat16)
                 out = opope_gemm(a, b, None, epilogue=steps, epilogue_operands=ops_)
@@ -204,40 +256,70 @@ def kernel_phase(torch, ep, cfg, dev):
                 err = check_close(torch, out, k1_plain(a, b, None, steps, ops_),
                                   torch.bfloat16, f"main M={m} K={kk} N={n} {chain}")
                 max_err = max(max_err, err)
-                log(f"check main-path M={m} K={kk} N={n} chain={chain}: max_abs_err={err:.3g} ok")
+            log(f"check main-path M={m} K={kk} N={n} (config {plan.config}, splits "
+                f"{plan.splits}), chains {list(chains)}: max_abs_err={max_err:.3g} ok")
+        # Determinism: a split-K call twice, bitwise.
+        a = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
+        b = torch.randn((d, d), generator=gen, device=dev).to(torch.bfloat16)
+        if not torch.equal(opope_gemm(a, b), opope_gemm(a, b)):
+            raise AssertionError(f"M={m} K={d} N={d}: two calls differ")
 
-    # Timing at the main path's (shape, chain) pairs, weights cold in L2.
+    # Timing at the main path's (shape, chain) pairs, weights cold in L2:
+    # the planned (sm90) route, the tile route on the same call, the plain
+    # version and torch.matmul.
     rows = []
-    for m in (4, 512):
-        for kk, n, chain in sorted({(k, n, ch) for _, k, n, ch in layer}):
-            steps, ops_ = operands(m, n, chain, torch.bfloat16)
-            b_bytes = kk * n * 2
-            n_bufs = max(1, min(64, math.ceil(3 * L2_BYTES / b_bytes)))
-            a = torch.randn((m, kk), generator=gen, device=dev).to(torch.bfloat16)
-            bs = [(torch.randn((kk, n), generator=gen, device=dev) * kk ** -0.5).to(torch.bfloat16)
-                  for _ in range(n_bufs)]
-            ms = time_ms(torch, lambda i: opope_gemm(
-                a, bs[i], None, epilogue=steps, epilogue_operands=ops_), n_bufs)
-            plain_ms = time_ms(torch, lambda i: opope_gemm_plain(
-                a, bs[i], None, epilogue=steps, epilogue_operands=ops_), n_bufs)
-            lib_ms = time_ms(torch, lambda i: torch.matmul(a, bs[i]), n_bufs)
-            bound_ms, bound_by = gemm_bound(m, kk, n, len(ops_))
-            out = opope_gemm(a, bs[0], None, epilogue=steps, epilogue_operands=ops_)
-            err = check_close(torch, out, k1_plain(a, bs[0], None, steps, ops_),
-                              torch.bfloat16, f"timed M={m} K={kk} N={n} {chain}")
-            max_err = max(max_err, err)
-            row = {"m": m, "k": kk, "n": n, "epilogue": chain, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                   "max_abs_err": err}
-            rows.append(row)
-            log(f"time M={m} K={kk} N={n} chain={chain}: kernel {ms:.4f} ms, "
-                f"torch.matmul {lib_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}), max_abs_err {err:.3g}")
+    # deepseek-moe-16b's K1 GEMMs of one layer (attention, router, shared
+    # experts), at its decode width only.
+    ds_layer = {(md, mdq, "none"), (mdq, md, "residual"), (md, mcfg.moe.n_experts, "none"),
+                (md, msh, "none"), (md, msh, "silu+mul"), (msh, md, "residual")}
+    timed = [(cfg.name, m, k, n, ch) for m in K1_MS
+             for k, n, ch in sorted({(k, n, ch) for _, k, n, ch in layer})]
+    timed += [(mcfg.name, 4, k, n, ch) for k, n, ch in sorted(ds_layer)]
+    for model, m, kk, n, chain in timed:
+        steps, ops_ = operands(m, n, chain, torch.bfloat16)
+        b_bytes = kk * n * 2
+        n_bufs = max(1, min(64, math.ceil(3 * L2_BYTES / b_bytes)))
+        a = torch.randn((m, kk), generator=gen, device=dev).to(torch.bfloat16)
+        bs = [(torch.randn((kk, n), generator=gen, device=dev) * kk ** -0.5).to(torch.bfloat16)
+              for _ in range(n_bufs)]
+        plan = k1mod._plan(m, n, kk, a.dtype, a.data_ptr(), bs[0].data_ptr())
+
+        def sm90(i):
+            return opope_gemm(a, bs[i], None, epilogue=steps, epilogue_operands=ops_)
+
+        ms = device_ms(torch, sm90, n_bufs)
+        event_ms = time_ms(torch, sm90, n_bufs)
+        tile_ms = device_ms(torch, lambda i: k1mod._run(
+            a, bs[i], None, None, steps, ops_, route="tile"), n_bufs)
+        plain_ms = time_ms(torch, lambda i: opope_gemm_plain(
+            a, bs[i], None, epilogue=steps, epilogue_operands=ops_), n_bufs)
+        lib_ms = device_ms(torch, lambda i: torch.matmul(a, bs[i]), n_bufs)
+        bound_ms, bound_by = gemm_bound(m, kk, n, len(ops_))
+        out = opope_gemm(a, bs[0], None, epilogue=steps, epilogue_operands=ops_)
+        err = check_close(torch, out, k1_plain(a, bs[0], None, steps, ops_),
+                          torch.bfloat16, f"timed M={m} K={kk} N={n} {chain}")
+        out = k1mod._run(a, bs[0], None, None, steps, ops_, route="tile")
+        check_close(torch, out, k1_plain(a, bs[0], None, steps, ops_),
+                    torch.bfloat16, f"timed tile route M={m} K={kk} N={n} {chain}")
+        max_err = max(max_err, err)
+        row = {"model": model, "m": m, "k": kk, "n": n, "epilogue": chain, "route": plan.route,
+               "config": plan.config, "splits": plan.splits, "ms": ms,
+               "event_ms": event_ms, "tile_ms": tile_ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "max_abs_err": err}
+        rows.append(row)
+        log(f"time {model} M={m} K={kk} N={n} chain={chain}: sm90 {ms:.4f} ms device (config "
+            f"{plan.config}, splits {plan.splits}; {event_ms:.4f} ms a call by CUDA events, "
+            f"host issue included), tile route {tile_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms "
+            f"(device), plain {plain_ms:.4f} ms (events), bound {bound_ms:.4f} ms "
+            f"({bound_by}), max_abs_err {err:.3g}")
     del bs
 
     # Coverage: ragged shapes, fp32 and bf16 in, both C forms, every op.
     n_cov = 0
-    for m, kk, n in ((5, 40, 24), (130, 300, 200), (64, 128, 192)):
+    k1mod.opope_gemm.launches_by_route.update(sm90=0, tile=0)
+    for m, kk, n in ((5, 40, 24), (130, 300, 200), (64, 128, 192), (1, 264, 136),
+                     (63, 1032, 72), (65, 520, 200), (130, 136, 264)):
         for dt in (torch.float32, torch.bfloat16):
             a = torch.randn((m, kk), generator=gen, device=dev).to(dt)
             b = torch.randn((kk, n), generator=gen, device=dev).to(dt)
@@ -279,7 +361,8 @@ def kernel_phase(torch, ep, cfg, dev):
             check_close(torch, out, k1_plain(a, b, None, chain, ops_), torch.int8,
                         f"coverage requant chain {m}x{kk}x{n} {dt}")
             n_cov += 1
-    log(f"coverage: {n_cov} ragged/dtype/C/epilogue cases within tolerance")
+    log(f"coverage: {n_cov} ragged/dtype/C/epilogue cases within tolerance, launches by "
+        f"route {opope_gemm.launches_by_route}")
     return layer, rows, max_err
 
 
@@ -320,12 +403,14 @@ def model_phase(torch, np, cfg, ops, dev):
                           gen_lens=(8, 16, 32))
     ops.reset_counts()
     opope_gemm.launches = 0
+    opope_gemm.launches_by_route.update(sm90=0, tile=0)
     report = eng.timed_serve(trace)
     launches = opope_gemm.launches
     want = per_forward * (report.decode_steps + report.prefill_batches)
     if launches != want or ops.backend("torch").calls != 0:
         raise AssertionError(f"kernel launches {launches} != {want} (torch calls "
                              f"{ops.backend('torch').calls})")
+    check_routes(opope_gemm, launches, "4(b)")
     for r in trace:
         out = report.outputs[r.rid]
         if len(out) != r.max_new_tokens or not all(0 <= t < cfg.vocab for t in out):
@@ -335,11 +420,13 @@ def model_phase(torch, np, cfg, ops, dev):
         f"mean_occupancy {report.mean_occupancy:.3f}, wall {report.wall_time_s:.3f} s, "
         f"{report.tokens_per_sec:.1f} tokens/s, TTFT p50 {report.ttft_p50 * 1e3:.1f} ms, "
         f"ITL p50 {report.itl_p50 * 1e3:.1f} ms, kernel launches {launches} "
-        f"= 7 * {cfg.n_layers} * ({report.decode_steps} + {report.prefill_batches})")
+        f"= 7 * {cfg.n_layers} * ({report.decode_steps} + {report.prefill_batches}), "
+        f"all on the sm90 route")
 
     # (c) the lockstep engine.
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))).to(dev)
     opope_gemm.launches = 0
+    opope_gemm.launches_by_route.update(sm90=0, tile=0)
     t0 = time.perf_counter()
     toks = ServeEngine(cfg=cfg, params=params, max_len=80).generate({"tokens": prompts}, 16)
     toks_host = toks.cpu()
@@ -348,6 +435,7 @@ def model_phase(torch, np, cfg, ops, dev):
         raise AssertionError(f"static engine output {tuple(toks_host.shape)}")
     if opope_gemm.launches != per_forward * 16:
         raise AssertionError(f"static launches {opope_gemm.launches} != {per_forward * 16}")
+    check_routes(opope_gemm, opope_gemm.launches, "4(c)")
     log(f"(c) static: 4 x 64-token prompts, 16 tokens each in {dt:.3f} s "
         f"({64 / dt:.1f} tokens/s), kernel launches {opope_gemm.launches}")
 
@@ -364,10 +452,20 @@ def model_phase(torch, np, cfg, ops, dev):
             logits, caches = api.decode(cfg, params, tok, caches, 67 + i)
         sync(torch, dev)
         step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        prof = None
         if dev.type == "cuda":
-            decode_profile(torch, lambda i: api.decode(cfg, params, tok, caches, 83 + i), step_ms)
+            prof = decode_profile(torch, lambda i: api.decode(cfg, params, tok, caches, 83 + i),
+                                  step_ms)
+    dev_ms = None
+    if prof is not None:
+        bound = sum(1e3 * t.numel() * t.element_size() / HBM_BYTES_PER_S
+                    for t in _leaves(params["blocks"]) if t.ndim >= 2)
+        dev_ms = {"k1": sum(ms for key, ms, _ in prof if "opope_gemm_kernel" in key),
+                  "busy": sum(ms for _, ms, _ in prof), "k1_byte_bound": bound}
+        log(f"(d) decode step, 4 rows: {step_ms:.3f} ms wall; device busy {dev_ms['busy']:.3f} ms, "
+            f"K1 {dev_ms['k1']:.3f} ms ({per_forward} launches, byte bound {bound:.3f} ms)")
     return {"continuous": report, "launches": launches, "decode_step_ms": step_ms,
-            "params": params}
+            "device_ms": dev_ms, "params": params}
 
 
 def k4_plain(k4, a, b, c, steps, ops_):
@@ -616,9 +714,11 @@ def moe_phase(torch, np, cfg, ops, ep, k4, dev):
                           gen_lens=(8, 16, 32))
     ops.reset_counts()
     opope_gemm.launches = 0
+    opope_gemm.launches_by_route.update(sm90=0, tile=0)
     k4.opope_gemm_grouped.launches = 0
     report = eng.timed_serve(trace)
     launches = {"k1": opope_gemm.launches, "k4": k4.opope_gemm_grouped.launches}
+    check_routes(opope_gemm, launches["k1"], "6(b)")
     forwards = report.decode_steps + report.prefill_batches
     plain = ops.backend("torch")
     if (launches["k4"] != n_k4 * forwards or launches["k1"] != n_k1 * forwards
@@ -643,6 +743,7 @@ def moe_phase(torch, np, cfg, ops, ep, k4, dev):
     # (b) the lockstep engine.
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))).to(dev)
     opope_gemm.launches = k4.opope_gemm_grouped.launches = 0
+    opope_gemm.launches_by_route.update(sm90=0, tile=0)
     t0 = time.perf_counter()
     toks = ServeEngine(cfg=cfg, params=params, max_len=80).generate({"tokens": prompts}, 16)
     toks_host = toks.cpu()
@@ -652,6 +753,7 @@ def moe_phase(torch, np, cfg, ops, ep, k4, dev):
     if (k4.opope_gemm_grouped.launches, opope_gemm.launches) != (n_k4 * 16, n_k1 * 16):
         raise AssertionError(f"static launches K4 {k4.opope_gemm_grouped.launches}, "
                              f"K1 {opope_gemm.launches}")
+    check_routes(opope_gemm, opope_gemm.launches, "6(b) static")
     log(f"(b) static: 4 x 64-token prompts, 16 tokens each in {dt:.3f} s "
         f"({64 / dt:.1f} tokens/s), K4 launches {k4.opope_gemm_grouped.launches}, "
         f"K1 launches {opope_gemm.launches}")
@@ -999,6 +1101,7 @@ def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops,
     ops.reset_counts()
     for fn in kernels.values():
         fn.launches = 0
+    kernels["K1"].launches_by_route.update(sm90=0, tile=0)
     t0 = time.perf_counter()
     with torch.inference_mode():
         toks = _greedy_decode(torch, api, cfg, params, prompts, n_fwd, policy)
@@ -1010,6 +1113,7 @@ def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops,
                    for name in ("torch", "torch_q8")}
     if launches != want or any(sum(c) for c in plain_calls.values()):
         raise AssertionError(f"{tag} launches {launches} != {want} (plain calls {plain_calls})")
+    check_routes(kernels["K1"], launches["K1"], f"{tag} (d)")
     if tuple(toks_host.shape) != (4, n_fwd) or not ((toks_host >= 0) & (toks_host < cfg.vocab)).all():
         raise AssertionError(f"{tag} greedy tokens {tuple(toks_host.shape)}")
     log(f"{tag} (d) greedy 4 x 64 prompt + 16 decode steps in {wall:.3f} s "
@@ -1374,31 +1478,49 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = kbuild.build_all()
-    log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    for path in libs.values():
+    log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s together; per source "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(kbuild.BUILD_SECONDS.items())))
+    for name, path in libs.items():
+        entry = ""
         for line in path.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
             if "registers" in line or "spill" in line:
-                log(f"ptxas: {line.strip()}")
+                kernel = "sm90 " if "sm90" in entry else ""
+                log(f"ptxas {name} {kernel}{entry[-60:]}: {line.strip()}")
 
     cfg = get_config("chatglm3-6b")
+    mcfg = get_config("deepseek-moe-16b")
     dev = torch.device("cuda")
-    layer, rows, max_err = kernel_phase(torch, ep, cfg, dev)
+    layer, rows, max_err = kernel_phase(torch, ep, cfg, mcfg, dev)
     res = model_phase(torch, np, cfg, ops, dev)
 
-    # One layer's 7 GEMMs of a 4-slot decode step, from the timed rows.
-    by_key = {(r["m"], r["k"], r["n"], r["epilogue"]): r for r in rows}
-    decode_rows = [by_key[(4, k, n, ch)] for _, k, n, ch in layer]
-    sums = {key: sum(r[key] for r in decode_rows)
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    t_bytes = sum(2 * (4 * k + k * n + 4 * n * (1 + (ch != "none"))) for _, k, n, ch in layer)
-    t_ops = sum(2 * 4 * n * k for _, k, n, _ in layer)
+    # One layer's 7 GEMMs of a 4-slot decode step (and of a 512-row
+    # prefill), from the timed rows.
+    by_key = {(r["m"], r["k"], r["n"], r["epilogue"]): r for r in rows if r["model"] == cfg.name}
+    layer_sums = {}
+    for m in K1_MS:
+        m_rows = [by_key[(m, k, n, ch)] for _, k, n, ch in layer]
+        layer_sums[m] = {key: sum(r[key] for r in m_rows) for key in (
+            "ms", "event_ms", "tile_ms", "plain_ms", "library_ms", "bound_ms")}
+        flops = sum(2 * m * n * k for _, k, n, _ in layer)
+        log(f"K1 one chatglm3-6b layer at M={m}: sm90 {layer_sums[m]['ms']:.4f} ms device "
+            f"({flops / layer_sums[m]['ms'] / 1e9:.1f} TFLOP/s; {layer_sums[m]['event_ms']:.4f} "
+            f"ms by CUDA events, host issue included), tile route "
+            f"{layer_sums[m]['tile_ms']:.4f} ms, torch.matmul {layer_sums[m]['library_ms']:.4f} ms, "
+            f"bound {layer_sums[m]['bound_ms']:.4f} ms")
+    sums = layer_sums[4]
+
+    def layer_bound_by(m):
+        t_bytes = sum(2 * (m * k + k * n + m * n * (1 + (ch != "none"))) for _, k, n, ch in layer)
+        t_ops = sum(2 * m * n * k for _, k, n, _ in layer)
+        return "bytes" if t_bytes / HBM_BYTES_PER_S >= t_ops / BF16_FLOPS else "operations"
     gemm_ms_step = cfg.n_layers * sums["ms"]
     log(f"(d) lockstep decode step, 4 rows: {res['decode_step_ms']:.3f} ms wall; its "
         f"{7 * cfg.n_layers} GEMMs take {gemm_ms_step:.3f} ms on the kernel "
         f"(cold-L2 timings above; bound {cfg.n_layers * sums['bound_ms']:.3f} ms)")
     # Phases 7 and 8 on chatglm3-6b's weights: the int8 kernels at both
     # models' shapes, then chatglm3-6b under mlp_q8_policy().
-    mcfg = get_config("deepseek-moe-16b")
     q8_rows, q8_errs = q8_kernel_phase(torch, q8mod, qz, q8b, ep, cfg, mcfg, dev)
     kernels = {"K1": opope_gemm, "K4": k4mod.opope_gemm_grouped,
                "K2": q8mod.opope_gemm_q8, "K5": q8mod.opope_gemm_q8_grouped}
@@ -1444,14 +1566,25 @@ def main() -> int:
         "replaces": "src/repro/kernels/opope_gemm.py:293",
         "launches": sum(k1_paths.values()),
         "launches_by_path": k1_paths,
+        # check_routes held every path's launches to the sm90 route.
+        "launches_by_route": {"sm90": sum(k1_paths.values()), "tile": 0},
         "max_abs_err": max_err,
         "ms": sums["ms"],
+        "tile_ms": sums["tile_ms"],
         "plain_ms": sums["plain_ms"],
         "bound_ms": sums["bound_ms"],
-        "bound_by": "bytes" if t_bytes / HBM_BYTES_PER_S >= t_ops / BF16_FLOPS else "operations",
+        "bound_by": layer_bound_by(4),
         "library_ms": sums["library_ms"],
-        "work": "the 7 GEMMs of one chatglm3-6b layer in a 4-slot decode step "
-                "(per-shape rows under 'shapes')",
+        "work": "the 7 GEMMs of one chatglm3-6b layer in a 4-slot decode step on the sm90 "
+                "route ('tile_ms': the same calls on the tile route; per-shape rows under "
+                "'shapes'; the same layer at 64, 256 and 512 rows under 'layers')",
+        "timing": "ms, tile_ms and library_ms: device time by torch.profiler; event_ms and "
+                  "plain_ms: CUDA events around the loop, the host's issue rate included",
+        "layers": {str(m): v for m, v in layer_sums.items()},
+        "prefill_layer": dict(layer_sums[512], m=512, bound_by=layer_bound_by(512)),
+        "build_s": kbuild.BUILD_SECONDS.get("opope_gemm"),
+        "decode_step_device_ms": {cfg.name: res["device_ms"],
+                                  mcfg.name: mres["device_ms"]},
         "shapes": rows,
     }
     g_record = {

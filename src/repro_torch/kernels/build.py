@@ -19,10 +19,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
-__all__ = ["CSRC_DIR", "NVCC_FLAGS", "build_dir", "sources", "build", "build_all", "load"]
+__all__ = ["CSRC_DIR", "NVCC_FLAGS", "BUILD_SECONDS", "build_dir", "sources", "build",
+           "build_all", "load"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = (
@@ -31,6 +33,8 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# Wall seconds of each source's nvcc run in this process (builds run together).
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def build_dir() -> Path:
@@ -81,6 +85,7 @@ def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, Path]:
     names = sources() if names is None else names
     libs = {name: _lib_path(name) for name in names}
     jobs = []
+    t0 = time.perf_counter()
     for name, lib in libs.items():
         if lib.exists():
             continue
@@ -90,9 +95,16 @@ def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, Path]:
         with open(lib.with_suffix(".log"), "w") as log:
             proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
         jobs.append((name, lib, tmp, proc))
+    pending = {name for name, *_ in jobs}
+    while pending:
+        for name, _, _, proc in jobs:
+            if name in pending and proc.poll() is not None:
+                BUILD_SECONDS[name] = time.perf_counter() - t0
+                pending.discard(name)
+        time.sleep(0.05)
     failed = []
     for name, lib, tmp, proc in jobs:
-        if proc.wait() != 0:
+        if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failed.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
                           + lib.with_suffix(".log").read_text())

@@ -93,6 +93,115 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         opope_gemm(a, torch.ones((8, 4), device=cuda_device))
 
 
+# K1's sm90 route (TMA + wgmma): split-K shapes at decode and prefill
+# widths, ragged M (1, 5, 63, 65, 130) against ragged N and a ragged K tail.
+SM90_SHAPES = [(4, 4096, 4096), (512, 4096, 256), (1, 264, 136), (5, 40, 24), (63, 1032, 72),
+               (65, 520, 200), (130, 136, 264), (64, 2048, 64)]
+
+
+def _k1_module():
+    import importlib
+    return importlib.import_module("repro_torch.kernels.opope_gemm")
+
+
+@pytest.mark.parametrize("shape", SM90_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_sm90_route_matches_plain_for_every_op_and_out_dtype(cuda_device, shape):
+    k1 = _k1_module()
+    m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=gen, device=cuda_device).bfloat16()
+    b = (torch.randn((k, n), generator=gen, device=cuda_device) * k ** -0.5).bfloat16()
+    assert k1._plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr()).route == "sm90"
+    row = torch.randn((1, n), generator=gen, device=cuda_device)
+    full = torch.randn((m, n), generator=gen, device=cuda_device).bfloat16()
+    acc_max = opope_gemm_plain(a, b, out_dtype=torch.float32).abs().max()
+    for c in (None, torch.randn((n,), generator=gen, device=cuda_device).bfloat16(), full):
+        for op in tep.epilogue_ops():
+            operands = {"none": (), "row": (row,), "full": (full,),
+                        "scalar": ((acc_max / 100.0).reshape(1, 1),)}[tep.op_kind(op)]
+            for out_dtype in ((torch.int8,) if op == "requant_int8"
+                              else (torch.bfloat16, torch.float16, torch.float32)):
+                before = dict(opope_gemm.launches_by_route)
+                got = opope_gemm(a, b, c, out_dtype=out_dtype, epilogue=(op,),
+                                 epilogue_operands=operands)
+                torch.cuda.synchronize()
+                assert opope_gemm.launches_by_route == dict(before, sm90=before["sm90"] + 1)
+                _check(got, a, b, c, out_dtype, (op,), operands)
+    chain = ("silu", "mul", "requant_int8")
+    operands = (full, (acc_max / 50.0).reshape(1, 1))
+    got = opope_gemm(a, b, out_dtype=torch.int8, epilogue=chain, epilogue_operands=operands)
+    _check(got, a, b, None, torch.int8, chain, operands)
+
+
+@pytest.mark.parametrize("shape", [(4, 4096, 4096), (64, 2816, 2048), (512, 4096, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sm90_split_k_is_deterministic(cuda_device, shape):
+    k1 = _k1_module()
+    m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    a = torch.randn((m, k), generator=gen, device=cuda_device).bfloat16()
+    b = torch.randn((k, n), generator=gen, device=cuda_device).bfloat16()
+    assert k1._plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr()).splits > 1
+    res = torch.randn((m, n), generator=gen, device=cuda_device).bfloat16()
+    outs = [opope_gemm(a, b, epilogue=("residual",), epilogue_operands=(res,),
+                       out_dtype=torch.float32) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    _check(outs[0], a, b, None, torch.float32, ("residual",), (res,))
+
+
+def test_sm90_split_k_on_two_streams(cuda_device):
+    """Each stream has its own split-K counters: calls in flight on two
+    streams at once do not share them."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    a = [torch.randn((4, 4096), generator=gen, device=cuda_device).bfloat16() for _ in range(2)]
+    b = [torch.randn((4096, 4096), generator=gen, device=cuda_device).bfloat16() for _ in range(2)]
+    want = [opope_gemm(x, y) for x, y in zip(a, b)]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(opope_gemm(a[i], b[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, want[i]) for o in outs[i])
+
+
+def test_k1_routes_and_their_counters(cuda_device):
+    k1 = _k1_module()
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    a = torch.randn((8, 64), generator=gen, device=cuda_device)
+    b = torch.randn((64, 32), generator=gen, device=cuda_device)
+    cases = [(a, b, "tile"),                                   # fp32 in
+             (a.bfloat16(), b.bfloat16(), "sm90"),             # TMA-able bf16
+             (a[:, :60].contiguous().bfloat16(), b[:60].bfloat16(), "tile"),  # 120-byte rows
+             (a[:, :56].contiguous().bfloat16(), b[:56].bfloat16(), "sm90")]  # 112-byte rows
+    for x, y, route in cases:
+        before = dict(opope_gemm.launches_by_route)
+        total = opope_gemm.launches
+        got = opope_gemm(x, y)
+        torch.cuda.synchronize()
+        assert opope_gemm.launches == total + 1
+        assert opope_gemm.launches_by_route == dict(before, **{route: before[route] + 1})
+        _check(got, x, y, None, x.dtype, (), ())
+    # A bf16 operand 8 bytes off a 16-byte boundary: the tile route.
+    flat = torch.randn(8 * 64 + 4, generator=gen, device=cuda_device).bfloat16()
+    x = flat[4:].view(8, 64)
+    assert x.data_ptr() % 16 == 8
+    before = dict(opope_gemm.launches_by_route)
+    _check(opope_gemm(x, b.bfloat16()), x, b.bfloat16(), None, torch.bfloat16, (), ())
+    assert opope_gemm.launches_by_route["tile"] == before["tile"] + 1
+    # The same call forced onto each route; sm90 refuses what it cannot take.
+    y = b.bfloat16()
+    for route in ("sm90", "tile"):
+        got = k1._run(a.bfloat16(), y, None, None, (), (), route=route)
+        _check(got, a.bfloat16(), y, None, torch.bfloat16, (), ())
+    with pytest.raises(ValueError, match="sm90"):
+        k1._run(a, b, None, None, (), (), route="sm90")
+
+
 GROUPED_SHAPES = [(3, 5, 40, 24), (3, 130, 300, 200), (64, 1, 2048, 1408), (64, 30, 1408, 2048)]
 
 
