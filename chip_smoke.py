@@ -49,10 +49,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    prefill, a 512-row continuation over 2048 keys, a decode row and a
    non-causal call, and ``opope_chunked_scan`` at jamba-v0.1's mamba scan
    width (8192 x 16 columns, 4096 steps) — the slice's main path, its
-   launches counted — each against its plain version (K6 bitwise), timed
-   beside SDPA (K3) and the bound, plus ragged fp32/bf16 cases and
-   chatglm3-6b's prefill_32k sequence (kernel and SDPA only); (b) the
-   prefill against the model's own ``blockwise_attention``.
+   launches counted, every K3 launch required on the sm90 route — each
+   against its plain version (K6 bitwise); K3 timed by device time (CUDA
+   events around calls queued behind a sleeping kernel) on its planned
+   route and on the tile route, beside SDPA and the bound, and
+   checked on both routes at ragged fp32/bf16 cases and sm90 panel edges,
+   plus chatglm3-6b's prefill_32k sequence (both routes and SDPA only);
+   (b) the prefill against the model's own ``blockwise_attention``.
 
 The last lines are a JSON ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
@@ -135,19 +138,51 @@ def device_ms(torch, fn, n_bufs: int, iters: int = 0, warmup: int = 2) -> float:
     for i in range(warmup):
         fn(i % n_bufs)
     torch.cuda.synchronize()
-    # A trace now and then comes back without its device events (one
-    # session in ~100 on the H100): that measurement is taken again.
+    # A trace now and then comes back without its device events, or with
+    # some of them (late in a long run on the H100): a trace with fewer
+    # kernel events than calls (each call launches at least one kernel) is
+    # taken again.
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fn(i % n_bufs)
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA)
-        if total_us > 0:
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total_us = sum(e.self_device_time_total for e in kernels)
+        if total_us > 0 and sum(e.count for e in kernels) >= iters:
             return total_us / 1e3 / iters
-        log(f"profiler trace {attempt + 1} of 3 held no device time; measuring again")
-    raise AssertionError("the profiler recorded no device time in 3 traces")
+        log(f"profiler trace {attempt + 1} of 3 held {sum(e.count for e in kernels)} kernel "
+            f"events for {iters} calls; measuring again")
+    raise AssertionError("the profiler recorded too few kernel events in 3 traces")
+
+
+def queued_ms(torch, fn, iters: int = 20, warmup: int = 2) -> float:
+    """Mean device time of ``fn(i)`` by CUDA events around ``iters`` calls
+    that the host queues behind a sleeping kernel: the device runs them back
+    to back once it wakes, so the events time the device's work and not the
+    host's issue rate, with no profiler. The start event must still be
+    pending when the last call is queued; else the sleep was too short and
+    it is taken again, four times longer. Phase 9 times K3 this way: it runs
+    after the model phases, where torch.profiler returned traces missing
+    kernel events."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 50_000_000  # ~25 ms at the H100's clock
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for i in range(iters):
+            fn(i)
+        end.record()
+        if not start.query():
+            end.synchronize()
+            return start.elapsed_time(end) / iters
+        torch.cuda.synchronize()
+        cycles *= 4
+    raise AssertionError("the host did not queue the timed calls within the device's sleep")
 
 
 def ulp(torch, x, dtype):
@@ -1170,10 +1205,16 @@ def attn_bound(b, h, s, t, d, causal, elem):
     output moved once each, or 4·D flops for each (query, valid key) pair
     (causal: the pairs under the mask aligned to the end of the keys) at
     the bf16 tensor-core rate."""
-    pairs = sum(max(0, min(r + t - s + 1, t)) for r in range(s)) if causal else s * t
     t_bytes = elem * b * h * 2 * (s + t) * d / HBM_BYTES_PER_S
-    t_ops = 4 * b * h * pairs * d / BF16_FLOPS
+    t_ops = attn_flops(b, h, s, t, d, causal) / BF16_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_flops(b, h, s, t, d, causal):
+    """4·D flops for each (query, valid key) pair (causal: under the mask
+    aligned to the end of the keys): Q Kᵀ and P·V."""
+    pairs = sum(max(0, min(r + t - s + 1, t)) for r in range(s)) if causal else s * t
+    return 4 * b * h * pairs * d
 
 
 def attn_check(torch, out, want, what):
@@ -1198,8 +1239,13 @@ def attention_scan_phase(torch, F, kscan, mattn, cfg, jcfg, shape_32k, dev):
     """Phase 9: K3 and K6 through the ``kernels`` entry points, at the width
     of chatglm3-6b's attention and of jamba-v0.1's mamba scan. Returns the
     two kernels' records."""
+    import importlib
+
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.opope_attention import (
         opope_attention, opope_attention_bhsd, opope_attention_plain)
+
+    k3 = importlib.import_module("repro_torch.kernels.opope_attention")
 
     gen = torch.Generator(device=dev).manual_seed(9)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1227,31 +1273,52 @@ def attention_scan_phase(torch, F, kscan, mattn, cfg, jcfg, shape_32k, dev):
     s_scan, n_state = 4096, jcfg.mamba.expand * jcfg.d_model * jcfg.mamba.d_state
     decay = 0.2 + 0.79 * torch.rand((s_scan, n_state), generator=gen, device=dev)
     update = torch.randn((s_scan, n_state), generator=gen, device=dev)
+    # The route the plan gives each row: every one of them is sm90's (the
+    # decode row too: measured beside the tile route, it is faster there).
+    routes = {name: k3._plan(views[name][0].shape, t, bf16, causal,
+                             [x.stride() for x in views[name]],
+                             [x.data_ptr() for x in views[name]]).route
+              for name, _, _, t, causal in attn_rows}
+    if set(routes.values()) != {"sm90"}:
+        raise AssertionError(f"phase 9 K3 rows off the sm90 route: {routes}")
     sync(torch, dev)
     opope_attention.launches = 0
+    opope_attention.launches_by_route = {"sm90": 0, "tile": 0}
     kscan.opope_chunked_scan.launches = 0
     outs = {name: opope_attention_bhsd(*views[name], causal=causal)
             for name, _, _, _, causal in attn_rows}
     states = kscan.opope_chunked_scan(decay, update)
     sync(torch, dev)
     launches = {"k3": opope_attention.launches, "k6": kscan.opope_chunked_scan.launches}
+    k3_by_route = dict(opope_attention.launches_by_route)
     if launches != {"k3": len(attn_rows), "k6": 1}:
         raise AssertionError(f"phase 9 launches {launches} != K3 {len(attn_rows)}, K6 1")
+    if k3_by_route != {"sm90": len(attn_rows), "tile": 0}:
+        raise AssertionError(f"phase 9 K3 launches by route {k3_by_route}, want all "
+                             f"{len(attn_rows)} on sm90")
     log(f"9 (a) main path: {len(attn_rows)} opope_attention_bhsd calls at {h} heads x head dim "
-        f"{d} and one opope_chunked_scan over [{s_scan}, {n_state}]: launches {launches}")
+        f"{d} and one opope_chunked_scan over [{s_scan}, {n_state}]: launches {launches}, K3 "
+        f"by route {k3_by_route}")
 
     # Each output against the plain version, then the same call (the
-    # strided [B, H, S, D] views the kernel reads in place) timed beside the
-    # plain version, SDPA (the library lane: never called by the port) and
-    # the bound.
+    # strided [B, H, S, D] views the kernel reads in place) timed by device
+    # time (queued_ms) on the planned route and on the tile route, beside
+    # SDPA (the library lane: never called by the port), the plain version
+    # (CUDA events: its many kernels) and the bound. Launches made for
+    # timing and comparison are not the main path's and are not counted in
+    # `launches`.
     rows, k3_err = [], 0.0
     for name, b, s, t, causal in attn_rows:
         qh, kh, vh = views.pop(name)
         want = opope_attention_plain(qh, kh, vh, causal=causal)
         err, rel_rms = attn_check(torch, outs[name], want, f"K3 {name} B={b} S={s} T={t}")
         k3_err = max(k3_err, err)
-        del want
-        ms = time_ms(torch, lambda i: opope_attention_bhsd(qh, kh, vh, causal=causal), 1)
+        tile_out = k3._launch(qh, kh, vh, causal, 128, 128, route="tile")
+        attn_check(torch, tile_out, want, f"K3 {name} on the tile route")
+        del want, tile_out
+        ms = queued_ms(torch, lambda i: opope_attention_bhsd(qh, kh, vh, causal=causal))
+        ms_tile = queued_ms(torch, lambda i: k3._launch(qh, kh, vh, causal, 128, 128,
+                                                        route="tile"))
         plain_ms = time_ms(torch, lambda i: opope_attention_plain(qh, kh, vh, causal=causal),
                            1, iters=3, warmup=1)
         # SDPA's is_causal is aligned to the start of the keys: S != T takes
@@ -1260,19 +1327,23 @@ def attention_scan_phase(torch, F, kscan, mattn, cfg, jcfg, shape_32k, dev):
                 if causal and s != t else None)
         lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                  is_causal=causal and mask is None)
-        lib_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None), 1)
+        lib_ms = queued_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None))
         lib_diff = (lib_out.float() - outs[name].float()).abs().max().item()
         bound_ms, bound_by = attn_bound(b, h, s, t, d, causal, 2)
+        tflops = attn_flops(b, h, s, t, d, causal) / (ms * 1e-3) / 1e12
         rows.append({"name": name, "b": b, "h": h, "s": s, "t": t, "d": d, "causal": causal,
-                     "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-                     "err_rms_over_out_rms": rel_rms, "sdpa_max_abs_diff": lib_diff})
+                     "dtype": "bfloat16", "route": routes[name], "ms": ms,
+                     "ms_tile_route": ms_tile, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "tflops": tflops,
+                     "max_abs_err": err, "err_rms_over_out_rms": rel_rms,
+                     "sdpa_max_abs_diff": lib_diff})
         log(f"9 (a) K3 {name} B={b} H={h} S={s} T={t} D={d} causal={causal}: vs plain max abs "
             f"err {err:.3g} (gate {ATTN_BF16_TOL} + {ATTN_BF16_TOL} |plain|), error RMS / output "
-            f"RMS {rel_rms:.3g} (gate {ATTN_BF16_RMS}); kernel {ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); |K3 - SDPA| max "
-            f"{lib_diff:.3g} (not gated)")
+            f"RMS {rel_rms:.3g} (gate {ATTN_BF16_RMS}); device time {routes[name]} route "
+            f"{ms:.4f} ms ({tflops:.0f} TFLOP/s), tile route {ms_tile:.4f} ms, SDPA "
+            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); plain {plain_ms:.4f} ms "
+            f"(CUDA events); |K3 - SDPA| max {lib_diff:.3g} (not gated)")
         del qh, kh, vh, lib_out
 
     # (b) the same prefill against the model's own attention, which takes
@@ -1289,30 +1360,52 @@ def attention_scan_phase(torch, F, kscan, mattn, cfg, jcfg, shape_32k, dev):
         "bf16 gates of (a))")
     del inputs, outs, model_out
 
-    # Coverage: every test shape of the reference (fp32 and bf16), S > T
-    # causal rows without a valid key at two block sizes, head dim 16.
-    n_cov = 0
-    cov = [(1, 1, 128, 128, 64, True, 64), (1, 1, 100, 160, 64, True, 64),
-           (1, 1, 96, 128, 32, False, 64), (1, 1, 77, 77, 64, True, 64),
-           (1, 1, 256, 256, 128, True, 64), (2, 3, 64, 64, 32, True, 32),
-           (1, 1, 96, 64, 64, True, 32), (1, 1, 96, 64, 64, True, 64),
-           (2, 2, 200, 70, 32, True, 64), (2, 2, 200, 70, 32, True, 128),
-           (2, 4, 96, 64, 16, True, 128), (1, 4, 1, 300, 128, True, 128)]
+    # Coverage, on each route that takes the case (tile: all; sm90: bf16 at
+    # head dims 64 and 128 but causal S > T) and through both entry points:
+    # every test shape of the reference (fp32 and bf16), S > T causal rows
+    # without a valid key at two block sizes, head dim 16; and for the sm90
+    # route S and T off the 128-row tile, continuations whose diagonal
+    # crosses a panel, head dim 64, B·H > 1 on [B, S, H, D] views, and T of
+    # one key.
+    n_cov, cov_routes = 0, {"sm90": 0, "tile": 0}
+    cov = [(1, 1, 128, 128, 64, True, 64, False), (1, 1, 100, 160, 64, True, 64, False),
+           (1, 1, 96, 128, 32, False, 64, False), (1, 1, 77, 77, 64, True, 64, False),
+           (1, 1, 256, 256, 128, True, 64, False), (2, 3, 64, 64, 32, True, 32, False),
+           (1, 1, 96, 64, 64, True, 32, False), (1, 1, 96, 64, 64, True, 64, False),
+           (2, 2, 200, 70, 32, True, 64, False), (2, 2, 200, 70, 32, True, 128, False),
+           (2, 4, 96, 64, 16, True, 128, False), (1, 4, 1, 300, 128, True, 128, False),
+           (1, 1, 129, 300, 128, True, 128, False), (1, 1, 127, 127, 128, False, 128, False),
+           (2, 3, 200, 333, 128, True, 128, True), (1, 2, 129, 1000, 64, True, 128, False),
+           (3, 5, 257, 700, 64, True, 128, True), (2, 4, 300, 300, 64, False, 128, True),
+           (1, 1, 1, 1, 128, True, 128, False), (1, 2, 5, 1, 128, False, 128, False),
+           (1, 1, 1, 1, 64, False, 128, False)]
     for dt in (f32, bf16):
-        for b, hh, s, t, dd, causal, blk in cov:
-            q, k, v = (torch.randn((b, hh, n, dd), generator=gen, device=dev).to(dt)
-                       for n in (s, t, t))
+        for b, hh, s, t, dd, causal, blk, bshd in cov:
+            if bshd:  # [B, H, N, D] views of [B, N, H, D] tensors
+                q, k, v = (torch.randn((b, n, hh, dd), generator=gen, device=dev).to(dt)
+                           .transpose(1, 2) for n in (s, t, t))
+            else:
+                q, k, v = (torch.randn((b, hh, n, dd), generator=gen, device=dev).to(dt)
+                           for n in (s, t, t))
+            what = f"K3 coverage {b}x{hh}x{s}x{t}x{dd} causal={causal} blocks={blk} {dt}"
+            want = opope_attention_plain(q, k, v, causal=causal, block_q=blk, block_k=blk)
+            plan = k3._plan(q.shape, t, dt, causal, [x.stride() for x in (q, k, v)],
+                            [x.data_ptr() for x in (q, k, v)])
+            for route in ("tile", "sm90") if plan.route == "sm90" else ("tile",):
+                out = k3._launch(q, k, v, causal, blk, blk, route=route)
+                sync(torch, dev)
+                err, _ = attn_check(torch, out, want, f"{what} on the {route} route")
+                k3_err = max(k3_err, err)
+                cov_routes[route] += 1
             out = opope_attention_bhsd(q, k, v, causal=causal, block_q=blk, block_k=blk)
             sync(torch, dev)
-            want = opope_attention_plain(q, k, v, causal=causal, block_q=blk, block_k=blk)
-            err, _ = attn_check(torch, out, want, f"K3 coverage {b}x{hh}x{s}x{t}x{dd} "
-                                                  f"causal={causal} blocks={blk} {dt}")
-            k3_err = max(k3_err, err)
+            attn_check(torch, out, want, what)
             out = opope_attention(q[0, 0], k[0, 0], v[0, 0], causal=causal, block_q=blk,
                                   block_k=blk)
             attn_check(torch, out, want[0, 0], f"K3 single-head coverage {s}x{t}x{dd} {dt}")
-            n_cov += 2
-    log(f"9 (a) K3 coverage: {n_cov} ragged/dtype/block/head-dim cases within tolerance")
+            n_cov += 1
+    log(f"9 (a) K3 coverage: {n_cov} ragged/dtype/block/head-dim/layout cases within "
+        f"tolerance through both entry points, and by route {cov_routes}")
 
     # chatglm3-6b's prefill_32k sequence: kernel and SDPA only.
     s32 = shape_32k.seq_len
@@ -1321,17 +1414,24 @@ def attention_scan_phase(torch, F, kscan, mattn, cfg, jcfg, shape_32k, dev):
     sync(torch, dev)
     if not torch.isfinite(out.float()).all():
         raise AssertionError("K3 prefill_32k: non-finite output")
-    ms_32k = time_ms(torch, lambda i: opope_attention_bhsd(qh, kh, vh), 1, iters=3, warmup=1)
-    lib_32k = time_ms(torch, lambda i: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
-                      1, iters=3, warmup=1)
+    route_32k = k3._plan(qh.shape, s32, bf16, True, [x.stride() for x in (qh, kh, vh)],
+                         [x.data_ptr() for x in (qh, kh, vh)]).route
+    ms_32k = queued_ms(torch, lambda i: opope_attention_bhsd(qh, kh, vh), iters=3, warmup=1)
+    tile_32k = queued_ms(torch, lambda i: k3._launch(qh, kh, vh, True, 128, 128, route="tile"),
+                         iters=3, warmup=1)
+    lib_32k = queued_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True), iters=3, warmup=1)
     diff_32k = (F.scaled_dot_product_attention(qh, kh, vh, is_causal=True).float()
                 - out.float()).abs().max().item()
     bound_32k, by_32k = attn_bound(1, h, s32, s32, d, True, 2)
+    tflops_32k = attn_flops(1, h, s32, s32, d, True) / (ms_32k * 1e-3) / 1e12
     rows.append({"name": shape_32k.name, "b": 1, "h": h, "s": s32, "t": s32, "d": d,
-                 "causal": True, "dtype": "bfloat16", "ms": ms_32k, "plain_ms": None,
-                 "library_ms": lib_32k, "bound_ms": bound_32k, "bound_by": by_32k,
+                 "causal": True, "dtype": "bfloat16", "route": route_32k, "ms": ms_32k,
+                 "ms_tile_route": tile_32k, "plain_ms": None, "library_ms": lib_32k,
+                 "bound_ms": bound_32k, "bound_by": by_32k, "tflops": tflops_32k,
                  "max_abs_err": None, "sdpa_max_abs_diff": diff_32k})
-    log(f"9 (a) K3 {shape_32k.name} B=1 H={h} S=T={s32}: kernel {ms_32k:.3f} ms, SDPA "
+    log(f"9 (a) K3 {shape_32k.name} B=1 H={h} S=T={s32}: device time {route_32k} route "
+        f"{ms_32k:.3f} ms ({tflops_32k:.0f} TFLOP/s), tile route {tile_32k:.3f} ms, SDPA "
         f"{lib_32k:.3f} ms, bound {bound_32k:.3f} ms ({by_32k}); |K3 - SDPA| max {diff_32k:.3g} "
         f"(not gated); plain version skipped: its fp32 scores alone would take "
         f"{4 * h * s32 * s32 / 1e9:.0f} GB")
@@ -1372,8 +1472,11 @@ def attention_scan_phase(torch, F, kscan, mattn, cfg, jcfg, shape_32k, dev):
         "replaces": "src/repro/kernels/opope_attention.py:118",
         "launches": launches["k3"],
         "launches_by_path": {"kernels entry point, chatglm3-6b attention width": launches["k3"]},
+        "launches_by_route": k3_by_route,
         "max_abs_err": k3_err,
         "ms": k3["ms"],
+        "ms_tile_route": k3["ms_tile_route"],
+        "tflops": k3["tflops"],
         "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
@@ -1381,7 +1484,12 @@ def attention_scan_phase(torch, F, kscan, mattn, cfg, jcfg, shape_32k, dev):
         "library": "torch.nn.functional.scaled_dot_product_attention",
         "model_attention_max_abs_err": model_err,
         "work": f"one causal prefill of chatglm3-6b's attention, B=4, H={h}, S=T=2048, D={d}, "
-                "bf16 (per-shape rows under 'shapes')",
+                "bf16, on the sm90 route (per-shape rows under 'shapes')",
+        "timing": "ms, ms_tile_route and library_ms: device time by CUDA events around calls "
+                  "queued behind a sleeping kernel (queued_ms); plain_ms: CUDA events around "
+                  "the loop",
+        "coverage_by_route": cov_routes,
+        "build_s": kbuild.BUILD_SECONDS.get("opope_attention"),
         "shapes": rows,
     }
     k6_record = {

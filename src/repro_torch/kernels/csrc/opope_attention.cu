@@ -17,30 +17,57 @@
 // ref_bk). Such a row here takes weight 1 on keys [0, min(L, T)) and is
 // divided by L (0 when L = 0).
 //
-// Design: the TPU grid (q blocks, kv panels) becomes one block per
-// (b*h, 64-query tile), heaviest causal tiles first, and a loop over
-// 64-key K/V panels inside the block, staged through two shared-memory
-// buffers by cp.async so panel j+1 arrives while panel j is consumed.
-// Panels past the causal limit of the tile's last row are skipped, as the
-// TPU kernel skips dead panels with pl.when. Each of the 4 warps owns 16
-// query rows; its m, l and acc stay in registers for the whole loop (the
-// O-POPE output-stationary accumulator).
-//   bf16: Q fragments are loaded once into registers (ldmatrix); S = Q K^T
-//   and acc += P V run on mma.sync m16n8k16 bf16 x bf16 -> fp32, with P
-//   rounded to bf16 in registers (the C fragment of S is the A fragment of
-//   P) and V read with ldmatrix.trans.
-//   fp32: the same tiles and fragment layout on CUDA-core FMAs, never TF32;
-//   P goes through a per-warp shared buffer.
+// Two routes, chosen on the host from the operands alone
+// (kernels/opope_attention.py::_plan):
 //
-// What bounds it on the card: at prefill widths the 4*S*T*D flops (halved
-// by causality) against 989 TFLOP/s bf16; mma.sync reaches a fraction of
-// that rate (wgmma, TMA and warp specialisation are later work). A single
-// decode row (S = 1) is bound by reading K and V, and a 64-row tile wastes
-// 63 of its rows there; a decode-width split over T is later work too.
+// * sm90 (bf16 q, k, v of head dim 64 or 128 that TMA tensor maps describe;
+//   every call but a causal one with S > T): a warp-specialised kernel. One
+//   block per (b*h, 128-query tile); blocks walk one head's tiles, heaviest
+//   causal tiles first, before the next head's, so the blocks in flight
+//   share a few heads' K and V in L2. A producer warp loads Q once and
+//   keeps a ring of K and V panels (128 keys each, 2 stages at D = 128) full
+//   by TMA, through rank-4 tensor maps over (D, rows, heads, batch) with the
+//   tensors' own strides: [B, S, H, D] tensors viewed as [B, H, S, D] are
+//   read in place, and rows past S or T of a head come in as zeros. Each
+//   stage completes on an mbarrier and is released once the wgmma reading
+//   it has retired. Two consumer warpgroups own 64 query rows each: S = Q K^T
+//   on wgmma m64n128k16 from 128-byte-swizzled shared memory (K is [T, D]
+//   row-major, K-major already), the online softmax in registers (base-2
+//   units, one exp2f a weight; a mask only on panels that cross the causal
+//   diagonal or T; panels past a warpgroup's rows skipped), then
+//   O += P V on wgmma with P rounded to bf16 in registers (the C fragment of
+//   S is the register A fragment of P) and V read MN-major (transposed).
+// * tile (fp32, which wgmma would run as TF32; head dims 16 and 32; causal
+//   calls with S > T, whose rows without a valid key follow the reference's
+//   block sizes; operands TMA cannot describe): one block per (b*h, 64-query
+//   tile), 64-key panels double-buffered by cp.async, each of 4 warps owning
+//   16 rows, their m, l and acc in registers for the whole loop (the O-POPE
+//   output-stationary accumulator).
+//     bf16: Q fragments loaded once (ldmatrix); S = Q K^T and acc += P V on
+//     mma.sync m16n8k16, P rounded to bf16 in registers, V by
+//     ldmatrix.trans.
+//     fp32: the same tiles and fragment layout on CUDA-core FMAs, never TF32;
+//     P goes through a per-warp shared buffer.
+//
+// What bounds each on the card, and what the design does about it:
+// * Prefill (S = T = 2048, causal): the 4*S*T*D flops, halved by causality,
+//   against 989 TFLOP/s bf16. The tile route's mma.sync on 64-row tiles
+//   reaches ~200 TFLOP/s; the sm90 route's wgmma from swizzled shared
+//   memory, fed by TMA with no thread spending registers or instructions on
+//   a copy, ~400. Softmax and the two products run one after the other in a
+//   warpgroup: overlapping them (S_j+1 in flight during the softmax of S_j)
+//   needs S, P and O in registers together (160 of the 168 a thread of a
+//   384- or 288-thread block gets), and the compiler then serialises every
+//   wgmma and spills; setmaxnreg did not raise its allocation past 168.
+// * A decode row (S = 1): reading K and V. Both routes waste all but one row
+//   of a tile there; the sm90 route keeps 128 KB of K and V in flight per SM
+//   and is the faster of the two (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"  // mbarriers, TMA, wgmma descriptors and instructions, the map encoder
 
 // Must match kernels/opope_attention.py::_Params field for field.
 struct AttnParams {
@@ -55,6 +82,14 @@ struct AttnParams {
   int batch_heads, heads, s, t, d, dtype, causal;
   int ref_bq, ref_bk, ref_kv_steps;  // the reference's clipped blocks and KV steps
   float scale;
+};
+
+// Must match kernels/opope_attention.py::_Maps field for field: the rank-4
+// tensor maps of q, k and v over (D, rows, heads, batch), as the wrapper's
+// plan (`_tma_map`) computed them from the tensors' shapes and strides.
+struct AttnMaps {
+  uint64_t dims[3][4];     // elements: D, rows (S or T), heads, batch
+  uint64_t strides[3][3];  // bytes along rows, heads, batch
 };
 
 namespace {
@@ -78,13 +113,9 @@ constexpr size_t smem_bytes() {
          (sizeof(T) == 4 ? 4 * 16 * PLD * sizeof(float) : 0);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes global -> shared; zero-filled when `full` is false.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(full ? 16 : 0)
                : "memory");
 }
@@ -117,12 +148,12 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t ld_g, in
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(smem_u32(p)));
 }
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(smem_u32(p)));
 }
 
 // d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
@@ -444,6 +475,307 @@ int launch_dim(const AttnParams& p, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------- sm90 route
+
+template <int D>
+struct Sm90Attn {
+  static constexpr int BQ = 128;          // query rows a block: two consumer warpgroups of 64
+  static constexpr int BKV = 128;         // keys a panel
+  static constexpr int BOXES = D / 64;    // 64-column (128-byte, swizzled) boxes across D
+  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr int Q_BOX = BQ * 128;  // bytes of one [BQ rows x 64] box
+  static constexpr int KV_BOX = BKV * 128;
+  static constexpr int Q_BYTES = BOXES * Q_BOX;
+  static constexpr int KV_BYTES = BOXES * KV_BOX;  // one K (or V) panel
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;  // + slack to align to 1024
+  static constexpr int CONSUMERS = 256;
+  static constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
+  static_assert(D == 64 || D == 128, "the sm90 route takes head dims 64 and 128");
+  static_assert(SMEM <= 227 * 1024, "one block an SM");
+};
+
+// O[64 x D] += P[64 x 16] (registers) * V[16 x D] (shared, MN-major).
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 128) wgmma_m64n128k16_rs(o, a, db);
+  else wgmma_m64n64k16_rs(o, a, db);
+}
+
+// S = Q K^T for one panel into sc (overwritten), issued and committed as
+// one wgmma group. Q: this warpgroup's 64 rows of each box, 8-row swizzle
+// atoms 1024 B apart (SBO), a 16-deep step along D 32 bytes into the row;
+// K: the panel's [128 keys x 64] boxes read the same way (K-major, so no
+// transpose). sc[4n + j] is then row 8 (j >> 1) + g of the warp's 16, key
+// 8n + 2 tq + (j & 1) of the panel: the m16n8 C layout.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_wg, uint32_t k_st) {
+  using C = Sm90Attn<D>;
+  wgmma_fence();
+  wgmma_m64n128k16_ss_init<0>(sc, smem_desc(q_wg, 16, 1024), smem_desc(k_st, 16, 1024));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk)
+    wgmma_m64n128k16_ss<0>(sc, smem_desc(q_wg + (kk / 4) * C::Q_BOX + (kk % 4) * 32, 16, 1024),
+                           smem_desc(k_st + (kk / 4) * C::KV_BOX + (kk % 4) * 32, 16, 1024));
+  wgmma_commit();
+}
+
+// O += P V for one panel, one wgmma group: P from registers, V's
+// [128 keys x 64] boxes read MN-major (transposed), the D boxes KV_BOX
+// apart (LBO), 8 key rows 1024 B apart (SBO), a 16-key step 2048 B.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[8][4],
+                                         uint32_t v_st) {
+  using C = Sm90Attn<D>;
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < C::BKV / 16; ++kc)
+    wgmma_pv<D>(o, pa[kc], smem_desc(v_st + kc * 2048, C::KV_BOX, 1024));
+  wgmma_commit();
+}
+
+// Online softmax of one panel, in place (fp32). Scores are kept in base-2
+// units, scaled by D^-0.5 * log2(e), so each weight is one exp2f of one
+// FMA; that rounds differently from expf of the natural-unit score (a few
+// fp32 ulp, far inside the bf16 gates). With `masked`, keys at or past a
+// row's limit score NEG_INF first. m and l move on; corr is the factor the
+// accumulator takes before this panel's P V; sc becomes the weights.
+__device__ __forceinline__ void softmax_panel(float (&sc)[64], float (&m)[2], float (&l)[2],
+                                              float (&corr)[2], bool masked, int k0,
+                                              const int (&key_lim)[2], int tq, float scale_log2) {
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int key = k0 + 8 * (i / 4) + 2 * tq + (i & 1);
+      if (key >= key_lim[(i >> 1) & 1]) sc[i] = NEG_INF;
+    }
+  }
+  float mx[2] = {NEG_INF, NEG_INF}, lsum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    corr[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int r = (i >> 1) & 1;
+    sc[i] = exp2f(fmaf(sc[i], scale_log2, -m[r]));
+    lsum[r] += sc[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + lsum[r];
+}
+
+// P rounded to bf16: the C fragment of S is the register A fragment of P
+// (keys 16 kc .. 16 kc + 15 are score columns 2 kc and 2 kc + 1).
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4], const float (&sc)[64]) {
+#pragma unroll
+  for (int kc = 0; kc < 8; ++kc) {
+    pa[kc][0] = pack_bf16(sc[8 * kc], sc[8 * kc + 1]);
+    pa[kc][1] = pack_bf16(sc[8 * kc + 2], sc[8 * kc + 3]);
+    pa[kc][2] = pack_bf16(sc[8 * kc + 4], sc[8 * kc + 5]);
+    pa[kc][3] = pack_bf16(sc[8 * kc + 6], sc[8 * kc + 7]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= corr[(i >> 1) & 1];
+}
+
+template <int D>
+__global__ void __launch_bounds__(Sm90Attn<D>::THREADS, 1) opope_attention_kernel_sm90(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, const AttnParams p) {
+  using C = Sm90Attn<D>;
+  constexpr int BKV = C::BKV, STAGES = C::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_bar;
+  __shared__ __align__(8) uint64_t full_k[STAGES], full_v[STAGES];
+  __shared__ __align__(8) uint64_t empty_k[STAGES], empty_v[STAGES];
+
+  // 128-byte swizzle repeats every 1024 bytes: Q and every panel start on
+  // that grid. Q, then the K stages, then the V stages.
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_s = q_s + C::Q_BYTES, v_s = k_s + STAGES * C::KV_BYTES;
+
+  // Blocks walk the query tiles of one head before the next head, heaviest
+  // causal tiles first, so the blocks in flight together share few heads'
+  // K and V in L2.
+  const int q_tiles = (p.s + C::BQ - 1) / C::BQ;
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * C::BQ;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int q_off = p.t - p.s;  // >= 0 when causal on this route
+  const int n_panels = (p.t + BKV - 1) / BKV;
+  const int last_row = min(q0 + C::BQ, p.s) - 1;
+  // Panels [0, hi): up to the causal limit of the tile's last row.
+  const int hi = p.causal ? min(n_panels, (last_row + q_off) / BKV + 1) : n_panels;
+
+  if (threadIdx.x == 0) {
+    mbar_init(smem_u32(&q_bar), 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&full_k[s]), 1);
+      mbar_init(smem_u32(&full_v[s]), 1);
+      mbar_init(smem_u32(&empty_k[s]), 8);  // one arrival per consumer warp
+      mbar_init(smem_u32(&empty_v[s]), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= C::CONSUMERS) {
+    // Producer warp: one thread issues every load; the rest retire.
+    if (threadIdx.x == C::CONSUMERS) {
+      const uint32_t qb = smem_u32(&q_bar);
+      mbar_expect_tx(qb, C::Q_BYTES);  // whole boxes, zero-filled rows past S included
+#pragma unroll
+      for (int c = 0; c < C::BOXES; ++c)
+        tma_load_4d(q_s + c * C::Q_BOX, &map_q, qb, 64 * c, q0, h, b);
+      for (int i = 0; i < hi; ++i) {
+        const int s = i % STAGES;
+        const uint32_t parity = ((i / STAGES) & 1) ^ 1;
+        const uint32_t fk = smem_u32(&full_k[s]), fv = smem_u32(&full_v[s]);
+        mbar_wait(smem_u32(&empty_k[s]), parity);
+        mbar_expect_tx(fk, C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::BOXES; ++c)
+          tma_load_4d(k_s + s * C::KV_BYTES + c * C::KV_BOX, &map_k, fk, 64 * c, i * BKV, h, b);
+        mbar_wait(smem_u32(&empty_v[s]), parity);
+        mbar_expect_tx(fv, C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::BOXES; ++c)
+          tma_load_4d(v_s + s * C::KV_BYTES + c * C::KV_BOX, &map_v, fv, 64 * c, i * BKV, h, b);
+      }
+    }
+    return;
+  }
+
+  const int tc = threadIdx.x;  // consumer thread, 0 .. 255
+  const int wg = tc / 128, warp = (tc % 128) / 32, lane = tc % 32, g = lane / 4, tq = lane % 4;
+  const int wrow0 = q0 + wg * 64;          // this warpgroup's first row
+  const int row0 = wrow0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  // Panels this warpgroup reads ([0, wg_hi)), and the fewest valid keys of
+  // its rows: a panel reaching past that is the only one that needs a mask.
+  int wg_hi = 0;
+  if (wrow0 < p.s) {
+    const int wlast = min(wrow0 + 63, p.s - 1);
+    wg_hi = p.causal ? min(n_panels, (wlast + q_off) / BKV + 1) : n_panels;
+  }
+  const int wg_lim = p.causal ? min(wrow0 + q_off + 1, p.t) : p.t;
+  int key_lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) key_lim[r] = p.causal ? min(row0 + 8 * r + q_off + 1, p.t) : p.t;
+
+  const float scale_log2 = p.scale * 1.4426950408889634f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  const uint32_t q_wg = q_s + wg * 64 * 128;
+
+  // One product in flight at a time, and P made and used inside one
+  // panel's step: S, O and P never hold registers together (O and S, 128,
+  // are the most), so the compiler keeps each wgmma chain pipelined within
+  // the 168 registers a thread gets (file comment). The two consumer
+  // warpgroups run unsynchronised: one's softmax can overlap the other's
+  // products.
+  mbar_wait(smem_u32(&q_bar), 0);
+  for (int jp = 0; jp < hi; ++jp) {
+    const int s = jp % STAGES;
+    const uint32_t parity = (jp / STAGES) & 1;
+    if (jp >= wg_hi) {  // a panel wholly past this warpgroup's rows: released unread
+      mbar_wait(smem_u32(&full_k[s]), parity);
+      if (lane == 0) mbar_arrive(smem_u32(&empty_k[s]));
+      mbar_wait(smem_u32(&full_v[s]), parity);
+      if (lane == 0) mbar_arrive(smem_u32(&empty_v[s]));
+      continue;
+    }
+    float sc[BKV / 2], corr[2];
+    uint32_t pa[BKV / 16][4];
+    mbar_wait(smem_u32(&full_k[s]), parity);
+    issue_qk<D>(sc, q_wg, k_s + s * C::KV_BYTES);
+    wgmma_wait<0>();
+    fence_acc(sc);
+    if (lane == 0) mbar_arrive(smem_u32(&empty_k[s]));
+
+    softmax_panel(sc, m, l, corr, (jp + 1) * BKV > wg_lim, jp * BKV, key_lim, tq, scale_log2);
+    rescale(o, corr);
+    pack_p(pa, sc);
+
+    mbar_wait(smem_u32(&full_v[s]), parity);
+    issue_pv<D>(o, pa, v_s + s * C::KV_BYTES);
+    wgmma_wait<0>();
+    fence_acc(o);
+#pragma unroll
+    for (int kc = 0; kc < BKV / 16; ++kc) fence_regs(pa[kc]);
+    if (lane == 0) mbar_arrive(smem_u32(&empty_v[s]));
+  }
+
+  // Writeback: acc / max(l, 1e-37), l summed over the quad, one cast.
+  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o) + b * p.o_strides[0] +
+                     static_cast<int64_t>(h) * p.o_strides[1];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lt = l[r];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float denom = fmaxf(lt, 1e-37f);
+    const int row = row0 + 8 * r;
+    if (row >= p.s) continue;
+    __nv_bfloat16* dst = O + row * p.o_strides[2];
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      store_pair(dst + dt * 8 + 2 * tq, o[4 * dt + 2 * r] / denom, o[4 * dt + 2 * r + 1] / denom);
+  }
+}
+
+// A bf16 [B, H, rows, D] operand as TMA boxes of [128 rows x 64], 128-byte
+// swizzled; rows past the operand's (of this head) fill zeros.
+CUresult encode_map(CUtensorMap* map, const void* ptr, const uint64_t (&dims)[4],
+                    const uint64_t (&strides)[3]) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t gdims[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t gstrides[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t box[4] = {64, 128, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), gdims, gstrides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int D>
+int launch_sm90(const AttnParams& p, const AttnMaps& m, cudaStream_t stream) {
+  using C = Sm90Attn<D>;
+  CUtensorMap map_q, map_k, map_v;
+  CUresult r = encode_map(&map_q, p.q, m.dims[0], m.strides[0]);
+  if (r == CUDA_SUCCESS) r = encode_map(&map_k, p.k, m.dims[1], m.strides[1]);
+  if (r == CUDA_SUCCESS) r = encode_map(&map_v, p.v, m.dims[2], m.strides[2]);
+  if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);
+  // Above 48 KB of dynamic shared memory needs an opt-in, once per device.
+  static bool opted_in[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && !opted_in[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        opope_attention_kernel_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in[dev] = true;
+  }
+  const int64_t blocks = static_cast<int64_t>((p.s + C::BQ - 1) / C::BQ) * p.batch_heads;
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidConfiguration);
+  opope_attention_kernel_sm90<D><<<static_cast<unsigned>(blocks), C::THREADS, C::SMEM, stream>>>(
+      map_q, map_k, map_v, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry: launches on `stream` and returns cudaGetLastError() (0 = launched).
@@ -451,5 +783,18 @@ extern "C" int opope_attention_launch(const AttnParams* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p->dtype == DT_BF16) return launch_dim<__nv_bfloat16>(*p, s);
   if (p->dtype == DT_F32) return launch_dim<float>(*p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// C entry of the sm90 route (bf16, head dim 64 or 128, every operand one
+// that a TMA tensor map describes, no causal call with S > T): returns 0
+// when launched, a CUDA runtime error code, or 1000 + the driver's error
+// code when a tensor map could not be encoded.
+extern "C" int opope_attention_sm90_launch(const AttnParams* p, const AttnMaps* m, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p->dtype != DT_BF16 || (p->causal && p->s > p->t))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p->d == 64) return launch_sm90<64>(*p, *m, s);
+  if (p->d == 128) return launch_sm90<128>(*p, *m, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

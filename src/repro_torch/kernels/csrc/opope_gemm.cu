@@ -43,9 +43,8 @@
 // added after the K sum (the tile route preloads it); both are one fp32
 // accumulation of the same terms in another order.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
-
 #include "opope_tile.cuh"
+#include "sm90.cuh"  // mbarriers, TMA, wgmma descriptors and instructions, the map encoder
 
 namespace {
 
@@ -77,73 +76,6 @@ struct Sm90Config {
 };
 using DecodeConfig = Sm90Config<64, 128, 8>;    // config 0
 using PrefillConfig = Sm90Config<128, 128, 5>;  // config 1
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}"
-               :: "r"(bar) : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed. A wait of more
-// than 4 s can only be a fault (a load that never lands): it traps, so the
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (uint32_t n = 1;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if ((n & 0xFFFF) == 0) {
-      uint64_t t;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-      if (t0 == 0) t0 = t;
-      else if (t - t0 > 4000000000ull) __trap();
-    }
-  }
-}
-
-// One 2-D TMA box into shared memory at `dst`; completion counts on `bar`.
-// c0 is the inner (contiguous) coordinate, c1 the outer.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1 = B128.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma that owns the registers.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
@@ -240,30 +172,6 @@ __device__ __forceinline__ void apply_groups(int op, float (&x)[NG][G], const fl
   }
 }
 
-// D[64 x 128] += A[64 x 16] (K-major) * B[16 x 128] (MN-major), fp32 accumulate.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 template <class Cfg>
 __global__ void __launch_bounds__(Cfg::THREADS, 1) opope_gemm_kernel_sm90(
     const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
@@ -332,18 +240,18 @@ __global__ void __launch_bounds__(Cfg::THREADS, 1) opope_gemm_kernel_sm90(
       const uint32_t a_st = ring + s * Cfg::STAGE_BYTES + wg * 64 * 128;
       const uint32_t b_st = ring + s * Cfg::STAGE_BYTES + Cfg::A_BYTES;
       fence_acc(acc);
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < SM90_BK / 16; ++kk)
-        wgmma_m64n128k16(acc, smem_desc(a_st + kk * 32, 16, 1024),
-                         smem_desc(b_st + kk * 2048, Cfg::B_BOX_BYTES, 1024));
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        wgmma_m64n128k16_ss<1>(acc, smem_desc(a_st + kk * 32, 16, 1024),
+                               smem_desc(b_st + kk * 2048, Cfg::B_BOX_BYTES, 1024));
+      wgmma_commit();
       // At most this panel's group in flight: the previous stage is free.
-      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      wgmma_wait<1>();
       fence_acc(acc);
       if (i > 0 && lane == 0) mbar_arrive(smem_u32(&empty_bar[(i - 1) % STAGES]));
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    wgmma_wait<0>();
     fence_acc(acc);
 
     // Every warpgroup's wgmma has retired, so the ring is free: stage the
@@ -468,25 +376,6 @@ __global__ void __launch_bounds__(Cfg::THREADS, 1) opope_gemm_kernel_sm90(
         if (ok[g]) store_group(O, o_dtype, idx[g], x[g]);
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function: fetched once through the
-// runtime, so the library needs no link against libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess || q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 // A row-major bf16 [rows, cols] matrix as TMA boxes of [box_rows, 64],

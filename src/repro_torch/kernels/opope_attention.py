@@ -25,7 +25,13 @@ functions here compute single-head softmax attention per (batch, head):
   on the card and raise on what the kernel does not take: bf16 or fp32
   (one dtype for q, k and v), head dim 16, 32, 64 or 128. Given tensors on
   the CPU they run :func:`opope_attention_plain`: the kernel has no CPU form.
-  ``opope_attention.launches`` counts the kernel's launches from both.
+  ``opope_attention.launches`` counts the kernel's launches from both, and
+  ``opope_attention.launches_by_route`` splits them by route.
+* :func:`_plan` chooses the route before the launch, from the operands
+  alone: ``"sm90"`` (TMA ring, ``wgmma``, a producer warp; 128-row query
+  tiles) for bf16 q, k, v of head dim 64 or 128 that a TMA tensor map
+  describes, except a causal call with S > T; ``"tile"`` (``mma.sync`` on
+  64-row tiles, fp32 on CUDA cores) for everything else.
 * :func:`opope_attention_plain` is a straightforward fp32 softmax over the
   whole key range with the same masks, ``NEG_INF`` and P cast, and the
   closed form above for rows with no valid key: the CPU path and the
@@ -35,7 +41,9 @@ functions here compute single-head softmax attention per (batch, head):
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -66,13 +74,94 @@ class _Params(ctypes.Structure):
     ]
 
 
-def _launcher():
+class _Maps(ctypes.Structure):
+    """Mirror of ``struct AttnMaps`` in csrc/opope_attention.cu: q's, k's and
+    v's tensor maps as :func:`_tma_map` gives them."""
+
+    _fields_ = [("dims", (ctypes.c_uint64 * 4) * 3), ("strides", (ctypes.c_uint64 * 3) * 3)]
+
+
+def _launcher(route: str):
     lib = _build.load("opope_attention")
-    fn = lib.opope_attention_launch
+    if route == "sm90":
+        fn = lib.opope_attention_sm90_launch
+        argtypes = [ctypes.POINTER(_Params), ctypes.POINTER(_Maps), ctypes.c_void_p]
+    else:
+        fn = lib.opope_attention_launch
+        argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+_SM90_HEAD_DIMS = (64, 128)
+_TMA_MAX_STRIDE = 1 << 40  # bytes; cuTensorMapEncodeTiled's limit
+
+TensorMap = Tuple[Tuple[int, int, int, int], Tuple[int, int, int]]
+
+
+class Plan(NamedTuple):
+    """How one K3 call runs. ``maps`` (sm90 only) are q's, k's and v's
+    tensor maps as :func:`_tma_map` gives them."""
+
+    route: str  # "sm90" or "tile"
+    maps: Optional[Tuple[TensorMap, TensorMap, TensorMap]]
+
+
+def _tma_map(shape: Sequence[int], strides: Sequence[int], elem: int) -> Optional[TensorMap]:
+    """The rank-4 TMA tensor map of a ``[B, H, N, D]`` operand: dims
+    ``(D, N, H, B)`` and byte strides along ``(N, H, B)``, or None where a
+    map cannot describe it. The stride along D must be 1; every other byte
+    stride a positive multiple of 16 below 2**40. A dim of size 1 is never
+    stepped along, so its stride is set to the next inner dim's extent
+    (what a contiguous tensor has), whatever the tensor says."""
+    b, h, n, d = shape
+    sb, sh, sn, sd = strides
+    if sd != 1:
+        return None
+    out = []
+    inner = d * elem
+    for size, stride in ((n, sn), (h, sh), (b, sb)):
+        nbytes = stride * elem if size > 1 else inner
+        if nbytes <= 0 or nbytes % 16 or nbytes >= _TMA_MAX_STRIDE:
+            return None
+        out.append(nbytes)
+        inner = nbytes * size
+    return (d, n, h, b), tuple(out)
+
+
+def _plan(q_shape: Sequence[int], t: int, dtype: torch.dtype, causal: bool,
+          strides: Sequence[Sequence[int]], ptrs: Sequence[int]) -> Plan:
+    """The route of one K3 call over q ``q_shape`` = [B, H, S, D] and k/v
+    [B, H, T, D], whose element strides are ``strides`` (q's, k's, v's)
+    and base addresses ``ptrs``.
+
+    ``"sm90"`` takes bf16 q, k and v of head dim 64 or 128 whose bases are
+    16-byte aligned and whose layouts a TMA tensor map describes
+    (:func:`_tma_map`), unless the call is causal with S > T: rows without
+    a valid key follow the reference's block sizes, which only the tile
+    route reproduces. Everything else takes ``"tile"``: fp32 (``wgmma``
+    would run it as TF32), head dims 16 and 32, those causal calls, and
+    operands TMA cannot describe (a stride of 0, such as KV heads widened
+    by ``expand``, among them). The decode row (S = 1) takes ``"sm90"``
+    too: measured beside the tile route in the same run, it is the faster
+    of the two there as well (``PERF.md``), so no S threshold applies.
+    A pure function of its arguments; only the bases' alignment enters."""
+    return _plan_aligned(tuple(q_shape), int(t), dtype, bool(causal),
+                         tuple(tuple(st) for st in strides), all(p % 16 == 0 for p in ptrs))
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_aligned(q_shape, t, dtype, causal, strides, aligned) -> Plan:
+    b, h, s, d = q_shape
+    maps = None
+    if (dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS and aligned
+            and not (causal and s > t)):
+        maps = tuple(_tma_map((b, h, n, d), st, 2) for n, st in zip((s, t, t), strides))
+        if any(m is None for m in maps):
+            maps = None
+    return Plan("tile", None) if maps is None else Plan("sm90", maps)
 
 
 def _ref_blocks(s: int, t: int, block_q: int, block_k: int):
@@ -143,8 +232,12 @@ def opope_attention_plain(
     return out.to(q.dtype)
 
 
-def _launch(q, k, v, causal: bool, block_q: int, block_k: int) -> torch.Tensor:
-    """One K3 launch over q [B, H, S, D], k/v [B, H, T, D] on the card."""
+def _launch(q, k, v, causal: bool, block_q: int, block_k: int,
+            route: Optional[str] = None) -> torch.Tensor:
+    """One K3 launch over q [B, H, S, D], k/v [B, H, T, D] on the card, on
+    :func:`_plan`'s route. ``route`` forces one (``"tile"`` takes every
+    operand the kernels take; ``"sm90"`` raises where the plan is not
+    sm90), so a caller can time the two routes on the same call."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"opope_attention runs on cuda tensors, got {q.device}, {k.device}, "
                          f"{v.device}")
@@ -155,19 +248,28 @@ def _launch(q, k, v, causal: bool, block_q: int, block_k: int) -> torch.Tensor:
     t = k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"opope_attention takes head dims {HEAD_DIMS}, got {d}")
+    if route not in (None, "sm90", "tile"):
+        raise ValueError(f"unknown route {route!r}")
     ref_bq, ref_bk, ref_steps = _ref_blocks(s, t, block_q, block_k)
-    # The kernel reads rows of 16-byte vectors: unit stride along D, every
-    # other stride a whole number of vectors, 16-byte aligned bases.
-    vec = 16 // q.element_size()
-
-    def fit(x):
-        ok = x.stride(-1) == 1 and all(st % vec == 0 for st in x.stride()[:-1])
-        return x if ok and x.data_ptr() % 16 == 0 else x.contiguous()
-
-    q, k, v = fit(q), fit(k), fit(v)
     out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    plan = _plan(q.shape, t, q.dtype, causal, (q.stride(), k.stride(), v.stride()),
+                 (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+    if route == "sm90" and plan.route != "sm90":
+        raise ValueError(f"the sm90 route does not take this call ({plan})")
+    route = route or plan.route
+    if route == "tile":
+        # The tile kernel reads rows of 16-byte vectors: unit stride along
+        # D, every other stride a whole number of vectors, 16-byte aligned
+        # bases.
+        vec = 16 // q.element_size()
+
+        def fit(x):
+            ok = x.stride(-1) == 1 and all(st % vec == 0 for st in x.stride()[:-1])
+            return x if ok and x.data_ptr() % 16 == 0 else x.contiguous()
+
+        q, k, v = fit(q), fit(k), fit(v)
     prm = _Params(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         (ctypes.c_int64 * 3)(*q.stride()[:3]), (ctypes.c_int64 * 3)(*k.stride()[:3]),
@@ -175,12 +277,20 @@ def _launch(q, k, v, causal: bool, block_q: int, block_k: int) -> torch.Tensor:
         b * h, h, s, t, d, _DTYPE_CODES[q.dtype], int(causal), ref_bq, ref_bk, ref_steps,
         d ** -0.5,
     )
-    launch = _launcher()
     with torch.cuda.device(q.device):
-        rc = launch(ctypes.byref(prm), torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if route == "sm90":
+            maps = _Maps()
+            for i, (dims, strides) in enumerate(plan.maps):
+                maps.dims[i][:] = dims
+                maps.strides[i][:] = strides
+            rc = _launcher("sm90")(ctypes.byref(prm), ctypes.byref(maps), stream)
+        else:
+            rc = _launcher("tile")(ctypes.byref(prm), stream)
     if rc != 0:
-        raise RuntimeError(f"opope_attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"opope_attention {route} kernel launch failed: error {rc}")
     opope_attention.launches += 1
+    opope_attention.launches_by_route[route] += 1
     return out
 
 
@@ -223,3 +333,4 @@ def opope_attention_bhsd(
 
 
 opope_attention.launches = 0
+opope_attention.launches_by_route = {"sm90": 0, "tile": 0}

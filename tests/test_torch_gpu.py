@@ -434,6 +434,125 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
         opope_attention_bhsd(x, x.cpu(), x)
 
 
+def _k3_module():
+    import importlib
+    return importlib.import_module("repro_torch.kernels.opope_attention")
+
+
+def _k3_route(q, k, v, causal):
+    """The route K3's plan gives these operands."""
+    return _k3_module()._plan(q.shape, k.shape[2], q.dtype, causal,
+                              (q.stride(), k.stride(), v.stride()),
+                              (q.data_ptr(), k.data_ptr(), v.data_ptr())).route
+
+
+def _qkv(device, shape, dtype, seed):
+    b, h, s, t, d = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn((b, h, n, d), generator=gen, device=device).to(dtype)
+                 for n in (s, t, t))
+
+
+@pytest.mark.parametrize("route", ["sm90", "tile"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_attention_routes_match_plain(cuda_device, shape, dtype, route):
+    """ATTN_SHAPES forced onto each route, at _attn_close's gates; the sm90
+    route refuses, launching nothing, what its plan does not give it."""
+    k3 = _k3_module()
+    b, h, s, t, d, causal = shape
+    q, k, v = _qkv(cuda_device, (b, h, s, t, d), dtype, b * h + s + t + d)
+    before = dict(k3.opope_attention.launches_by_route)
+    if route == "sm90" and _k3_route(q, k, v, causal) != "sm90":
+        with pytest.raises(ValueError, match="sm90"):
+            k3._launch(q, k, v, causal, 128, 128, route="sm90")
+        assert k3.opope_attention.launches_by_route == before
+        return
+    got = k3._launch(q, k, v, causal, 128, 128, route=route)
+    torch.cuda.synchronize()
+    assert k3.opope_attention.launches_by_route == dict(before, **{route: before[route] + 1})
+    _attn_close(got, opope_attention_plain(q, k, v, causal=causal))
+
+
+# The sm90 route's panel edges: S and T of 1, 127, 128, 129 and 300 (rows
+# and keys short of, at and past a 128 tile or panel), continuations whose
+# causal diagonal crosses a panel, head dims 64 and 128, B·H > 1.
+SM90_ATTN_CASES = sorted(
+    {(1, 1, s, t, 128, causal) for s in (1, 127, 128, 129, 300) for t in (1, 127, 128, 129, 300)
+     for causal in (True, False) if not (causal and s > t)}
+    | {(1, 2, 100, 160, 64, True), (2, 3, 200, 328, 128, True), (1, 1, 129, 1000, 128, True),
+       (2, 2, 300, 300, 64, False), (1, 1, 1, 1, 64, True), (3, 5, 257, 700, 64, True)})
+
+
+@pytest.mark.parametrize("shape", SM90_ATTN_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_attention_sm90_panel_edges_match_plain(cuda_device, shape):
+    k3 = _k3_module()
+    b, h, s, t, d, causal = shape
+    q, k, v = _qkv(cuda_device, (b, h, s, t, d), torch.bfloat16, 7 * s + t + d + b * h)
+    assert _k3_route(q, k, v, causal) == "sm90"
+    before = dict(k3.opope_attention.launches_by_route)
+    got = opope_attention_bhsd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert k3.opope_attention.launches_by_route == dict(before, sm90=before["sm90"] + 1)
+    _attn_close(got, opope_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_sm90_is_bitwise_on_repeat_and_for_strided_views(cuda_device, d):
+    """The [B, H, S, D] views of [B, S, H, D] tensors are read in place by
+    rank-4 tensor maps: the result equals the contiguous inputs' bit for
+    bit, and a repeat equals the first call."""
+    k3 = _k3_module()
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.randn((2, 300, 3, 4, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))  # [B, H, S, D] views
+    for causal in (True, False):
+        assert _k3_route(q, k, v, causal) == "sm90"
+        got = opope_attention_bhsd(q, k, v, causal=causal)
+        again = opope_attention_bhsd(q, k, v, causal=causal)
+        want = opope_attention_bhsd(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+        assert torch.equal(got, again) and torch.equal(got, want)
+        _attn_close(got, opope_attention_plain(q, k, v, causal=causal))
+
+
+def test_k3_routes_and_their_counters(cuda_device):
+    """launches_by_route counts the route the plan chose, call by call."""
+    k3 = _k3_module()
+    q, k, v = _qkv(cuda_device, (1, 2, 64, 96, 64), torch.bfloat16, 11)
+    wide = torch.randn((1, 1, 96, 64), device=cuda_device).to(torch.bfloat16).expand(1, 2, 96, 64)
+    cases = [((q, k, v, True), "sm90"),
+             ((q.float(), k.float(), v.float(), True), "tile"),   # fp32
+             ((q[..., :32], k[..., :32], v[..., :32], True), "tile"),  # head dim 32, strided
+             ((k, q, q, True), "tile"),                           # causal S > T
+             ((q, wide, wide, False), "tile"),                    # a head stride of 0
+             ((q, k, v, False), "sm90")]
+    for (qq, kk, vv, causal), route in cases:
+        assert _k3_route(qq, kk, vv, causal) == route
+        before = dict(k3.opope_attention.launches_by_route)
+        got = opope_attention_bhsd(qq, kk, vv, causal=causal)
+        torch.cuda.synchronize()
+        assert k3.opope_attention.launches_by_route == dict(before, **{route: before[route] + 1})
+        _attn_close(got, opope_attention_plain(qq, kk, vv, causal=causal))
+
+
+def test_attention_raises_on_what_neither_route_takes(cuda_device):
+    """Refused before any launch, on both routes, with no fallback."""
+    k3 = _k3_module()
+    x = torch.ones((1, 1, 8, 64), device=cuda_device)
+    before = (k3.opope_attention.launches, dict(k3.opope_attention.launches_by_route))
+    for route in (None, "sm90", "tile"):
+        with pytest.raises(ValueError, match="dtype"):
+            k3._launch(x.half(), x.half(), x.half(), True, 128, 128, route=route)
+        with pytest.raises(ValueError, match="head dims"):
+            y = torch.ones((1, 1, 8, 48), device=cuda_device, dtype=torch.bfloat16)
+            k3._launch(y, y, y, True, 128, 128, route=route)
+        with pytest.raises(ValueError, match="cuda"):
+            k3._launch(x, x.cpu(), x, True, 128, 128, route=route)
+    with pytest.raises(ValueError, match="sm90"):  # fp32 is never run as TF32
+        k3._launch(x, x, x, True, 128, 128, route="sm90")
+    assert (k3.opope_attention.launches, k3.opope_attention.launches_by_route) == before
+
+
 SCAN_SHAPES = [(128, 64), (100, 3), (13, 1), (70, 300), (4096, 2048)]
 
 
