@@ -33,15 +33,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (c) a lockstep decode step's wall time beside its K1 and K4 device time;
 7. the int8 GEMM kernels K2 and K5 against their plain versions on the card,
    bitwise where the chain has no transcendental op, at the shapes of both
-   models' quantized GEMMs (timed beside ``torch._int_mm``, the card's bound
-   and one per-call weight quantization) and at small ragged shapes;
+   models' quantized GEMMs (every K2 shape required on its sm90 route and
+   checked on the tile route too, a split-K call bitwise on repeat; K2 timed
+   by device time on both routes, at the decode and the prefill M, beside
+   ``torch._int_mm`` + dequant; K5 beside the card's bound; both beside one
+   per-call weight quantization) and at small ragged shapes (K2: on the
+   tile route, and aligned ones on sm90's three tiles);
 8. full-width chatglm3-6b under ``mlp_q8_policy()`` (run after phase 4, on its
    weights) and full-width deepseek-moe-16b under
    ``PrecisionPolicy(rules={"moe": "q8"})`` (after phase 6): (a) one layer on
    the kernels against the plain backends, (b) the all-layer prefill logits
    against a floor this run measures, (c) the q8-vs-bf16 logit difference,
    (d) the quantized main path — a 4 x 64-token prefill and 16 greedy decode
-   steps through ``api.prefill``/``api.decode`` with exact launch counts —
+   steps through ``api.prefill``/``api.decode`` with exact launch counts,
+   every K1 and K2 launch required on the sm90 route —
    and (e) a decode step's wall and device time and its kernel split;
 9. after deepseek-moe-16b's weights are freed, the ``kernels`` entry points
    of K3 and K6: (a) ``opope_attention_bhsd`` at chatglm3-6b's attention
@@ -66,6 +71,7 @@ it exits with code 2.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -220,10 +226,11 @@ def check_close(torch, out, plain, out_dtype, what):
     return err
 
 
-def check_routes(k1, launches, what):
-    """Every K1 launch counted since the reset went through the sm90 route."""
-    if k1.launches_by_route != {"sm90": launches, "tile": 0}:
-        raise AssertionError(f"{what}: K1 launches by route {k1.launches_by_route}, "
+def check_routes(kern, launches, what, name="K1"):
+    """Every launch of ``kern`` (K1, or K2 with ``name``) counted since the
+    reset went through the sm90 route."""
+    if kern.launches_by_route != {"sm90": launches, "tile": 0}:
+        raise AssertionError(f"{what}: {name} launches by route {kern.launches_by_route}, "
                              f"want all {launches} on sm90")
 
 
@@ -913,6 +920,10 @@ def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
                        (q8.opope_gemm_q8, q8.opope_gemm_q8_plain))
         for m in ms:
             _, a, sa, b, sb = quantized(g, m, kk, n)
+            if not g:
+                plan = q8._plan(m, n, kk, a.data_ptr(), b.data_ptr())
+                if plan.route != "sm90":
+                    raise AssertionError(f"K2 M={m} K={kk} N={n}: planned on {plan.route}")
             for chain in Q8_CHAINS:
                 steps, ops_, od = chain_operands(chain, g, m, n, out_dtype)
                 out = kern(a, sa, b, sb, out_dtype=od, epilogue=steps, epilogue_operands=ops_)
@@ -920,14 +931,30 @@ def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
                 want = plain(a, sa, b, sb, out_dtype=od, epilogue=steps, epilogue_operands=ops_)
                 what = f"q8 G={g} M={m} K={kk} N={n} {chain}"
                 err = q8_check(torch, out, want, "silu" in steps, what)
+                if not g:  # the same call on the tile route, held the same way
+                    q8_check(torch, q8._launch(a, sa, b, sb, out_dtype=od, epilogue=steps,
+                                               epilogue_operands=ops_, route="tile"),
+                             want, "silu" in steps, what + " (tile route)")
                 errs["k5" if g else "k2"] = max(errs["k5" if g else "k2"], err)
                 n_checks += 1
-                log(f"check {what} -> {str(od).replace('torch.', '')}: max_abs_err {err:.3g} ok")
+                log(f"check {what} -> {str(od).replace('torch.', '')}"
+                    + (f" on sm90 ({plan.splits} splits) and tile" if not g else "")
+                    + f": max_abs_err {err:.3g} ok")
+            if not g and plan.splits > 1:
+                # Split K sums int32 partials: a repeat gives the same bits.
+                outs = [kern(a, sa, b, sb, out_dtype=torch.bfloat16) for _ in range(2)]
+                if not torch.equal(outs[0], outs[1]):
+                    raise AssertionError(f"K2 M={m} K={kk} N={n}: split-K repeat differs")
             del a, b, out, want
 
     # Timing at the path's (shape, chain) pairs, weights cold in L2, beside
     # the plain version, torch._int_mm (K2 only) and one per-call weight
-    # quantization (what the q8 backends run before each kernel).
+    # quantization (what the q8 backends run before each kernel). K2, its
+    # tile route and the _int_mm lane by device time (queued_ms: CUDA events
+    # around calls queued behind a sleeping kernel; their launches are
+    # shorter than the host's issue time), and by CUDA events around a loop
+    # (event_ms, the host's issue rate included, as K2 was first timed); K5,
+    # the plain versions and the quantization by CUDA events.
     rows = []
     for path, name, g, ms, kk, n, chain, out_dtype in gemms:
         kern, plain = ((q8.opope_gemm_q8_grouped, q8.opope_gemm_q8_grouped_plain) if g else
@@ -942,7 +969,14 @@ def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
                 return fn(a, sa, bufs[i][3], bufs[i][4], out_dtype=out_dtype, epilogue=steps,
                           epilogue_operands=ops_)
 
-            ms_k = time_ms(torch, lambda i: run(kern, i), n_bufs)
+            ms_e = ms_tile = lib_e = None
+            if g:
+                ms_k = time_ms(torch, lambda i: run(kern, i), n_bufs)
+            else:
+                tile = functools.partial(q8._launch, route="tile")
+                ms_e = time_ms(torch, lambda i: run(kern, i), n_bufs)
+                ms_k = queued_ms(torch, lambda i: run(kern, i % n_bufs), max(20, n_bufs))
+                ms_tile = queued_ms(torch, lambda i: run(tile, i % n_bufs), max(20, n_bufs))
             ms_p = time_ms(torch, lambda i: run(plain, i), n_bufs)
             ms_q = time_ms(torch, lambda i: qz.quantize(
                 bufs[i][0], "int8", axis=(0, 2) if g else 1), n_bufs, warmup=n_bufs)
@@ -955,8 +989,11 @@ def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
                 sa_lib = torch.ones((m_lib, 1), device=dev)
                 sa_lib[:m] = sa
                 b_cm = [x[3].t().contiguous().t() for x in bufs]
-                lib_ms = time_ms(torch, lambda i: torch._int_mm(a_lib, b_cm[i]).float()
-                                 * (sa_lib * bufs[i][4]), n_bufs)
+
+                def lib(i):
+                    return torch._int_mm(a_lib, b_cm[i]).float() * (sa_lib * bufs[i][4])
+                lib_e = time_ms(torch, lib, n_bufs)
+                lib_ms = queued_ms(torch, lambda i: lib(i % n_bufs), max(20, n_bufs))
                 del b_cm
             out = run(kern, 0)
             err = q8_check(torch, out, run(plain, 0), "silu" in steps, f"timed {path} {name} M={m}")
@@ -964,24 +1001,37 @@ def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
             bound_ms, bound_by = q8_bound(max(g, 1), m, kk, n, out_elem, len(ops_))
             row = {"path": path, "name": name, "g": g, "m": m, "k": kk, "n": n, "epilogue": chain,
                    "out_dtype": str(out_dtype).replace("torch.", ""), "ms": ms_k,
-                   "plain_ms": ms_p, "library_ms": lib_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "weight_quant_ms": ms_q, "max_abs_err": err}
+                   "tile_ms": ms_tile, "event_ms": ms_e, "plain_ms": ms_p, "library_ms": lib_ms,
+                   "library_event_ms": lib_e, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "weight_quant_ms": ms_q, "max_abs_err": err}
+            if not g:
+                plan = q8._plan(m, n, kk, bufs[0][1].data_ptr(), bufs[0][3].data_ptr())
+                row.update(route=plan.route, tile_rows=plan.bm, splits=plan.splits,
+                           tops=2 * m * n * kk / ms_k / 1e9)
             rows.append(row)
-            log(f"time {path} {name} G={g} M={m} K={kk} N={n} chain={chain}: kernel {ms_k:.4f} ms, "
-                f"plain {ms_p:.4f} ms, "
-                + (f"torch._int_mm+dequant {lib_ms:.4f} ms (M padded to {m_lib}), " if lib_ms
-                   is not None else "")
+            log(f"time {path} {name} G={g} M={m} K={kk} N={n} chain={chain}: "
+                + (f"sm90 {ms_k:.4f} ms device ({row['tops']:.1f} TOP/s; {ms_e:.4f} ms by CUDA "
+                   f"events), tile route {ms_tile:.4f} ms device, " if not g else
+                   f"kernel {ms_k:.4f} ms, ")
+                + f"plain {ms_p:.4f} ms, "
+                + (f"torch._int_mm+dequant {lib_ms:.4f} ms device ({lib_e:.4f} by CUDA events; "
+                   f"M padded to {m_lib}), " if lib_ms is not None else "")
                 + f"bound {bound_ms:.4f} ms ({bound_by}); per-call weight quantization "
                 f"{ms_q:.4f} ms")
         del bufs
 
     # Coverage: ragged shapes, every C form, op and out dtype; K5 with G = 3.
     n_cov = 0
+    k2_before = dict(q8.opope_gemm_q8.launches_by_route)
     for g in (0, 3):
         kern, plain = ((q8.opope_gemm_q8_grouped, q8.opope_gemm_q8_grouped_plain) if g else
                        (q8.opope_gemm_q8, q8.opope_gemm_q8_plain))
         lead = (g,) if g else ()
-        for m, kk, n in ((5, 40, 24), (130, 300, 200), (64, 1000, 192)):
+        # Ragged shapes (K2's tile route), and for K2 shapes its sm90 route
+        # takes: M of 1, 5, 65 and 130 on the 8-, 64- and 128-row tiles, K and
+        # N off the 128-byte panel and tile.
+        sm90_cases = () if g else ((1, 16, 16), (5, 144, 272), (65, 400, 144), (130, 1040, 208))
+        for m, kk, n in ((5, 40, 24), (130, 300, 200), (64, 1000, 192)) + sm90_cases:
             a = torch.randint(-127, 128, lead + (m, kk), generator=gen, device=dev,
                               dtype=torch.int8)
             b = torch.randint(-127, 128, lead + (kk, n), generator=gen, device=dev,
@@ -1022,6 +1072,13 @@ def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
             if exact.abs().max() >= 2 ** 24 or not torch.equal(out.double(), exact):
                 raise AssertionError(f"q8 G={g} {m}x{kk}x{n}: accumulator not exact")
             n_cov += 1
+            if not g:
+                route = q8._plan(m, n, kk, a.data_ptr(), b.data_ptr()).route
+                if route != ("sm90" if (m, kk, n) in sm90_cases else "tile"):
+                    raise AssertionError(f"K2 coverage {m}x{kk}x{n} planned on {route}")
+    k2_cov = {r: q8.opope_gemm_q8.launches_by_route[r] - k2_before[r] for r in k2_before}
+    if not all(k2_cov.values()):
+        raise AssertionError(f"K2 coverage launches by route {k2_cov}: a route went unchecked")
     # K5 at decode: experts no token reached hold zero rows (scale 1e-12/127,
     # q = 0) and must give exactly zero outputs.
     x = torch.randn((ne, 1, md), generator=gen, device=dev).to(bf16)
@@ -1031,8 +1088,9 @@ def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
     out = q8.opope_gemm_q8_grouped(xq.q, xq.scale, wq.q, wq.scale)
     if out[::2].any() or not out[1::2].any():
         raise AssertionError("K5: zero capacity rows did not give exactly zero outputs")
-    log(f"q8: {n_checks} path-shape checks, {n_cov} ragged/C/epilogue/accumulator cases and "
-        f"the zero-capacity decode case bitwise (transcendental chains within 1 ulp)")
+    log(f"q8: {n_checks} path-shape checks (K2 on sm90 and on the tile route), {n_cov} "
+        f"ragged/C/epilogue/accumulator cases (K2 launches by route {k2_cov}) and the "
+        f"zero-capacity decode case bitwise (transcendental chains within 1 ulp)")
     return rows, errs
 
 
@@ -1137,6 +1195,7 @@ def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops,
     for fn in kernels.values():
         fn.launches = 0
     kernels["K1"].launches_by_route.update(sm90=0, tile=0)
+    kernels["K2"].launches_by_route.update(sm90=0, tile=0)
     t0 = time.perf_counter()
     with torch.inference_mode():
         toks = _greedy_decode(torch, api, cfg, params, prompts, n_fwd, policy)
@@ -1149,11 +1208,13 @@ def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops,
     if launches != want or any(sum(c) for c in plain_calls.values()):
         raise AssertionError(f"{tag} launches {launches} != {want} (plain calls {plain_calls})")
     check_routes(kernels["K1"], launches["K1"], f"{tag} (d)")
+    check_routes(kernels["K2"], launches["K2"], f"{tag} (d)", name="K2")
     if tuple(toks_host.shape) != (4, n_fwd) or not ((toks_host >= 0) & (toks_host < cfg.vocab)).all():
         raise AssertionError(f"{tag} greedy tokens {tuple(toks_host.shape)}")
     log(f"{tag} (d) greedy 4 x 64 prompt + 16 decode steps in {wall:.3f} s "
         f"({4 * n_fwd / wall:.1f} tokens/s); launches {launches} = per layer "
-        f"{per_layer} x {L} layers x {n_fwd} forwards; plain calls 0")
+        f"{per_layer} x {L} layers x {n_fwd} forwards, every K1 and K2 launch on sm90; "
+        f"plain calls 0")
 
     # (e) one decode step at 4 rows: wall time and its kernel split.
     with torch.inference_mode():
@@ -1756,6 +1817,33 @@ def main() -> int:
         log(f"{name}: {work}: kernel {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, "
             f"bound {sums['bound_ms']:.4f} ms; per-call weight quantization of the same "
             f"weights {sums['weight_quant_ms']:.4f} ms")
+    # K2's routes and its 512-row prefill layer, from the same timed rows.
+    k2_paths = q8_records[0]["launches_by_path"]
+    layers = {}
+    for m in (4, 512):
+        m_rows = [r for r in q8_rows if r["path"] == "chatglm3-6b mlp" and r["m"] == m]
+        layers[m] = {key: sum(r[key] for r in m_rows) for key in (
+            "ms", "tile_ms", "event_ms", "plain_ms", "library_ms", "library_event_ms",
+            "bound_ms")}
+        layers[m]["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in m_rows)
+                                 else "operations")
+        ops_m = sum(2 * r["m"] * r["n"] * r["k"] for r in m_rows)
+        layers[m]["tops"] = ops_m / layers[m]["ms"] / 1e9
+        log(f"K2 chatglm3-6b's 3 MLP GEMMs at M={m}: sm90 {layers[m]['ms']:.4f} ms device "
+            f"({layers[m]['tops']:.1f} TOP/s), tile route {layers[m]['tile_ms']:.4f} ms, "
+            f"torch._int_mm+dequant {layers[m]['library_ms']:.4f} ms device "
+            f"({layers[m]['library_event_ms']:.4f} by CUDA events), bound "
+            f"{layers[m]['bound_ms']:.4f} ms ({layers[m]['bound_by']})")
+    q8_records[0].update(
+        # check_routes held every path's launches to the sm90 route.
+        launches_by_route={"sm90": sum(k2_paths.values()), "tile": 0},
+        tile_ms=layers[4]["tile_ms"], event_ms=layers[4]["event_ms"],
+        library_event_ms=layers[4]["library_event_ms"],
+        prefill_layer=dict(layers[512], m=512),
+        timing="ms, tile_ms and library_ms: device time (CUDA events around calls queued "
+               "behind a sleeping kernel); event_ms, library_event_ms and plain_ms: CUDA "
+               "events around the loop, the host's issue rate included",
+        build_s=kbuild.BUILD_SECONDS.get("opope_q8"))
     for tag, r in (("chatglm3-6b q8", glm_q8), ("deepseek-moe-16b q8", ds_q8)):
         log(f"{tag}: prefill logits kernels vs plain RMS {r['logits_rms']:.4g} (floor "
             f"{r['logits_floor_rms']:.4g}); q8 vs bf16 RMS {r['q8_vs_bf16']['rms']:.4g}; "

@@ -1,7 +1,9 @@
 // Shared device code of the int8 O-POPE GEMM kernels for Hopper (sm_90a):
-// opope_q8.cu's one-GEMM kernel (K2) and its grouped kernel (K5) both run
-// `opope_q8_tile`, one BM x BN output tile per block, on the grid, warp
-// layout and accumulator layout of opope_tile.cuh.
+// opope_q8.cu's one-GEMM kernel on its tile route (K2) and its grouped
+// kernel (K5) both run `opope_q8_tile`, one BM x BN output tile per block,
+// on the grid, warp layout and accumulator layout of opope_tile.cuh. K2's
+// sm90 route runs its own main loop and finish, on the same per-element
+// writeback helpers (q8_dequant, q8_add_c, q8_apply_op, q8_store).
 //
 // Dataflow, as on the TPU: output-stationary with an int32 accumulator. A
 // block's int32 tile lives in registers for the whole K loop (int8 x int8
@@ -158,8 +160,20 @@ __device__ __forceinline__ void q8_mma_panel(
   }
 }
 
-// apply_op with every linear step rounded on its own (no FMA contraction
-// across steps), so such chains match the plain version bit for bit.
+// The writeback arithmetic, element for element, shared by every int8 body
+// (this tile body and K2's sm90 finish), so they agree bit for bit.
+
+// Dequantize: float(acc) * (sa * sb), the scale product formed first.
+__device__ __forceinline__ float q8_dequant(int acc, float sa, float sb) {
+  return __fmul_rn(__int2float_rn(acc), __fmul_rn(sa, sb));
+}
+
+// + C, rounded on its own.
+__device__ __forceinline__ float q8_add_c(float x, float c) { return __fadd_rn(x, c); }
+
+// One epilogue step: apply_op with every linear step rounded on its own (no
+// FMA contraction across steps), so such chains match the plain version bit
+// for bit.
 __device__ __forceinline__ float q8_apply_op(int op, float x, float o) {
   switch (op) {
     case OP_BIAS:
@@ -169,6 +183,17 @@ __device__ __forceinline__ float q8_apply_op(int op, float x, float o) {
     case OP_REQUANT_INT8:  // clip(round_half_even(x / s), -127, 127)
       return fminf(fmaxf(rintf(__fdiv_rn(x, o)), -127.0f), 127.0f);
     default: return apply_op(op, x, o);
+  }
+}
+
+// The one cast: O[idx] = x in the output's dtype.
+__device__ __forceinline__ void q8_store(void* O, int o_dtype, int64_t idx, float x) {
+  switch (o_dtype) {
+    case DT_BF16: static_cast<__nv_bfloat16*>(O)[idx] = __float2bfloat16_rn(x); break;
+    case DT_F16: static_cast<__half*>(O)[idx] = __float2half_rn(x); break;
+    // int8 only behind requant_int8: x is an exact integer in [-127, 127].
+    case DT_I8: static_cast<int8_t*>(O)[idx] = static_cast<int8_t>(x); break;
+    default: static_cast<float*>(O)[idx] = x; break;
   }
 }
 
@@ -222,9 +247,9 @@ __device__ __forceinline__ void opope_q8_tile(
         const int c = n0 + wn * 32 + ni * 8 + 2 * t + (j & 1);
         if (r >= M || c >= N) continue;
         const int64_t idx = g_mn + (int64_t)r * N + c;
-        float x = __fmul_rn(__int2float_rn(acc[mi][ni][j]), __fmul_rn(SA[r], SB[c]));
+        float x = q8_dequant(acc[mi][ni][j], SA[r], SB[c]);
         if (c_kind != K_NONE)
-          x = __fadd_rn(x, load_as_float(C, c_dtype, c_kind == K_ROW ? g_n + c : idx));
+          x = q8_add_c(x, load_as_float(C, c_dtype, c_kind == K_ROW ? g_n + c : idx));
         for (int s = 0; s < ep.n_steps; ++s) {
           float o = 0.0f;
           const int kind = ep.kind[s];
@@ -233,13 +258,7 @@ __device__ __forceinline__ void opope_q8_tile(
           else if (kind == K_FULL) o = load_as_float(ep.ptr[s], ep.dtype[s], idx);
           x = q8_apply_op(ep.op[s], x, o);
         }
-        switch (o_dtype) {
-          case DT_BF16: static_cast<__nv_bfloat16*>(O)[idx] = __float2bfloat16_rn(x); break;
-          case DT_F16: static_cast<__half*>(O)[idx] = __float2half_rn(x); break;
-          // int8 only behind requant_int8: x is an exact integer in [-127, 127].
-          case DT_I8: static_cast<int8_t*>(O)[idx] = static_cast<int8_t>(x); break;
-          default: static_cast<float*>(O)[idx] = x; break;
-        }
+        q8_store(O, o_dtype, idx, x);
       }
 }
 

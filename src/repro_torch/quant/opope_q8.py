@@ -16,7 +16,13 @@ default; bf16, fp16, or int8 behind ``requant_int8``).
   ``kernels/csrc/opope_q8.cu`` for tensors on the card (design notes there
   and in ``opope_q8_tile.cuh``) and raise on what the kernels do not take.
   Given tensors on the CPU they run the plain versions: the kernels have no
-  CPU form. ``.launches`` counts kernel launches.
+  CPU form. ``.launches`` counts kernel launches;
+  ``opope_gemm_q8.launches_by_route`` splits K2's by route.
+* :func:`_plan` chooses K2's route before the launch, from the operands
+  alone: ``"sm90"`` (TMA ring + int8 wgmma with the weight as the register
+  operand, exact int32 split-K where the output tiles do not fill the card)
+  where a TMA tensor map can describe both operands, else ``"tile"`` (the
+  64x64 mma.sync tile body, which K5 runs too).
 * :func:`opope_gemm_q8_plain` / :func:`opope_gemm_q8_grouped_plain` form the
   exact integer product (an int32 matmul on the CPU; on the card an fp64
   one, exact while |acc| < 2^53, never fp32 or TF32), then the same
@@ -29,6 +35,8 @@ longer products raise.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -38,9 +46,14 @@ from repro_torch.kernels import epilogue as _ep
 from repro_torch.kernels.opope_gemm import (
     _DTYPE_CODES,
     _OPERAND_DTYPES,
+    _SM_COUNT,
+    _TILE,
     MAX_EPILOGUE_STEPS,
+    Plan,
+    _counters,
     _Epilogue,
     _epilogue_struct,
+    _split_bounds,
 )
 
 __all__ = [
@@ -62,6 +75,67 @@ def _launcher(name: str, grouped: bool):
                        + [ctypes.POINTER(_Epilogue), p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _sm90_launcher():
+    fn = _build.load("opope_q8").opope_q8_gemm_sm90_launch
+    if fn.argtypes is None:
+        p, i, ep = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_Epilogue)
+        fn.argtypes = [p] * 5 + [i] * 3 + [p] + [i] * 3 + [ep, i, i, p, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+# K2's sm90 route (csrc/opope_q8.cu): K bytes a ring stage, weight columns a
+# block, and its two tile configurations: config code, MT (rows of A_q a
+# block, wgmma's N), stages.
+_SM90_BK = 128
+_SM90_BN = 128
+_SM90_CONFIGS = ((0, 8, 8), (1, 128, 4))
+_MIN_SPLIT_PANELS = 2  # each split walks at least this many BK panels when it can
+
+
+def _max_splits(m: int, k: int, mt: int) -> int:
+    """The most K splits worth taking on the sm90 route: each split walks
+    at least ``_MIN_SPLIT_PANELS`` panels, and the last block of a tile,
+    which reads every split's int32 partial (``rows x 128``) alone, reads no
+    more than one split streams through its main loop (``k / S`` deep
+    panels of A_q's ``rows`` and the weight's 128 int8 columns):
+    ``S * rows * 128 * 4 <= (k / S) * (rows + 128)``."""
+    rows = min(m, mt)
+    by_panels = -(-k // _SM90_BK) // _MIN_SPLIT_PANELS
+    by_reduction = math.isqrt(k * (rows + _SM90_BN) // (4 * rows * _SM90_BN))
+    return max(1, min(by_panels, by_reduction))
+
+
+def _plan(m: int, n: int, k: int, a_ptr: int, b_ptr: int) -> Plan:
+    """The route, tile, stage count and K splits of K2's ``A_q[m,k] @
+    B_q[k,n]`` (int8, contiguous).
+
+    A pure function of its arguments. The sm90 route takes operands whose
+    bases and row strides (``k`` and ``n`` bytes) are multiples of 16 bytes,
+    as a TMA tensor map needs, with ``k > 0``; anything else takes the tile
+    route. On the sm90 route the tile is 8 rows of A_q for ``m <= 8``, else
+    128 (rows past ``m`` zero-filled), by 128 weight columns, and K is
+    split across blocks when the output tiles alone do not fill the card:
+    the most splits that keep the grid within one wave of ``_SM_COUNT``
+    blocks, up to :func:`_max_splits`, none empty.
+    """
+    return _plan_aligned(m, n, k, a_ptr % 16 == 0 and b_ptr % 16 == 0)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_aligned(m: int, n: int, k: int, aligned: bool) -> Plan:
+    # Only the bases' alignment enters the plan: cached on it (a decode
+    # step plans the same few shapes hundreds of times).
+    if not (aligned and k > 0 and k % 16 == 0 and n % 16 == 0):
+        bm, bn, bk = _TILE
+        return Plan("tile", -1, bm, bn, bk, 2, 1, -(-m // bm), -(-n // bn), (0, k))
+    config, mt, stages = next((c for c in _SM90_CONFIGS if m <= c[1]), _SM90_CONFIGS[-1])
+    m_tiles, n_tiles = -(-m // mt), -(-n // _SM90_BN)
+    splits = max(1, min(_SM_COUNT // (m_tiles * n_tiles), _max_splits(m, k, mt)))
+    return Plan("sm90", config, mt, _SM90_BN, _SM90_BK, stages, splits, m_tiles, n_tiles,
+                _split_bounds(k, _SM90_BK, splits))
 
 
 def _check_common(k, c, c_shapes, out_dtype, epilogue, epilogue_operands):
@@ -185,7 +259,8 @@ def opope_gemm_q8_grouped_plain(
                       epilogue, epilogue_operands)
 
 
-def _launch(fn_name, grouped, a_q, a_scale, b_q, b_scale, c, out, dims, out_dtype, ep):
+def _launch_tile(fn_name, grouped, a_q, a_scale, b_q, b_scale, c, out, dims, out_dtype, ep):
+    """One launch of the tile body (K2's tile route, or K5)."""
     k = a_q.shape[-1]
     n = b_q.shape[-1]
     # 16-byte A vectors stay inside a row (and every group's base aligned)
@@ -206,6 +281,65 @@ def _launch(fn_name, grouped, a_q, a_scale, b_q, b_scale, c, out, dims, out_dtyp
         raise RuntimeError(f"{fn_name} failed: CUDA error {rc}")
 
 
+def _launch(
+    a_q: torch.Tensor,
+    a_scale: torch.Tensor,
+    b_q: torch.Tensor,
+    b_scale: torch.Tensor,
+    c: Optional[torch.Tensor] = None,
+    *,
+    out_dtype: Optional[torch.dtype] = None,
+    epilogue: Tuple[str, ...] = (),
+    epilogue_operands: Tuple[torch.Tensor, ...] = (),
+    route: Optional[str] = None,
+) -> torch.Tensor:
+    """One K2 launch on the planned route; ``route`` forces one (``"tile"``
+    takes every operand the kernel takes; ``"sm90"`` raises, launching
+    nothing, where the plan is not sm90), so a caller can hold and time the
+    two routes on the same call."""
+    if a_q.device.type != "cuda":
+        raise ValueError(f"opope_gemm_q8 runs on cuda tensors, got {a_q.device}")
+    out_dtype = out_dtype or torch.float32
+    m, n, k = _check_shapes(a_q, a_scale, b_q, b_scale, c, out_dtype, epilogue,
+                            epilogue_operands)
+    _check_launch_operands("opope_gemm_q8", a_q, a_scale, b_q, b_scale, c, out_dtype,
+                           epilogue, epilogue_operands)
+    ep = _epilogue_struct(epilogue, epilogue_operands,
+                          {"scalar": (1, 1), "row": (1, n), "full": (m, n)})
+    out = torch.empty((m, n), dtype=out_dtype, device=a_q.device)
+    if m == 0 or n == 0:
+        return out
+    plan = _plan(m, n, k, a_q.data_ptr(), b_q.data_ptr())
+    if route == "sm90" and plan.route != "sm90":
+        raise ValueError(f"the sm90 route does not take this call ({plan})")
+    route = route or plan.route
+    if route == "sm90":
+        with torch.cuda.device(a_q.device):
+            stream = torch.cuda.current_stream(a_q.device).cuda_stream
+            ws = counters = None
+            if plan.splits > 1:
+                ws = torch.empty(plan.splits * plan.tiles * plan.bm * plan.bn,
+                                 dtype=torch.int32, device=a_q.device)
+                counters = _counters(a_q.device, stream)
+            rc = _sm90_launcher()(
+                a_q.data_ptr(), a_scale.data_ptr(), b_q.data_ptr(), b_scale.data_ptr(),
+                out.data_ptr(), m, n, k, None if c is None else c.data_ptr(),
+                0 if c is None else (2 if c.ndim == 1 else 3),
+                0 if c is None else _DTYPE_CODES[c.dtype], _DTYPE_CODES[out_dtype],
+                ctypes.byref(ep), plan.config, plan.splits,
+                None if ws is None else ws.data_ptr(),
+                None if counters is None else counters.data_ptr(), stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"opope_gemm_q8 sm90 kernel launch failed: error {rc}")
+    else:
+        _launch_tile("opope_q8_gemm_launch", False, a_q, a_scale, b_q, b_scale, c, out,
+                     (m, n, k), out_dtype, ep)
+    opope_gemm_q8.launches += 1
+    opope_gemm_q8.launches_by_route[route] += 1
+    return out
+
+
 def opope_gemm_q8(
     a_q: torch.Tensor,
     a_scale: torch.Tensor,
@@ -224,29 +358,15 @@ def opope_gemm_q8(
     with column scales b_scale [1, N] fp32; c: [M, N] or [N]; all
     contiguous. ``epilogue_operands`` carries one canonical operand per
     operand-taking step (scalar ``(1,1)``, row ``(1,N)``, full ``(M,N)``).
-    ``out_dtype`` defaults to fp32.
+    ``out_dtype`` defaults to fp32. The route is :func:`_plan`'s.
     """
     if a_q.device.type == "cpu":
         return opope_gemm_q8_plain(
             a_q, a_scale, b_q, b_scale, c, out_dtype=out_dtype, epilogue=epilogue,
             epilogue_operands=epilogue_operands,
         )
-    if a_q.device.type != "cuda":
-        raise ValueError(f"opope_gemm_q8 runs on cuda tensors, got {a_q.device}")
-    out_dtype = out_dtype or torch.float32
-    m, n, k = _check_shapes(a_q, a_scale, b_q, b_scale, c, out_dtype, epilogue,
-                            epilogue_operands)
-    _check_launch_operands("opope_gemm_q8", a_q, a_scale, b_q, b_scale, c, out_dtype,
-                           epilogue, epilogue_operands)
-    ep = _epilogue_struct(epilogue, epilogue_operands,
-                          {"scalar": (1, 1), "row": (1, n), "full": (m, n)})
-    out = torch.empty((m, n), dtype=out_dtype, device=a_q.device)
-    if m == 0 or n == 0:
-        return out
-    _launch("opope_q8_gemm_launch", False, a_q, a_scale, b_q, b_scale, c, out,
-            (m, n, k), out_dtype, ep)
-    opope_gemm_q8.launches += 1
-    return out
+    return _launch(a_q, a_scale, b_q, b_scale, c, out_dtype=out_dtype, epilogue=epilogue,
+                   epilogue_operands=epilogue_operands)
 
 
 def opope_gemm_q8_grouped(
@@ -286,11 +406,12 @@ def opope_gemm_q8_grouped(
     out = torch.empty((g, m, n), dtype=out_dtype, device=a_q.device)
     if g == 0 or m == 0 or n == 0:
         return out
-    _launch("opope_q8_grouped_launch", True, a_q, a_scale, b_q, b_scale, c, out,
-            (g, m, n, k), out_dtype, ep)
+    _launch_tile("opope_q8_grouped_launch", True, a_q, a_scale, b_q, b_scale, c, out,
+                 (g, m, n, k), out_dtype, ep)
     opope_gemm_q8_grouped.launches += 1
     return out
 
 
 opope_gemm_q8.launches = 0
+opope_gemm_q8.launches_by_route = {"sm90": 0, "tile": 0}
 opope_gemm_q8_grouped.launches = 0

@@ -292,7 +292,7 @@ def _check_q8(got, want, op):
         return
     ref = want.float()
     _, e = torch.frexp(ref)
-    mant = {torch.float32: 24, torch.bfloat16: 8}[got.dtype]
+    mant = {torch.float32: 24, torch.bfloat16: 8, torch.float16: 11}[got.dtype]
     tol = torch.ldexp(torch.ones_like(ref), e - mant) + 1e-6 * ref.abs().max()
     assert ((got.float() - ref).abs() <= tol).all()
 
@@ -343,6 +343,138 @@ def test_int8_accumulator_is_exact(cuda_device):
     exact = a.double() @ b.double()
     assert exact.abs().max() < 2 ** 24
     assert torch.equal(got.double(), exact)
+
+
+def _q8_module():
+    import importlib
+    return importlib.import_module("repro_torch.quant.opope_q8")
+
+
+def _k2_route(a, b):
+    """The route K2's plan gives these operands."""
+    return _q8_module()._plan(a.shape[0], b.shape[1], a.shape[1], a.data_ptr(),
+                              b.data_ptr()).route
+
+
+# K2's sm90 route at M of 1, 4 and 5 (the 8-row tile), 64 (one 128-row tile,
+# half of it zero-filled) and 512 (four 128-row tiles), K and N off the
+# 128-byte panel and tile.
+Q8_SM90_SHAPES = [(1, 144, 272), (4, 4096, 256), (5, 400, 144), (64, 1040, 400),
+                  (512, 272, 1040)]
+Q8_REQUANT_CHAIN = ("bias", "scale", "residual", "mul", "relu", "requant_int8")
+
+
+@pytest.mark.parametrize("shape", Q8_SM90_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k2_sm90_matches_plain_for_every_op(cuda_device, shape):
+    """Every C kind and epilogue op, fp32/bf16/fp16 out, and a requant_int8
+    chain, bitwise against the plain version (transcendental ops within one
+    ulp), every launch on the sm90 route."""
+    q8 = _q8_module()
+    m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a, sa, b, sb = _q8_operands(gen, cuda_device, (m,), k, n)
+    assert _k2_route(a, b) == "sm90"
+    row = torch.randn((1, n), generator=gen, device=cuda_device)
+    full = torch.randn((m, n), generator=gen, device=cuda_device).to(torch.bfloat16)
+    crow = torch.randn((n,), generator=gen, device=cuda_device)
+    scalar = torch.full((1, 1), 0.05, device=cuda_device)
+    for c in (None, crow, full):
+        for op in tep.epilogue_ops():
+            operands = {"none": (), "row": (row,), "full": (full,),
+                        "scalar": (scalar,)}[tep.op_kind(op)]
+            for out_dtype in ((torch.int8,) if op == "requant_int8" else
+                              (torch.float32, torch.bfloat16, torch.float16)):
+                before = dict(q8.opope_gemm_q8.launches_by_route)
+                got = q8.opope_gemm_q8(a, sa, b, sb, c, out_dtype=out_dtype, epilogue=(op,),
+                                       epilogue_operands=operands)
+                torch.cuda.synchronize()
+                assert q8.opope_gemm_q8.launches_by_route == dict(before, sm90=before["sm90"] + 1)
+                want = q8.opope_gemm_q8_plain(a, sa, b, sb, c, out_dtype=out_dtype,
+                                              epilogue=(op,), epilogue_operands=operands)
+                _check_q8(got, want, op)
+    operands = (crow.reshape(1, n), row, full, full, scalar)
+    got = q8.opope_gemm_q8(a, sa, b, sb, full, out_dtype=torch.int8, epilogue=Q8_REQUANT_CHAIN,
+                           epilogue_operands=operands)
+    want = q8.opope_gemm_q8_plain(a, sa, b, sb, full, out_dtype=torch.int8,
+                                  epilogue=Q8_REQUANT_CHAIN, epilogue_operands=operands)
+    assert torch.equal(got, want)
+    # The int32 sum is exact: with unit scales the fp32 output is the integer
+    # product wherever |acc| < 2^24.
+    ones_a, ones_b = torch.ones_like(sa), torch.ones_like(sb)
+    exact = a.double() @ b.double()
+    assert exact.abs().max() < 2 ** 24
+    assert torch.equal(q8.opope_gemm_q8(a, ones_a, b, ones_b).double(), exact)
+
+
+@pytest.mark.parametrize("shape", [(4, 4096, 1024), (4, 13696, 4096), (256, 2048, 2816)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k2_sm90_split_k_is_bitwise_on_repeat(cuda_device, shape):
+    q8 = _q8_module()
+    m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    a, sa, b, sb = _q8_operands(gen, cuda_device, (m,), k, n)
+    plan = q8._plan(m, n, k, a.data_ptr(), b.data_ptr())
+    assert plan.route == "sm90" and plan.splits > 1
+    res = torch.randn((m, n), generator=gen, device=cuda_device).to(torch.bfloat16)
+    outs = [q8.opope_gemm_q8(a, sa, b, sb, out_dtype=torch.bfloat16, epilogue=("residual",),
+                             epilogue_operands=(res,)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    want = q8.opope_gemm_q8_plain(a, sa, b, sb, out_dtype=torch.bfloat16,
+                                  epilogue=("residual",), epilogue_operands=(res,))
+    assert torch.equal(outs[0], want)
+
+
+def test_k2_split_k_shares_counters_with_k1(cuda_device):
+    """K1 and K2 split K on one stream's counters, one call after another."""
+    q8 = _q8_module()
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    a, sa, b, sb = _q8_operands(gen, cuda_device, (4,), 4096, 1024)
+    x = torch.randn((4, 4096), generator=gen, device=cuda_device).bfloat16()
+    w = torch.randn((4096, 4096), generator=gen, device=cuda_device).bfloat16()
+    want_q8 = q8.opope_gemm_q8_plain(a, sa, b, sb)
+    want_k1 = opope_gemm(x, w)
+    for _ in range(4):
+        got_q8, got_k1 = q8.opope_gemm_q8(a, sa, b, sb), opope_gemm(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got_q8, want_q8) and torch.equal(got_k1, want_k1)
+
+
+def test_k2_routes_and_their_counters(cuda_device):
+    """Ragged K or N and a misaligned base take the tile route; each call
+    counts on its route; both routes forced through _launch agree bit for
+    bit; sm90 refuses, launching nothing, what its plan does not take."""
+    q8 = _q8_module()
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    a, sa, b, sb = _q8_operands(gen, cuda_device, (8,), 4104, 264)
+    flat = torch.randint(-127, 128, (8 * 256 + 8,), generator=gen, device=cuda_device,
+                         dtype=torch.int8)
+    off = flat[8:].view(8, 256)  # a base 8 bytes off a 16-byte boundary
+    assert off.data_ptr() % 16 == 8
+    cases = [((a, sa, b, sb), "tile"),                                   # K, N off 16
+             ((a[:, :4096].contiguous(), sa, b[:4096, :256].contiguous(), sb[:, :256]),
+              "sm90"),
+             ((a[:, :40].contiguous(), sa, b[:40, :24].contiguous(), sb[:, :24]), "tile"),
+             ((off, sa, b[:256, :256].contiguous(), sb[:, :256]), "tile")]
+    for (x, xs, w, ws), route in cases:
+        ws = ws.contiguous()
+        assert _k2_route(x, w) == route
+        before = (q8.opope_gemm_q8.launches, dict(q8.opope_gemm_q8.launches_by_route))
+        got = q8.opope_gemm_q8(x, xs, w, ws, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert q8.opope_gemm_q8.launches == before[0] + 1
+        assert q8.opope_gemm_q8.launches_by_route == dict(before[1],
+                                                          **{route: before[1][route] + 1})
+        want = q8.opope_gemm_q8_plain(x, xs, w, ws, out_dtype=torch.bfloat16)
+        assert torch.equal(got, want)
+        forced = {r: q8._launch(x, xs, w, ws, out_dtype=torch.bfloat16, route=r)
+                  for r in (("sm90", "tile") if route == "sm90" else ("tile",))}
+        assert all(torch.equal(v, want) for v in forced.values())
+        if route == "tile":
+            before = (q8.opope_gemm_q8.launches, dict(q8.opope_gemm_q8.launches_by_route))
+            with pytest.raises(ValueError, match="sm90"):
+                q8._launch(x, xs, w, ws, route="sm90")
+            assert (q8.opope_gemm_q8.launches, q8.opope_gemm_q8.launches_by_route) == before
 
 
 @pytest.mark.parametrize("arch,policy,counts", [
