@@ -19,9 +19,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
        route — (c) the lockstep engine, and (d) a lockstep decode step's
        wall time beside its K1 device time;
 5. the grouped O-POPE GEMM kernel (K4) against its plain version on the
-   card, at deepseek-moe-16b's expert shapes and chains (timed beside
-   ``torch.bmm`` and the card's bound) and at small ragged shapes for every
-   epilogue op and C form;
+   card, at deepseek-moe-16b's expert shapes and chains for M = 1, 30 and 60
+   (required on the sm90 route and checked on the tile route too; timed by
+   device time on both routes beside ``torch.bmm`` and the card's bound)
+   and at small ragged shapes for every epilogue op and C form (on the tile
+   route, and aligned ones on both routes);
 6. full-width deepseek-moe-16b (28 layers, bf16, random weights from seed 0),
    after chatglm3-6b's weights are freed:
    (a) routing in a full prefill on the kernels against the plain router on
@@ -29,7 +31,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
        that of two valid summation orders, and one MoE layer on both
        backends with the same routing,
    (b) the continuous-batching engine on a Poisson trace — the second main
-       path, whose K1 and K4 launches are counted — and the lockstep engine,
+       path, whose K1 and K4 launches are counted, every one on its sm90
+       route — and the lockstep engine,
    (c) a lockstep decode step's wall time beside its K1 and K4 device time;
 7. the int8 GEMM kernels K2 and K5 against their plain versions on the card,
    bitwise where the chain has no transcendental op, at the shapes of both
@@ -73,6 +76,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -132,45 +136,15 @@ def time_ms(torch, fn, n_bufs: int, iters: int = 0, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, n_bufs: int, iters: int = 0, warmup: int = 2) -> float:
-    """Mean device time of ``fn(i)`` by torch.profiler: the sum of the
-    kernels' own times over the loop, free of the host's issue rate, which
-    :func:`time_ms`'s CUDA events include once a kernel is shorter than
-    its launch. ``i`` cycles over ``n_bufs`` operand copies, as there."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    iters = iters or max(10, n_bufs)
-    for i in range(warmup):
-        fn(i % n_bufs)
-    torch.cuda.synchronize()
-    # A trace now and then comes back without its device events, or with
-    # some of them (late in a long run on the H100): a trace with fewer
-    # kernel events than calls (each call launches at least one kernel) is
-    # taken again.
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(i % n_bufs)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        total_us = sum(e.self_device_time_total for e in kernels)
-        if total_us > 0 and sum(e.count for e in kernels) >= iters:
-            return total_us / 1e3 / iters
-        log(f"profiler trace {attempt + 1} of 3 held {sum(e.count for e in kernels)} kernel "
-            f"events for {iters} calls; measuring again")
-    raise AssertionError("the profiler recorded too few kernel events in 3 traces")
-
-
 def queued_ms(torch, fn, iters: int = 20, warmup: int = 2) -> float:
     """Mean device time of ``fn(i)`` by CUDA events around ``iters`` calls
     that the host queues behind a sleeping kernel: the device runs them back
     to back once it wakes, so the events time the device's work and not the
     host's issue rate, with no profiler. The start event must still be
     pending when the last call is queued; else the sleep was too short and
-    it is taken again, four times longer. Phase 9 times K3 this way: it runs
-    after the model phases, where torch.profiler returned traces missing
-    kernel events."""
+    it is taken again, four times longer. Phases 3, 5, 7 and 9 time K1, K4,
+    K2 and K3 this way: torch.profiler returned traces missing kernel
+    events, late in a run and once in phase 3."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
@@ -227,8 +201,8 @@ def check_close(torch, out, plain, out_dtype, what):
 
 
 def check_routes(kern, launches, what, name="K1"):
-    """Every launch of ``kern`` (K1, or K2 with ``name``) counted since the
-    reset went through the sm90 route."""
+    """Every launch of ``kern`` (K1, or K2 or K4 with ``name``) counted since
+    the reset went through the sm90 route."""
     if kern.launches_by_route != {"sm90": launches, "tile": 0}:
         raise AssertionError(f"{what}: {name} launches by route {kern.launches_by_route}, "
                              f"want all {launches} on sm90")
@@ -329,13 +303,14 @@ def kernel_phase(torch, ep, cfg, mcfg, dev):
         def sm90(i):
             return opope_gemm(a, bs[i], None, epilogue=steps, epilogue_operands=ops_)
 
-        ms = device_ms(torch, sm90, n_bufs)
+        iters = max(20, n_bufs)
+        ms = queued_ms(torch, lambda i: sm90(i % n_bufs), iters)
         event_ms = time_ms(torch, sm90, n_bufs)
-        tile_ms = device_ms(torch, lambda i: k1mod._run(
-            a, bs[i], None, None, steps, ops_, route="tile"), n_bufs)
+        tile_ms = queued_ms(torch, lambda i: k1mod._run(
+            a, bs[i % n_bufs], None, None, steps, ops_, route="tile"), iters)
         plain_ms = time_ms(torch, lambda i: opope_gemm_plain(
             a, bs[i], None, epilogue=steps, epilogue_operands=ops_), n_bufs)
-        lib_ms = device_ms(torch, lambda i: torch.matmul(a, bs[i]), n_bufs)
+        lib_ms = queued_ms(torch, lambda i: torch.matmul(a, bs[i % n_bufs]), iters)
         bound_ms, bound_by = gemm_bound(m, kk, n, len(ops_))
         out = opope_gemm(a, bs[0], None, epilogue=steps, epilogue_operands=ops_)
         err = check_close(torch, out, k1_plain(a, bs[0], None, steps, ops_),
@@ -518,10 +493,11 @@ def k4_plain(k4, a, b, c, steps, ops_):
 
 def grouped_phase(torch, k4, ops, ep, cfg, dev):
     """Phase 5. Returns the expert FFN's 3 grouped GEMMs, the per-shape
-    timing rows and the largest error."""
+    timing rows, the largest error and the coverage launches by route."""
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
     g, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    tile = functools.partial(k4._run, route="tile")
     # The 3 grouped GEMMs of one MoE layer: (name, K, N, chain, out dtype).
     ffn = [("w_up", d, f, "none", bf16), ("w_gate", d, f, "silu+mul", bf16),
            ("w_down", f, d, "none", f32)]
@@ -536,41 +512,58 @@ def grouped_phase(torch, k4, ops, ep, cfg, dev):
             if chain == "silu+mul":
                 steps = ("silu", "mul")
                 ops_ = (torch.randn((g, m, n), generator=gen, device=dev).to(bf16),)
-            out = k4.opope_gemm_grouped(a, b, out_dtype=out_dtype, epilogue=steps,
-                                        epilogue_operands=ops_)
-            sync(torch, dev)
-            err = check_close(torch, out, k4_plain(k4, a, b, None, steps, ops_), out_dtype,
-                              f"grouped G={g} M={m} K={kk} N={n} {chain}")
+            plan = k4._plan(m, n, kk, bf16, a.data_ptr(), b.data_ptr())
+            if plan.route != "sm90":
+                raise AssertionError(f"grouped {name} M={m}: planned on {plan.route}, want sm90")
+            what = f"grouped G={g} M={m} K={kk} N={n} {chain}"
+            plain = k4_plain(k4, a, b, None, steps, ops_)
+            err = 0.0
+            for route, fn in (("sm90", k4.opope_gemm_grouped), ("tile", tile)):
+                out = fn(a, b, None, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ops_)
+                sync(torch, dev)
+                err = max(err, check_close(torch, out, plain, out_dtype, f"{what} on {route}"))
             max_err = max(max_err, err)
             # One call reads all G experts' weights (>= 184 MB, several
-            # times the 50 MB L2), so each call finds them cold.
-            ms = time_ms(torch, lambda i: k4.opope_gemm_grouped(
-                a, b, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ops_), 1)
+            # times the 50 MB L2), so each call finds them cold. Both
+            # routes and torch.bmm by device time: CUDA events around calls
+            # queued behind a sleeping kernel (queued_ms); the plain version
+            # by CUDA events around a loop.
+            ms = queued_ms(torch, lambda i: k4.opope_gemm_grouped(
+                a, b, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ops_))
+            tile_ms = queued_ms(torch, lambda i: tile(
+                a, b, None, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ops_))
             plain_ms = time_ms(torch, lambda i: k4.opope_gemm_grouped_plain(
                 a, b, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ops_), 1)
-            lib_ms = time_ms(torch, lambda i: torch.bmm(a, b), 1)
+            lib_ms = queued_ms(torch, lambda i: torch.bmm(a, b))
             out_elem = 4 if out_dtype == f32 else 2
             nbytes = 2 * g * (m * kk + kk * n + m * n * len(ops_)) + out_elem * g * m * n
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * g * m * n * kk / BF16_FLOPS
             row = {"g": g, "m": m, "k": kk, "n": n, "name": name, "epilogue": chain,
-                   "out_dtype": str(out_dtype).replace("torch.", ""), "ms": ms,
-                   "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": 1e3 * max(t_bytes, t_ops),
+                   "out_dtype": str(out_dtype).replace("torch.", ""), "route": plan.route,
+                   "tile_rows": plan.bm, "ms": ms, "tile_ms": tile_ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "max_abs_err": err}
             rows.append(row)
             log(f"grouped G={g} M={m} K={kk} N={n} {name} chain={chain} -> {row['out_dtype']}: "
-                f"kernel {ms:.4f} ms, torch.bmm {lib_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), max_abs_err {err:.3g}")
+                f"sm90 {ms:.4f} ms, tile route {tile_ms:.4f} ms, torch.bmm {lib_ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"max_abs_err {err:.3g} (both routes)")
             del a, b, ops_, out
 
-    # Coverage: G = 3 ragged shapes, fp32 and bf16 in, every C form and op,
-    # through grouped_matmul on the kernel against it on the plain version.
+    # Coverage: G = 3, fp32 and bf16 in, every C form and op, through
+    # grouped_matmul on the kernel against it on the plain version: ragged
+    # shapes TMA cannot describe (tile route), and aligned ragged ones (M 1,
+    # 5 and 65, K tails of 200 and 264, N of 24, 136 and 200) on both routes.
     n_cov, gc_ = 0, 3
-    for m, kk, n in ((5, 40, 24), (130, 300, 200)):
+    cuda_be = ops.backend("cuda")
+    cov_routes = {"sm90": 0, "tile": 0}
+    for m, kk, n in ((5, 40, 24), (130, 300, 200), (1, 200, 136), (65, 264, 200)):
         for dt in (f32, bf16):
             a = torch.randn((gc_, m, kk), generator=gen, device=dev).to(dt)
             b = torch.randn((gc_, kk, n), generator=gen, device=dev).to(dt)
+            route = k4._plan(m, n, kk, dt, a.data_ptr(), b.data_ptr()).route
+            routes = ("sm90", "tile") if route == "sm90" else ("tile",)
             cs = {"none": None,
                   "row": torch.randn((gc_, n), generator=gen, device=dev).to(dt),
                   "full": torch.randn((gc_, m, n), generator=gen, device=dev).to(dt)}
@@ -587,17 +580,20 @@ def grouped_phase(torch, k4, ops, ep, cfg, dev):
                              "scalar": {"": (name, acc_max / 100.0)}}[kind]
                     for form, spec in specs.items():
                         out_dtypes = (torch.int8,) if name == "requant_int8" else (dt, f32)
-                        for out_dtype in out_dtypes:
+                        for out_dtype, rt in itertools.product(out_dtypes, routes):
                             def run(be, od, c=c, spec=spec):
                                 return ops.grouped_matmul(a, b, c, backend=be, out_dtype=od,
                                                           epilogue=[spec])
-                            out = run("cuda", out_dtype)
+                            with _patched(cuda_be, "grouped_fn",
+                                          functools.partial(k4._run, route=rt)):
+                                out = run("cuda", out_dtype)
                             sync(torch, dev)
                             check_close(torch, out, lambda od: run("torch", od), out_dtype,
                                         f"grouped coverage {gc_}x{m}x{kk}x{n} {dt} C={c_name} "
-                                        f"{name}{form} -> {out_dtype}")
+                                        f"{name}{form} -> {out_dtype} on {rt}")
+                            cov_routes[rt] += 1
                             n_cov += 1
-            # One long chain into fp16.
+            # One long chain into fp16, on the planned route.
             chain = ["gelu", ("scale", rows_["[G,N]"]), ("residual", full_op),
                      ("mul", full_op), "relu", ("bias", rows_["[N]"])]
             out = ops.grouped_matmul(a, b, cs["row"], backend="cuda", out_dtype=torch.float16,
@@ -606,9 +602,11 @@ def grouped_phase(torch, k4, ops, ep, cfg, dev):
             check_close(torch, out, lambda od: ops.grouped_matmul(
                 a, b, cs["row"], backend="torch", out_dtype=od, epilogue=chain),
                 torch.float16, f"grouped coverage chain {gc_}x{m}x{kk}x{n} {dt}")
+            cov_routes[route] += 1
             n_cov += 1
-    log(f"grouped coverage: {n_cov} ragged/dtype/C/epilogue cases within tolerance")
-    return ffn, rows, max_err
+    log(f"grouped coverage: {n_cov} ragged/dtype/C/epilogue cases within tolerance, "
+        f"by route {cov_routes}")
+    return ffn, rows, max_err, cov_routes
 
 
 @contextlib.contextmanager
@@ -758,9 +756,11 @@ def moe_phase(torch, np, cfg, ops, ep, k4, dev):
     opope_gemm.launches = 0
     opope_gemm.launches_by_route.update(sm90=0, tile=0)
     k4.opope_gemm_grouped.launches = 0
+    k4.opope_gemm_grouped.launches_by_route.update(sm90=0, tile=0)
     report = eng.timed_serve(trace)
     launches = {"k1": opope_gemm.launches, "k4": k4.opope_gemm_grouped.launches}
     check_routes(opope_gemm, launches["k1"], "6(b)")
+    check_routes(k4.opope_gemm_grouped, launches["k4"], "6(b)", name="K4")
     forwards = report.decode_steps + report.prefill_batches
     plain = ops.backend("torch")
     if (launches["k4"] != n_k4 * forwards or launches["k1"] != n_k1 * forwards
@@ -779,13 +779,15 @@ def moe_phase(torch, np, cfg, ops, ep, k4, dev):
         f"{report.tokens_per_sec:.1f} tokens/s, TTFT p50 {report.ttft_p50 * 1e3:.1f} ms, "
         f"ITL p50 {report.itl_p50 * 1e3:.1f} ms (host-issue times); K4 launches "
         f"{launches['k4']} = 3 * {cfg.n_layers} * ({report.decode_steps} + "
-        f"{report.prefill_batches}), K1 launches {launches['k1']} = 8 * {cfg.n_layers} * (...)")
+        f"{report.prefill_batches}), K1 launches {launches['k1']} = 8 * {cfg.n_layers} * (...), "
+        f"every K1 and K4 launch on sm90")
     del eng
 
     # (b) the lockstep engine.
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))).to(dev)
     opope_gemm.launches = k4.opope_gemm_grouped.launches = 0
     opope_gemm.launches_by_route.update(sm90=0, tile=0)
+    k4.opope_gemm_grouped.launches_by_route.update(sm90=0, tile=0)
     t0 = time.perf_counter()
     toks = ServeEngine(cfg=cfg, params=params, max_len=80).generate({"tokens": prompts}, 16)
     toks_host = toks.cpu()
@@ -796,6 +798,7 @@ def moe_phase(torch, np, cfg, ops, ep, k4, dev):
         raise AssertionError(f"static launches K4 {k4.opope_gemm_grouped.launches}, "
                              f"K1 {opope_gemm.launches}")
     check_routes(opope_gemm, opope_gemm.launches, "6(b) static")
+    check_routes(k4.opope_gemm_grouped, k4.opope_gemm_grouped.launches, "6(b) static", name="K4")
     log(f"(b) static: 4 x 64-token prompts, 16 tokens each in {dt:.3f} s "
         f"({64 / dt:.1f} tokens/s), K4 launches {k4.opope_gemm_grouped.launches}, "
         f"K1 launches {opope_gemm.launches}")
@@ -1702,7 +1705,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"allocated after chatglm3-6b: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
 
-    ffn, g_rows, g_err = grouped_phase(torch, k4mod, ops, ep, mcfg, dev)
+    ffn, g_rows, g_err, g_cov = grouped_phase(torch, k4mod, ops, ep, mcfg, dev)
     gc.collect()
     torch.cuda.empty_cache()
     mres = moe_phase(torch, np, mcfg, ops, ep, k4mod, dev)
@@ -1720,10 +1723,19 @@ def main() -> int:
     # One MoE layer's 3 grouped GEMMs of a 4-slot decode step (capacity 1).
     g_decode = [r for r in g_rows if r["m"] == 1]
     g_sums = {key: sum(r[key] for r in g_decode)
-              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+              for key in ("ms", "tile_ms", "plain_ms", "library_ms", "bound_ms")}
     log(f"(c) deepseek decode step: its {3 * mcfg.n_layers} grouped GEMMs take "
         f"{mcfg.n_layers * g_sums['ms']:.3f} ms on K4 (cold-L2 timings above; byte bound "
         f"{mcfg.n_layers * g_sums['bound_ms']:.3f} ms)")
+    g_layers = {}
+    for m in (1, 30, 60):
+        m_rows = [r for r in g_rows if r["m"] == m]
+        g_layers[m] = {key: sum(r[key] for r in m_rows)
+                       for key in ("ms", "tile_ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"K4 deepseek's 3 expert GEMMs (G {mcfg.moe.n_experts}) at M={m}: sm90 "
+            f"{g_layers[m]['ms']:.4f} ms, tile route {g_layers[m]['tile_ms']:.4f} ms, torch.bmm "
+            f"{g_layers[m]['library_ms']:.4f} ms, bound {g_layers[m]['bound_ms']:.4f} ms (bytes "
+            f"{g_layers[m]['bound_ms'] / g_layers[m]['ms']:.1%} of the kernel's time)")
 
     k1_paths = {cfg.name: res["launches"], mcfg.name: mres["launches"]["k1"],
                 f"{cfg.name} q8": glm_q8["launches"]["K1"],
@@ -1747,7 +1759,8 @@ def main() -> int:
         "work": "the 7 GEMMs of one chatglm3-6b layer in a 4-slot decode step on the sm90 "
                 "route ('tile_ms': the same calls on the tile route; per-shape rows under "
                 "'shapes'; the same layer at 64, 256 and 512 rows under 'layers')",
-        "timing": "ms, tile_ms and library_ms: device time by torch.profiler; event_ms and "
+        "timing": "ms, tile_ms and library_ms: device time (CUDA events around calls queued "
+                  "behind a sleeping kernel); event_ms and "
                   "plain_ms: CUDA events around the loop, the host's issue rate included",
         "layers": {str(m): v for m, v in layer_sums.items()},
         "prefill_layer": dict(layer_sums[512], m=512, bound_by=layer_bound_by(512)),
@@ -1764,14 +1777,25 @@ def main() -> int:
         "launches": mres["launches"]["k4"],
         "launches_by_path": {mcfg.name: mres["launches"]["k4"],
                              f"{mcfg.name} q8": ds_q8["launches"]["K4"]},
+        # check_routes held both bf16 paths' launches to the sm90 route.
+        "launches_by_route": {"sm90": mres["launches"]["k4"], "tile": 0},
+        "coverage_launches_by_route": g_cov,
         "max_abs_err": g_err,
         "ms": g_sums["ms"],
+        "tile_ms": g_sums["tile_ms"],
         "plain_ms": g_sums["plain_ms"],
         "bound_ms": g_sums["bound_ms"],
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in g_decode) else "operations",
         "library_ms": g_sums["library_ms"],
         "work": "the 3 grouped GEMMs (64 experts) of one deepseek-moe-16b layer in a 4-slot "
-                "decode step (per-shape rows under 'shapes')",
+                "decode step on the sm90 route ('tile_ms': the same calls on the tile route; "
+                "the same GEMMs at prefill capacities 30 and 60 under 'layers'; per-shape rows "
+                "under 'shapes')",
+        "timing": "ms, tile_ms and library_ms: device time (CUDA events around calls queued "
+                  "behind a sleeping kernel); plain_ms: CUDA events around the loop, the "
+                  "host's issue rate included",
+        "layers": {str(m): v for m, v in g_layers.items()},
+        "build_s": kbuild.BUILD_SECONDS.get("opope_grouped"),
         "decode_step_device_ms": mres["device_ms"],
         "routing_agreement": mres["routing_agreement"],
         "shapes": g_rows,

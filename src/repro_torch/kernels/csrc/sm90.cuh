@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels of
-// opope_gemm.cu (K1), opope_attention.cu (K3) and opope_q8.cu (K2's sm90
+// opope_gemm.cu (K1) and opope_grouped.cu (K4) through
+// opope_sm90_gemm.cuh, opope_attention.cu (K3) and opope_q8.cu (K2's sm90
 // route): mbarriers, TMA loads, wgmma shared-memory descriptors and the
 // wgmma instructions they issue (bf16 and int8), and the tensor-map encoder
 // fetched from libcuda at run time.
@@ -57,6 +58,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One 3-D TMA box, coordinates from the innermost (c0) out.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

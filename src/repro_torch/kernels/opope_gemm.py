@@ -162,16 +162,27 @@ def _plan(m: int, n: int, k: int, dtype: torch.dtype, a_ptr: int, b_ptr: int) ->
 def _plan_aligned(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool) -> Plan:
     # Only the bases' alignment enters the plan: cached on it (a decode
     # step plans the same few shapes hundreds of times).
+    plan = _unsplit_plan(m, n, k, dtype, aligned)
+    if plan.route != "sm90":
+        return plan
+    splits = max(1, min(_SM_COUNT // plan.tiles, _max_splits(m, k, plan.bm, plan.bn)))
+    return plan._replace(splits=splits, k_bounds=_split_bounds(k, _SM90_BK, splits))
+
+
+@functools.lru_cache(maxsize=4096)
+def _unsplit_plan(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool) -> Plan:
+    """The route and tile of ``A[m,k] @ B[k,n]`` with K in one split: the
+    sm90 route for bf16 operands a TMA tensor map describes (row strides
+    ``2k`` and ``2n`` bytes and bases multiples of 16, ``k > 0``), the
+    64-row tile at ``m <= 64``, the 128-row one above; else the tile route.
+    The grouped kernel (K4) takes this plan for each of its groups."""
     tma_ok = (dtype == torch.bfloat16 and k > 0 and (2 * k) % 16 == 0 and (2 * n) % 16 == 0
               and aligned)
     if not tma_ok:
         bm, bn, bk = _TILE
         return Plan("tile", -1, bm, bn, bk, 2, 1, -(-m // bm), -(-n // bn), (0, k))
     config, bm, bn, stages = _SM90_DECODE if m <= 64 else _SM90_PREFILL
-    m_tiles, n_tiles = -(-m // bm), -(-n // bn)
-    splits = max(1, min(_SM_COUNT // (m_tiles * n_tiles), _max_splits(m, k, bm, bn)))
-    return Plan("sm90", config, bm, bn, _SM90_BK, stages, splits, m_tiles, n_tiles,
-                _split_bounds(k, _SM90_BK, splits))
+    return Plan("sm90", config, bm, bn, _SM90_BK, stages, 1, -(-m // bm), -(-n // bn), (0, k))
 
 
 # One zeroed split-K counter per output tile, kept per (device, stream):

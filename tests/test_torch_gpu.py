@@ -240,6 +240,103 @@ def test_grouped_kernel_rejects_what_it_does_not_take(cuda_device):
         ops.grouped_matmul(torch.ones((2, 4, 8)), torch.ones((2, 8, 4)), backend="cuda")
 
 
+# K4's sm90 route (TMA + wgmma over rank-3 per-group maps): deepseek's
+# expert shapes at decode and prefill capacity, ragged M (1, 5, 65) against
+# N not a multiple of 128 and a K tail not a multiple of 64, M = 64 and 65
+# on either side of the 128-row tile, G = 3 and 64.
+GROUPED_SM90_SHAPES = [(3, 1, 200, 136), (3, 5, 40, 24), (3, 65, 200, 200),
+                       (64, 1, 2048, 1408), (64, 30, 1408, 2048), (64, 60, 2048, 1408),
+                       (64, 64, 200, 136), (64, 65, 264, 200)]
+
+
+@pytest.mark.parametrize("shape", GROUPED_SM90_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_grouped_sm90_route_matches_plain_for_every_op_and_out_dtype(cuda_device, shape):
+    g, m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(g + m + k + n)
+    a = torch.randn((g, m, k), generator=gen, device=cuda_device).bfloat16()
+    b = (torch.randn((g, k, n), generator=gen, device=cuda_device) * k ** -0.5).bfloat16()
+    assert tg._plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr()).route == "sm90"
+    row = torch.randn((g, 1, n), generator=gen, device=cuda_device)
+    full = torch.randn((g, m, n), generator=gen, device=cuda_device).bfloat16()
+    acc_max = tg.opope_gemm_grouped_plain(a, b, out_dtype=torch.float32).abs().max()
+    crow = torch.randn((g, n), generator=gen, device=cuda_device).bfloat16()
+    for c in (None, crow, full):
+        for op in tep.epilogue_ops():
+            operands = {"none": (), "row": (row,), "full": (full,),
+                        "scalar": ((acc_max / 100.0).reshape(1, 1, 1),)}[tep.op_kind(op)]
+            for out_dtype in ((torch.int8,) if op == "requant_int8"
+                              else (torch.bfloat16, torch.float16, torch.float32)):
+                before = dict(tg.opope_gemm_grouped.launches_by_route)
+                got = tg.opope_gemm_grouped(a, b, c, out_dtype=out_dtype, epilogue=(op,),
+                                            epilogue_operands=operands)
+                torch.cuda.synchronize()
+                assert tg.opope_gemm_grouped.launches_by_route == dict(
+                    before, sm90=before["sm90"] + 1)
+                _check(got, a, b, c, out_dtype, (op,), operands,
+                       plain=tg.opope_gemm_grouped_plain)
+    chain = ("silu", "mul", "requant_int8")
+    operands = (full, (acc_max / 50.0).reshape(1, 1, 1))
+    got = tg.opope_gemm_grouped(a, b, out_dtype=torch.int8, epilogue=chain,
+                                epilogue_operands=operands)
+    _check(got, a, b, None, torch.int8, chain, operands, plain=tg.opope_gemm_grouped_plain)
+
+
+@pytest.mark.parametrize("shape", [(64, 1, 2048, 1408), (64, 60, 1408, 2048), (3, 65, 200, 136)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_grouped_sm90_is_bitwise_on_repeat(cuda_device, shape):
+    g, m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    a = torch.randn((g, m, k), generator=gen, device=cuda_device).bfloat16()
+    b = torch.randn((g, k, n), generator=gen, device=cuda_device).bfloat16()
+    gate = torch.randn((g, m, n), generator=gen, device=cuda_device).bfloat16()
+    outs = [tg.opope_gemm_grouped(a, b, epilogue=("silu", "mul"), epilogue_operands=(gate,))
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    _check(outs[0], a, b, None, torch.bfloat16, ("silu", "mul"), (gate,),
+           plain=tg.opope_gemm_grouped_plain)
+
+
+def test_k4_routes_and_their_counters(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    a = torch.randn((3, 8, 64), generator=gen, device=cuda_device)
+    b = torch.randn((3, 64, 32), generator=gen, device=cuda_device)
+    cases = [(a, b, "tile"),                                     # fp32 in
+             (a.bfloat16(), b.bfloat16(), "sm90"),               # TMA-able bf16
+             (a[:, :, :60].contiguous().bfloat16(), b[:, :60].contiguous().bfloat16(),
+              "tile"),                                           # 120-byte rows of A
+             (a[:, :, :56].contiguous().bfloat16(), b[:, :56].contiguous().bfloat16(),
+              "sm90"),                                           # 112-byte rows
+             (a.bfloat16(), b[:, :, :20].contiguous().bfloat16(), "tile")]  # 40-byte rows of B
+    for x, y, route in cases:
+        before = dict(tg.opope_gemm_grouped.launches_by_route)
+        total = tg.opope_gemm_grouped.launches
+        got = tg.opope_gemm_grouped(x, y)
+        torch.cuda.synchronize()
+        assert tg.opope_gemm_grouped.launches == total + 1
+        assert tg.opope_gemm_grouped.launches_by_route == dict(
+            before, **{route: before[route] + 1})
+        _check(got, x, y, None, x.dtype, (), (), plain=tg.opope_gemm_grouped_plain)
+    # A bf16 operand 8 bytes off a 16-byte boundary: the tile route.
+    flat = torch.randn(3 * 8 * 64 + 4, generator=gen, device=cuda_device).bfloat16()
+    x = flat[4:].view(3, 8, 64)
+    assert x.data_ptr() % 16 == 8
+    before = dict(tg.opope_gemm_grouped.launches_by_route)
+    _check(tg.opope_gemm_grouped(x, b.bfloat16()), x, b.bfloat16(), None, torch.bfloat16, (),
+           (), plain=tg.opope_gemm_grouped_plain)
+    assert tg.opope_gemm_grouped.launches_by_route["tile"] == before["tile"] + 1
+    # The same call forced onto each route; sm90 refuses what it cannot take.
+    y = b.bfloat16()
+    for route in ("sm90", "tile"):
+        before = dict(tg.opope_gemm_grouped.launches_by_route)
+        got = tg._run(a.bfloat16(), y, None, None, (), (), route=route)
+        assert tg.opope_gemm_grouped.launches_by_route[route] == before[route] + 1
+        _check(got, a.bfloat16(), y, None, torch.bfloat16, (), (),
+               plain=tg.opope_gemm_grouped_plain)
+    with pytest.raises(ValueError, match="sm90"):
+        tg._run(a, b, None, None, (), (), route="sm90")
+
+
 def _reduced_bf16(arch="chatglm3-6b"):
     return dataclasses.replace(get_config(arch).reduced(), param_dtype="bfloat16")
 
@@ -275,9 +372,13 @@ def test_reduced_deepseek_serves_every_expert_gemm_on_the_grouped_kernel(cuda_de
     trace = poisson_trace(6, seed=1, vocab=cfg.vocab, prompt_lens=(5, 12, 20),
                           gen_lens=(3, 7), mean_interarrival=1.0)
     k1, k4 = opope_gemm.launches, tg.opope_gemm_grouped.launches
+    k4_routes = dict(tg.opope_gemm_grouped.launches_by_route)
     report = ContinuousEngine(cfg=cfg, params=params, n_slots=2, max_len=32).serve(trace)
     forwards = report.decode_steps + report.prefill_batches
     assert tg.opope_gemm_grouped.launches - k4 == 3 * cfg.n_layers * forwards
+    # Every expert GEMM on the sm90 route.
+    assert tg.opope_gemm_grouped.launches_by_route == dict(
+        k4_routes, sm90=k4_routes["sm90"] + 3 * cfg.n_layers * forwards)
     assert opope_gemm.launches - k1 == 8 * cfg.n_layers * forwards
     assert all(len(report.outputs[r.rid]) == r.max_new_tokens for r in trace)
 
