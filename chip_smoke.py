@@ -36,12 +36,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (c) a lockstep decode step's wall time beside its K1 and K4 device time;
 7. the int8 GEMM kernels K2 and K5 against their plain versions on the card,
    bitwise where the chain has no transcendental op, at the shapes of both
-   models' quantized GEMMs (every K2 shape required on its sm90 route and
-   checked on the tile route too, a split-K call bitwise on repeat; K2 timed
-   by device time on both routes, at the decode and the prefill M, beside
-   ``torch._int_mm`` + dequant; K5 beside the card's bound; both beside one
-   per-call weight quantization) and at small ragged shapes (K2: on the
-   tile route, and aligned ones on sm90's three tiles);
+   models' quantized GEMMs (every K2 and K5 shape required on its sm90 route
+   and checked on the tile route too, a split-K call bitwise on repeat; both
+   timed by device time on both routes, K2 at the decode and the prefill M
+   beside ``torch._int_mm`` + dequant, K5 at capacities 1, 30 and 60 beside
+   K4's sm90 route on the same shapes in bf16 and the card's bound; both beside one per-call weight
+   quantization) and at small ragged shapes on the tile route and aligned
+   ones on the sm90 route (K5 at G = 3 and 64), each route required to have
+   run; ptxas must report no spill for K5's kernels;
 8. full-width chatglm3-6b under ``mlp_q8_policy()`` (run after phase 4, on its
    weights) and full-width deepseek-moe-16b under
    ``PrecisionPolicy(rules={"moe": "q8"})`` (after phase 6): (a) one layer on
@@ -49,8 +51,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    against a floor this run measures, (c) the q8-vs-bf16 logit difference,
    (d) the quantized main path — a 4 x 64-token prefill and 16 greedy decode
    steps through ``api.prefill``/``api.decode`` with exact launch counts,
-   every K1 and K2 launch required on the sm90 route —
-   and (e) a decode step's wall and device time and its kernel split;
+   every K1, K2 and K5 launch required on the sm90 route —
+   and (e) a decode step's wall and device time and its kernel split, each
+   kernel booked by its own name, none that the path launched at zero;
 9. after deepseek-moe-16b's weights are freed, the ``kernels`` entry points
    of K3 and K6: (a) ``opope_attention_bhsd`` at chatglm3-6b's attention
    width (32 heads of 128, its 2 KV heads expanded) at a 4 x 2048 causal
@@ -79,6 +82,7 @@ import gc
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -201,8 +205,8 @@ def check_close(torch, out, plain, out_dtype, what):
 
 
 def check_routes(kern, launches, what, name="K1"):
-    """Every launch of ``kern`` (K1, or K2 or K4 with ``name``) counted since
-    the reset went through the sm90 route."""
+    """Every launch of ``kern`` (K1, or K2, K4 or K5 with ``name``) counted
+    since the reset went through the sm90 route."""
     if kern.launches_by_route != {"sm90": launches, "tile": 0}:
         raise AssertionError(f"{what}: {name} launches by route {kern.launches_by_route}, "
                              f"want all {launches} on sm90")
@@ -877,8 +881,9 @@ Q8_CHAINS = {"none": (), "silu+mul": ("silu", "mul"), "residual": ("residual",),
              "requant_int8": ("requant_int8",)}
 
 
-def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
-    """Phase 7. Returns the timing rows and the largest error of K2 and K5."""
+def q8_kernel_phase(torch, q8, qz, qb, k4, ep, cfg, mcfg, dev):
+    """Phase 7. Returns the timing rows, the largest error of K2 and K5, and
+    K5's coverage launches by route."""
     gen = torch.Generator(device=dev).manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
     d, dff = cfg.d_model, cfg.d_ff
@@ -921,12 +926,15 @@ def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
                                           key=str):
         kern, plain = ((q8.opope_gemm_q8_grouped, q8.opope_gemm_q8_grouped_plain) if g else
                        (q8.opope_gemm_q8, q8.opope_gemm_q8_plain))
+        tile = functools.partial(q8._launch_grouped if g else q8._launch, route="tile")
         for m in ms:
             _, a, sa, b, sb = quantized(g, m, kk, n)
-            if not g:
-                plan = q8._plan(m, n, kk, a.data_ptr(), b.data_ptr())
-                if plan.route != "sm90":
-                    raise AssertionError(f"K2 M={m} K={kk} N={n}: planned on {plan.route}")
+            # Every path shape plans on sm90 (K5 with one split).
+            plan = (q8._plan_grouped(g, m, n, kk, a.data_ptr(), b.data_ptr()) if g else
+                    q8._plan(m, n, kk, a.data_ptr(), b.data_ptr()))
+            if plan.route != "sm90":
+                raise AssertionError(f"{'K5' if g else 'K2'} G={g} M={m} K={kk} N={n}: planned "
+                                     f"on {plan.route}")
             for chain in Q8_CHAINS:
                 steps, ops_, od = chain_operands(chain, g, m, n, out_dtype)
                 out = kern(a, sa, b, sb, out_dtype=od, epilogue=steps, epilogue_operands=ops_)
@@ -934,15 +942,14 @@ def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
                 want = plain(a, sa, b, sb, out_dtype=od, epilogue=steps, epilogue_operands=ops_)
                 what = f"q8 G={g} M={m} K={kk} N={n} {chain}"
                 err = q8_check(torch, out, want, "silu" in steps, what)
-                if not g:  # the same call on the tile route, held the same way
-                    q8_check(torch, q8._launch(a, sa, b, sb, out_dtype=od, epilogue=steps,
-                                               epilogue_operands=ops_, route="tile"),
-                             want, "silu" in steps, what + " (tile route)")
+                # The same call on the tile route, held the same way.
+                q8_check(torch, tile(a, sa, b, sb, out_dtype=od, epilogue=steps,
+                                     epilogue_operands=ops_),
+                         want, "silu" in steps, what + " (tile route)")
                 errs["k5" if g else "k2"] = max(errs["k5" if g else "k2"], err)
                 n_checks += 1
-                log(f"check {what} -> {str(od).replace('torch.', '')}"
-                    + (f" on sm90 ({plan.splits} splits) and tile" if not g else "")
-                    + f": max_abs_err {err:.3g} ok")
+                log(f"check {what} -> {str(od).replace('torch.', '')} on sm90 (tile rows "
+                    f"{plan.bm}, {plan.splits} splits) and tile: max_abs_err {err:.3g} ok")
             if not g and plan.splits > 1:
                 # Split K sums int32 partials: a repeat gives the same bits.
                 outs = [kern(a, sa, b, sb, out_dtype=torch.bfloat16) for _ in range(2)]
@@ -952,18 +959,23 @@ def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
 
     # Timing at the path's (shape, chain) pairs, weights cold in L2, beside
     # the plain version, torch._int_mm (K2 only) and one per-call weight
-    # quantization (what the q8 backends run before each kernel). K2, its
-    # tile route and the _int_mm lane by device time (queued_ms: CUDA events
-    # around calls queued behind a sleeping kernel; their launches are
-    # shorter than the host's issue time), and by CUDA events around a loop
-    # (event_ms, the host's issue rate included, as K2 was first timed); K5,
+    # quantization (what the q8 backends run before each kernel). K2 and K5
+    # on their planned route and on the tile route, K4's sm90 route on the
+    # same shapes in bf16 (K5's yardstick: no single PyTorch call computes a
+    # grouped int8 GEMM) and the _int_mm lane by device time (queued_ms: CUDA events around
+    # calls queued behind a sleeping kernel; their launches are shorter than
+    # the host's issue time), and K2 and K5 also by CUDA events around a loop
+    # (event_ms, the host's issue rate included, as they were first timed);
     # the plain versions and the quantization by CUDA events.
     rows = []
     for path, name, g, ms, kk, n, chain, out_dtype in gemms:
         kern, plain = ((q8.opope_gemm_q8_grouped, q8.opope_gemm_q8_grouped_plain) if g else
                        (q8.opope_gemm_q8, q8.opope_gemm_q8_plain))
+        launch = q8._launch_grouped if g else q8._launch
+        tile = functools.partial(launch, route="tile")
         n_bufs = max(1, min(64, math.ceil(3 * L2_BYTES / (max(g, 1) * kk * n))))
         bufs = [quantized(g, max(ms), kk, n) for _ in range(n_bufs)]
+        n_iter = max(20, n_bufs)
         for m in ms:
             a, sa = bufs[0][1][..., :m, :].contiguous(), bufs[0][2][..., :m, :].contiguous()
             steps, ops_, _ = chain_operands(chain, g, m, n, out_dtype)
@@ -972,19 +984,24 @@ def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
                 return fn(a, sa, bufs[i][3], bufs[i][4], out_dtype=out_dtype, epilogue=steps,
                           epilogue_operands=ops_)
 
-            ms_e = ms_tile = lib_e = None
-            if g:
-                ms_k = time_ms(torch, lambda i: run(kern, i), n_bufs)
-            else:
-                tile = functools.partial(q8._launch, route="tile")
-                ms_e = time_ms(torch, lambda i: run(kern, i), n_bufs)
-                ms_k = queued_ms(torch, lambda i: run(kern, i % n_bufs), max(20, n_bufs))
-                ms_tile = queued_ms(torch, lambda i: run(tile, i % n_bufs), max(20, n_bufs))
+            plan = (q8._plan_grouped(g, m, n, kk, a.data_ptr(), bufs[0][3].data_ptr()) if g else
+                    q8._plan(m, n, kk, a.data_ptr(), bufs[0][3].data_ptr()))
+            ms_e = time_ms(torch, lambda i: run(kern, i), n_bufs)
+            ms_k = queued_ms(torch, lambda i: run(kern, i % n_bufs), n_iter)
+            ms_tile = queued_ms(torch, lambda i: run(tile, i % n_bufs), n_iter)
             ms_p = time_ms(torch, lambda i: run(plain, i), n_bufs)
             ms_q = time_ms(torch, lambda i: qz.quantize(
                 bufs[i][0], "int8", axis=(0, 2) if g else 1), n_bufs, warmup=n_bufs)
-            lib_ms = None
-            if not g:
+            lib_ms = lib_e = ms_k4 = None
+            if g:
+                a_bf = torch.randn((g, m, kk), generator=gen, device=dev).to(bf16)
+                ms_k4 = queued_ms(torch, lambda i: k4.opope_gemm_grouped(
+                    a_bf, bufs[i % n_bufs][0], out_dtype=out_dtype, epilogue=steps,
+                    epilogue_operands=ops_), n_iter)
+                k4_route = k4._plan(m, n, kk, bf16, a_bf.data_ptr(),
+                                    bufs[0][0].data_ptr()).route
+                del a_bf
+            else:
                 # torch._int_mm needs M > 16: M is padded to 32 with zero rows.
                 m_lib = 32 if m <= 16 else m
                 a_lib = torch.zeros((m_lib, kk), dtype=torch.int8, device=dev)
@@ -996,26 +1013,27 @@ def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
                 def lib(i):
                     return torch._int_mm(a_lib, b_cm[i]).float() * (sa_lib * bufs[i][4])
                 lib_e = time_ms(torch, lib, n_bufs)
-                lib_ms = queued_ms(torch, lambda i: lib(i % n_bufs), max(20, n_bufs))
+                lib_ms = queued_ms(torch, lambda i: lib(i % n_bufs), n_iter)
                 del b_cm
             out = run(kern, 0)
             err = q8_check(torch, out, run(plain, 0), "silu" in steps, f"timed {path} {name} M={m}")
             out_elem = out.element_size()
             bound_ms, bound_by = q8_bound(max(g, 1), m, kk, n, out_elem, len(ops_))
             row = {"path": path, "name": name, "g": g, "m": m, "k": kk, "n": n, "epilogue": chain,
-                   "out_dtype": str(out_dtype).replace("torch.", ""), "ms": ms_k,
-                   "tile_ms": ms_tile, "event_ms": ms_e, "plain_ms": ms_p, "library_ms": lib_ms,
-                   "library_event_ms": lib_e, "bound_ms": bound_ms, "bound_by": bound_by,
-                   "weight_quant_ms": ms_q, "max_abs_err": err}
-            if not g:
-                plan = q8._plan(m, n, kk, bufs[0][1].data_ptr(), bufs[0][3].data_ptr())
-                row.update(route=plan.route, tile_rows=plan.bm, splits=plan.splits,
-                           tops=2 * m * n * kk / ms_k / 1e9)
+                   "out_dtype": str(out_dtype).replace("torch.", ""), "route": plan.route,
+                   "config": plan.config, "tile_rows": plan.bm, "splits": plan.splits,
+                   "ms": ms_k, "tile_ms": ms_tile, "event_ms": ms_e, "plain_ms": ms_p,
+                   "library_ms": lib_ms, "library_event_ms": lib_e, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "weight_quant_ms": ms_q, "max_abs_err": err,
+                   "tops": 2 * max(g, 1) * m * n * kk / ms_k / 1e9}
+            if g:
+                row.update(k4_sm90_ms=ms_k4, k4_route=k4_route)
             rows.append(row)
             log(f"time {path} {name} G={g} M={m} K={kk} N={n} chain={chain}: "
-                + (f"sm90 {ms_k:.4f} ms device ({row['tops']:.1f} TOP/s; {ms_e:.4f} ms by CUDA "
-                   f"events), tile route {ms_tile:.4f} ms device, " if not g else
-                   f"kernel {ms_k:.4f} ms, ")
+                f"sm90 {ms_k:.4f} ms device ({plan.bm} rows, {plan.stages} stages, "
+                f"{plan.splits} splits; {row['tops']:.1f} TOP/s; {ms_e:.4f} ms by CUDA events), "
+                f"tile route {ms_tile:.4f} ms device, "
+                + (f"K4 {k4_route} bf16 {ms_k4:.4f} ms device, " if g else "")
                 + f"plain {ms_p:.4f} ms, "
                 + (f"torch._int_mm+dequant {lib_ms:.4f} ms device ({lib_e:.4f} by CUDA events; "
                    f"M padded to {m_lib}), " if lib_ms is not None else "")
@@ -1023,78 +1041,95 @@ def q8_kernel_phase(torch, q8, qz, qb, ep, cfg, mcfg, dev):
                 f"{ms_q:.4f} ms")
         del bufs
 
-    # Coverage: ragged shapes, every C form, op and out dtype; K5 with G = 3.
+    # Coverage: ragged shapes, every C form, op and out dtype, on the route
+    # each case plans. The tile route: K or N off a multiple of 16 (K2, and
+    # K5 at G = 3). The sm90 route: for K2, M of 1, 5, 65 and 130 on the 8-
+    # and 128-row tiles, K and N off the 128-byte panel and tile; for K5 at
+    # G = 3 and 64, M of 1, 5, 8, 9, 64, 65 and 130 (both tiles, one or two
+    # of them), K tails of 144, 272, 400 and 1040, N of 144, 208 and 272.
+    tile_cases = ((5, 40, 24), (130, 300, 200), (64, 1000, 192))
+    cov_cases = ([(0, c, "tile") for c in tile_cases]
+                 + [(0, c, "sm90") for c in ((1, 16, 16), (5, 144, 272), (65, 400, 144),
+                                             (130, 1040, 208))]
+                 + [(3, c, "tile") for c in tile_cases]
+                 + [(3, c, "sm90") for c in ((1, 144, 272), (5, 1040, 208), (8, 400, 144),
+                                             (9, 144, 208), (65, 272, 144), (130, 1040, 208))]
+                 + [(64, c, "sm90") for c in ((1, 144, 144), (64, 1040, 208))])
     n_cov = 0
     k2_before = dict(q8.opope_gemm_q8.launches_by_route)
-    for g in (0, 3):
+    k5_before = dict(q8.opope_gemm_q8_grouped.launches_by_route)
+    for g, (m, kk, n), want_route in cov_cases:
         kern, plain = ((q8.opope_gemm_q8_grouped, q8.opope_gemm_q8_grouped_plain) if g else
                        (q8.opope_gemm_q8, q8.opope_gemm_q8_plain))
         lead = (g,) if g else ()
-        # Ragged shapes (K2's tile route), and for K2 shapes its sm90 route
-        # takes: M of 1, 5, 65 and 130 on the 8-, 64- and 128-row tiles, K and
-        # N off the 128-byte panel and tile.
-        sm90_cases = () if g else ((1, 16, 16), (5, 144, 272), (65, 400, 144), (130, 1040, 208))
-        for m, kk, n in ((5, 40, 24), (130, 300, 200), (64, 1000, 192)) + sm90_cases:
-            a = torch.randint(-127, 128, lead + (m, kk), generator=gen, device=dev,
-                              dtype=torch.int8)
-            b = torch.randint(-127, 128, lead + (kk, n), generator=gen, device=dev,
-                              dtype=torch.int8)
-            sa = torch.rand(lead + (m, 1), generator=gen, device=dev) * 1e-3
-            sb = torch.rand(lead + (1, n), generator=gen, device=dev) * 1e-2
-            row_op = torch.randn(lead + (1, n) if g else (1, n), generator=gen, device=dev)
-            full_op = torch.randn(lead + (m, n), generator=gen, device=dev).to(bf16)
-            scalar = torch.full((1, 1, 1) if g else (1, 1), 0.05, device=dev)
-            cs = {"none": None, "row": torch.randn(lead + (n,), generator=gen, device=dev),
-                  "full": torch.randn(lead + (m, n), generator=gen, device=dev).to(bf16)}
-            for c_name, c in cs.items():
-                for name in ep.epilogue_ops():
-                    ops_ = {"none": (), "row": (row_op,), "full": (full_op,),
-                            "scalar": (scalar,)}[ep.op_kind(name)]
-                    for od in ((torch.int8,) if name == "requant_int8" else (f32, bf16)):
-                        out = kern(a, sa, b, sb, c, out_dtype=od, epilogue=(name,),
-                                   epilogue_operands=ops_)
-                        sync(torch, dev)
-                        want = plain(a, sa, b, sb, c, out_dtype=od, epilogue=(name,),
-                                     epilogue_operands=ops_)
-                        q8_check(torch, out, want, name in ("gelu", "silu", "swish"),
-                                 f"q8 coverage G={g} {m}x{kk}x{n} C={c_name} {name} -> {od}")
-                        n_cov += 1
-            chain = ("bias", "scale", "residual", "mul", "relu", "requant_int8")
-            ops_ = (cs["row"].reshape(row_op.shape), row_op, full_op, full_op, scalar)
-            out = kern(a, sa, b, sb, cs["full"], out_dtype=torch.int8, epilogue=chain,
-                       epilogue_operands=ops_)
-            q8_check(torch, out, plain(a, sa, b, sb, cs["full"], out_dtype=torch.int8,
-                                       epilogue=chain, epilogue_operands=ops_), False,
-                     f"q8 coverage chain G={g} {m}x{kk}x{n}")
-            n_cov += 1
-            # The int32 accumulator is exact: with unit scales and
-            # |acc| < 2^24 the fp32 output is the integer product.
-            ones_a, ones_b = torch.ones_like(sa), torch.ones_like(sb)
-            out = kern(a, ones_a, b, ones_b)
-            exact = torch.matmul(a.double(), b.double())
-            if exact.abs().max() >= 2 ** 24 or not torch.equal(out.double(), exact):
-                raise AssertionError(f"q8 G={g} {m}x{kk}x{n}: accumulator not exact")
-            n_cov += 1
-            if not g:
-                route = q8._plan(m, n, kk, a.data_ptr(), b.data_ptr()).route
-                if route != ("sm90" if (m, kk, n) in sm90_cases else "tile"):
-                    raise AssertionError(f"K2 coverage {m}x{kk}x{n} planned on {route}")
+        a = torch.randint(-127, 128, lead + (m, kk), generator=gen, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, lead + (kk, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        route = (q8._plan_grouped(g, m, n, kk, a.data_ptr(), b.data_ptr()) if g else
+                 q8._plan(m, n, kk, a.data_ptr(), b.data_ptr())).route
+        if route != want_route:
+            raise AssertionError(f"q8 coverage G={g} {m}x{kk}x{n} planned on {route}, "
+                                 f"want {want_route}")
+        sa = torch.rand(lead + (m, 1), generator=gen, device=dev) * 1e-3
+        sb = torch.rand(lead + (1, n), generator=gen, device=dev) * 1e-2
+        row_op = torch.randn(lead + (1, n) if g else (1, n), generator=gen, device=dev)
+        full_op = torch.randn(lead + (m, n), generator=gen, device=dev).to(bf16)
+        scalar = torch.full((1, 1, 1) if g else (1, 1), 0.05, device=dev)
+        cs = {"none": None, "row": torch.randn(lead + (n,), generator=gen, device=dev),
+              "full": torch.randn(lead + (m, n), generator=gen, device=dev).to(bf16)}
+        for c_name, c in cs.items():
+            for name in ep.epilogue_ops():
+                ops_ = {"none": (), "row": (row_op,), "full": (full_op,),
+                        "scalar": (scalar,)}[ep.op_kind(name)]
+                for od in ((torch.int8,) if name == "requant_int8" else (f32, bf16)):
+                    out = kern(a, sa, b, sb, c, out_dtype=od, epilogue=(name,),
+                               epilogue_operands=ops_)
+                    sync(torch, dev)
+                    want = plain(a, sa, b, sb, c, out_dtype=od, epilogue=(name,),
+                                 epilogue_operands=ops_)
+                    q8_check(torch, out, want, name in ("gelu", "silu", "swish"),
+                             f"q8 coverage G={g} {m}x{kk}x{n} C={c_name} {name} -> {od} "
+                             f"on {route}")
+                    n_cov += 1
+        chain = ("bias", "scale", "residual", "mul", "relu", "requant_int8")
+        ops_ = (cs["row"].reshape(row_op.shape), row_op, full_op, full_op, scalar)
+        out = kern(a, sa, b, sb, cs["full"], out_dtype=torch.int8, epilogue=chain,
+                   epilogue_operands=ops_)
+        q8_check(torch, out, plain(a, sa, b, sb, cs["full"], out_dtype=torch.int8,
+                                   epilogue=chain, epilogue_operands=ops_), False,
+                 f"q8 coverage chain G={g} {m}x{kk}x{n} on {route}")
+        n_cov += 1
+        # The int32 accumulator is exact: with unit scales and
+        # |acc| < 2^24 the fp32 output is the integer product.
+        ones_a, ones_b = torch.ones_like(sa), torch.ones_like(sb)
+        out = kern(a, ones_a, b, ones_b)
+        exact = torch.matmul(a.double(), b.double())
+        if exact.abs().max() >= 2 ** 24 or not torch.equal(out.double(), exact):
+            raise AssertionError(f"q8 G={g} {m}x{kk}x{n} on {route}: accumulator not exact")
+        n_cov += 1
     k2_cov = {r: q8.opope_gemm_q8.launches_by_route[r] - k2_before[r] for r in k2_before}
-    if not all(k2_cov.values()):
-        raise AssertionError(f"K2 coverage launches by route {k2_cov}: a route went unchecked")
+    k5_cov = {r: q8.opope_gemm_q8_grouped.launches_by_route[r] - k5_before[r]
+              for r in k5_before}
+    if not all(k2_cov.values()) or not all(k5_cov.values()):
+        raise AssertionError(f"q8 coverage launches by route: K2 {k2_cov}, K5 {k5_cov}: a "
+                             "route went unchecked")
     # K5 at decode: experts no token reached hold zero rows (scale 1e-12/127,
     # q = 0) and must give exactly zero outputs.
     x = torch.randn((ne, 1, md), generator=gen, device=dev).to(bf16)
     x[::2] = 0
     w = (torch.randn((ne, md, mf), generator=gen, device=dev) * md ** -0.5).to(bf16)
     xq, wq = qb.quantize_grouped_operands(x, w)
+    if q8._plan_grouped(ne, 1, mf, md, xq.q.data_ptr(), wq.q.data_ptr()).route != "sm90":
+        raise AssertionError("K5 zero-capacity case: not planned on sm90")
     out = q8.opope_gemm_q8_grouped(xq.q, xq.scale, wq.q, wq.scale)
     if out[::2].any() or not out[1::2].any():
         raise AssertionError("K5: zero capacity rows did not give exactly zero outputs")
-    log(f"q8: {n_checks} path-shape checks (K2 on sm90 and on the tile route), {n_cov} "
-        f"ragged/C/epilogue/accumulator cases (K2 launches by route {k2_cov}) and the "
-        f"zero-capacity decode case bitwise (transcendental chains within 1 ulp)")
-    return rows, errs
+    log(f"q8: {n_checks} path-shape checks (K2 and K5 on sm90 and on the tile route), {n_cov} "
+        f"ragged/C/epilogue/accumulator cases (launches by route: K2 {k2_cov}, K5 {k5_cov}) "
+        f"and the zero-capacity decode case on sm90 bitwise (transcendental chains within "
+        f"1 ulp)")
+    return rows, errs, k5_cov
 
 
 def _greedy_decode(torch, api, cfg, params, prompts, gen, policy):
@@ -1197,8 +1232,8 @@ def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops,
     ops.reset_counts()
     for fn in kernels.values():
         fn.launches = 0
-    kernels["K1"].launches_by_route.update(sm90=0, tile=0)
-    kernels["K2"].launches_by_route.update(sm90=0, tile=0)
+    for name in ("K1", "K2", "K5"):
+        kernels[name].launches_by_route.update(sm90=0, tile=0)
     t0 = time.perf_counter()
     with torch.inference_mode():
         toks = _greedy_decode(torch, api, cfg, params, prompts, n_fwd, policy)
@@ -1210,13 +1245,13 @@ def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops,
                    for name in ("torch", "torch_q8")}
     if launches != want or any(sum(c) for c in plain_calls.values()):
         raise AssertionError(f"{tag} launches {launches} != {want} (plain calls {plain_calls})")
-    check_routes(kernels["K1"], launches["K1"], f"{tag} (d)")
-    check_routes(kernels["K2"], launches["K2"], f"{tag} (d)", name="K2")
+    for name in ("K1", "K2", "K5"):
+        check_routes(kernels[name], launches[name], f"{tag} (d)", name=name)
     if tuple(toks_host.shape) != (4, n_fwd) or not ((toks_host >= 0) & (toks_host < cfg.vocab)).all():
         raise AssertionError(f"{tag} greedy tokens {tuple(toks_host.shape)}")
     log(f"{tag} (d) greedy 4 x 64 prompt + 16 decode steps in {wall:.3f} s "
         f"({4 * n_fwd / wall:.1f} tokens/s); launches {launches} = per layer "
-        f"{per_layer} x {L} layers x {n_fwd} forwards, every K1 and K2 launch on sm90; "
+        f"{per_layer} x {L} layers x {n_fwd} forwards, every K1, K2 and K5 launch on sm90; "
         f"plain calls 0")
 
     # (e) one decode step at 4 rows: wall time and its kernel split.
@@ -1236,9 +1271,19 @@ def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops,
                                                           backend=policy), step_ms, tag=f"{tag} (e)")
     dev_ms = None
     if prof is not None:
+        # Each kernel's name holds its own key and no other's (K5's two
+        # routes both "opope_q8_grouped_kernel"): a kernel whose name holds
+        # two would be booked twice, and fails the run.
         names = {"K1": "opope_gemm_kernel", "K4": "opope_grouped_kernel",
                  "K2": "opope_q8_gemm_kernel", "K5": "opope_q8_grouped_kernel"}
+        for key, _, _ in prof:
+            if sum(v in key for v in names.values()) > 1:
+                raise AssertionError(f"{tag} (e): kernel {key} matches two kernels' names")
         dev_ms = {k: sum(ms for key, ms, _ in prof if v in key) for k, v in names.items()}
+        missing = [k for k in names if launches.get(k) and not dev_ms[k]]
+        if missing:
+            raise AssertionError(f"{tag} (e): the profiled decode step books no device time "
+                                 f"to {missing}, which the path launches")
         dev_ms["busy"] = sum(ms for _, ms, _ in prof)
         dev_ms["other"] = dev_ms["busy"] - sum(dev_ms[k] for k in names)
         log(f"{tag} (e) decode step, 4 rows: {step_ms:.3f} ms wall; device busy "
@@ -1660,6 +1705,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 kernel = "sm90 " if "sm90" in entry else ""
                 log(f"ptxas {name} {kernel}{entry[-60:]}: {line.strip()}")
+                # K5's kernels are held to no spill.
+                spilled = re.findall(r"(\d+) bytes spill", line)
+                if name == "opope_q8_grouped" and any(int(x) for x in spilled):
+                    raise AssertionError(f"ptxas: {entry} spills: {line.strip()}")
 
     cfg = get_config("chatglm3-6b")
     mcfg = get_config("deepseek-moe-16b")
@@ -1693,7 +1742,7 @@ def main() -> int:
         f"(cold-L2 timings above; bound {cfg.n_layers * sums['bound_ms']:.3f} ms)")
     # Phases 7 and 8 on chatglm3-6b's weights: the int8 kernels at both
     # models' shapes, then chatglm3-6b under mlp_q8_policy().
-    q8_rows, q8_errs = q8_kernel_phase(torch, q8mod, qz, q8b, ep, cfg, mcfg, dev)
+    q8_rows, q8_errs, k5_cov = q8_kernel_phase(torch, q8mod, qz, q8b, k4mod, ep, cfg, mcfg, dev)
     kernels = {"K1": opope_gemm, "K4": k4mod.opope_gemm_grouped,
                "K2": q8mod.opope_gemm_q8, "K5": q8mod.opope_gemm_q8_grouped}
     glm_q8 = q8_model_phase(
@@ -1821,7 +1870,8 @@ def main() -> int:
         q8_records.append({
             "name": name,
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/opope_q8.cu",
+            "source": "src/repro_torch/kernels/csrc/" + (
+                "opope_q8_grouped.cu" if "grouped" in name else "opope_q8.cu"),
             "replaces": f"src/repro/quant/pallas_q8.py:{src_line}",
             "launches": sum(paths.values()),
             "launches_by_path": paths,
@@ -1868,6 +1918,33 @@ def main() -> int:
                "behind a sleeping kernel); event_ms, library_event_ms and plain_ms: CUDA "
                "events around the loop, the host's issue rate included",
         build_s=kbuild.BUILD_SECONDS.get("opope_q8"))
+    # K5's routes at the decode capacity and at prefill capacities 30 and 60,
+    # beside K4's sm90 route on the same shapes in bf16, from the same rows.
+    k5_layers = {}
+    for m in (1, 30, 60):
+        m_rows = [r for r in q8_rows if r["path"] == "deepseek-moe-16b experts" and r["m"] == m]
+        k5_layers[m] = {key: sum(r[key] for r in m_rows) for key in (
+            "ms", "tile_ms", "event_ms", "k4_sm90_ms", "plain_ms", "bound_ms")}
+        k5_layers[m]["tile_rows"] = m_rows[0]["tile_rows"]
+        log(f"K5 deepseek's 3 expert GEMMs (G {mcfg.moe.n_experts}) at M={m}: sm90 "
+            f"{k5_layers[m]['ms']:.4f} ms device ({k5_layers[m]['tile_rows']} rows; "
+            f"{k5_layers[m]['event_ms']:.4f} ms by CUDA events), tile route "
+            f"{k5_layers[m]['tile_ms']:.4f} ms, K4 sm90 (bf16) {k5_layers[m]['k4_sm90_ms']:.4f} "
+            f"ms, bound {k5_layers[m]['bound_ms']:.4f} ms (bytes "
+            f"{k5_layers[m]['bound_ms'] / k5_layers[m]['ms']:.1%} of the kernel's time)")
+    k5_paths = q8_records[1]["launches_by_path"]
+    q8_records[1].update(
+        # check_routes held the path's launches to the sm90 route.
+        launches_by_route={"sm90": sum(k5_paths.values()), "tile": 0},
+        coverage_launches_by_route=k5_cov,
+        tile_ms=k5_layers[1]["tile_ms"], event_ms=k5_layers[1]["event_ms"],
+        k4_sm90_ms=k5_layers[1]["k4_sm90_ms"],
+        layers={str(m): v for m, v in k5_layers.items()},
+        timing="ms, tile_ms and k4_sm90_ms (K4's sm90 route on the same shapes in bf16): "
+               "device time (CUDA events around calls queued behind a sleeping kernel); "
+               "event_ms and plain_ms: CUDA events around the loop, the host's issue "
+               "rate included",
+        build_s=kbuild.BUILD_SECONDS.get("opope_q8_grouped"))
     for tag, r in (("chatglm3-6b q8", glm_q8), ("deepseek-moe-16b q8", ds_q8)):
         log(f"{tag}: prefill logits kernels vs plain RMS {r['logits_rms']:.4g} (floor "
             f"{r['logits_floor_rms']:.4g}); q8 vs bf16 RMS {r['q8_vs_bf16']['rms']:.4g}; "

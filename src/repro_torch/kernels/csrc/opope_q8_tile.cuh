@@ -1,9 +1,10 @@
 // Shared device code of the int8 O-POPE GEMM kernels for Hopper (sm_90a):
-// opope_q8.cu's one-GEMM kernel on its tile route (K2) and its grouped
-// kernel (K5) both run `opope_q8_tile`, one BM x BN output tile per block,
-// on the grid, warp layout and accumulator layout of opope_tile.cuh. K2's
-// sm90 route runs its own main loop and finish, on the same per-element
-// writeback helpers (q8_dequant, q8_add_c, q8_apply_op, q8_store).
+// the tile routes of K2 (opope_q8.cu, one GEMM) and K5 (opope_q8_grouped.cu,
+// one group a grid z index) both run `opope_q8_tile`, one BM x BN output
+// tile per block, on the grid, warp layout and accumulator layout of
+// opope_tile.cuh. Their sm90 routes (opope_q8_sm90.cuh) run their own main
+// loop and finish, on the same per-element writeback helpers (q8_dequant,
+// q8_add_c, q8_apply_op, q8_store).
 //
 // Dataflow, as on the TPU: output-stationary with an int32 accumulator. A
 // block's int32 tile lives in registers for the whole K loop (int8 x int8
@@ -161,7 +162,8 @@ __device__ __forceinline__ void q8_mma_panel(
 }
 
 // The writeback arithmetic, element for element, shared by every int8 body
-// (this tile body and K2's sm90 finish), so they agree bit for bit.
+// (this tile body and the sm90 finish of K2 and K5), so they agree bit for
+// bit.
 
 // Dequantize: float(acc) * (sa * sb), the scale product formed first.
 __device__ __forceinline__ float q8_dequant(int acc, float sa, float sb) {

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels of
 // opope_gemm.cu (K1) and opope_grouped.cu (K4) through
-// opope_sm90_gemm.cuh, opope_attention.cu (K3) and opope_q8.cu (K2's sm90
-// route): mbarriers, TMA loads, wgmma shared-memory descriptors and the
+// opope_sm90_gemm.cuh, opope_q8.cu (K2) and opope_q8_grouped.cu (K5)
+// through opope_q8_sm90.cuh, and opope_attention.cu (K3): mbarriers, TMA loads, wgmma shared-memory descriptors and the
 // wgmma instructions they issue (bf16 and int8), and the tensor-map encoder
 // fetched from libcuda at run time.
 #pragma once

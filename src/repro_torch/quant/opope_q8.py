@@ -12,17 +12,20 @@ int32, then dequantized with the scale product formed first, C added in
 fp32, the epilogue chain run in fp32, and one cast to ``out_dtype`` (fp32 by
 default; bf16, fp16, or int8 behind ``requant_int8``).
 
-* :func:`opope_gemm_q8` / :func:`opope_gemm_q8_grouped` launch
-  ``kernels/csrc/opope_q8.cu`` for tensors on the card (design notes there
-  and in ``opope_q8_tile.cuh``) and raise on what the kernels do not take.
+* :func:`opope_gemm_q8` launches ``kernels/csrc/opope_q8.cu`` (K2) and
+  :func:`opope_gemm_q8_grouped` ``kernels/csrc/opope_q8_grouped.cu`` (K5)
+  for tensors on the card (design notes there, in ``opope_q8_sm90.cuh`` and
+  in ``opope_q8_tile.cuh``) and raise on what the kernels do not take.
   Given tensors on the CPU they run the plain versions: the kernels have no
-  CPU form. ``.launches`` counts kernel launches;
-  ``opope_gemm_q8.launches_by_route`` splits K2's by route.
-* :func:`_plan` chooses K2's route before the launch, from the operands
-  alone: ``"sm90"`` (TMA ring + int8 wgmma with the weight as the register
-  operand, exact int32 split-K where the output tiles do not fill the card)
-  where a TMA tensor map can describe both operands, else ``"tile"`` (the
-  64x64 mma.sync tile body, which K5 runs too).
+  CPU form. ``.launches`` counts kernel launches and ``.launches_by_route``
+  splits them by route.
+* :func:`_plan` (K2) and :func:`_plan_grouped` (K5) choose the route before
+  the launch, from the operands alone: ``"sm90"`` (TMA ring + int8 wgmma
+  with the weight as the register operand; K2 splits K exactly in int32
+  where the output tiles do not fill the card, K5 runs every group in one
+  grid over rank-3 tensor maps and never splits K) where a TMA tensor map
+  can describe both operands, else ``"tile"`` (the 64x64 mma.sync tile
+  body).
 * :func:`opope_gemm_q8_plain` / :func:`opope_gemm_q8_grouped_plain` form the
   exact integer product (an int32 matmul on the CPU; on the card an fp64
   one, exact while |acc| < 2^53, never fp32 or TF32), then the same
@@ -68,7 +71,7 @@ MAX_K = (2**31 - 1) // (127 * 127)
 
 
 def _launcher(name: str, grouped: bool):
-    fn = getattr(_build.load("opope_q8"), name)
+    fn = getattr(_build.load("opope_q8_grouped" if grouped else "opope_q8"), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([p] * 5 + [i] * (4 if grouped else 3) + [p] + [i] * 5
@@ -86,12 +89,27 @@ def _sm90_launcher():
     return fn
 
 
-# K2's sm90 route (csrc/opope_q8.cu): K bytes a ring stage, weight columns a
-# block, and its two tile configurations: config code, MT (rows of A_q a
-# block, wgmma's N), stages.
+def _grouped_sm90_launcher():
+    fn = _build.load("opope_q8_grouped").opope_q8_grouped_sm90_launch
+    if fn.argtypes is None:
+        p, i, ep = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_Epilogue)
+        fn.argtypes = [p] * 5 + [i] * 4 + [p] + [i] * 3 + [ep, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+# The sm90 body (csrc/opope_q8_sm90.cuh): K bytes a ring stage, weight
+# columns a block, and K2's two tile configurations: config code, MT (rows
+# of A_q a block, wgmma's N), stages.
 _SM90_BK = 128
 _SM90_BN = 128
 _SM90_CONFIGS = ((0, 8, 8), (1, 128, 4))
+# K5's (csrc/opope_q8_grouped.cu): the same two tiles, each as two blocks
+# an SM, and so with fewer stages: MT -> stages. Phase 7 of chip_smoke.py
+# timed them faster than K2's one block an SM on deepseek-moe-16b's experts
+# at capacities 1, 30 and 60.
+_GROUPED_STAGES = {8: 4, 128: 3}
+_MAX_GROUPS = 65535  # the launch grid's z dimension, one group an index
 _MIN_SPLIT_PANELS = 2  # each split walks at least this many BK panels when it can
 
 
@@ -136,6 +154,32 @@ def _plan_aligned(m: int, n: int, k: int, aligned: bool) -> Plan:
     splits = max(1, min(_SM_COUNT // (m_tiles * n_tiles), _max_splits(m, k, mt)))
     return Plan("sm90", config, mt, _SM90_BN, _SM90_BK, stages, splits, m_tiles, n_tiles,
                 _split_bounds(k, _SM90_BK, splits))
+
+
+def _plan_grouped(g: int, m: int, n: int, k: int, a_ptr: int, b_ptr: int) -> Plan:
+    """The route and tile of K5's ``A_q[g][m,k] @ B_q[g][k,n]`` for every
+    group (int8, contiguous).
+
+    A pure function of its arguments, cached on the shape and the bases'
+    16-byte alignment; raises for more groups than the launch grid holds
+    (``g > 65535``). The sm90 route takes what K2's takes (bases aligned,
+    ``k`` and ``n`` multiples of 16, ``k > 0``): then every row and group
+    stride is a multiple of 16 bytes too, and rank-3 tensor maps describe
+    both operands. Its tile is K2's, 8 rows of A_q at ``m <= 8``, else 128,
+    by 128 weight columns, with ``_GROUPED_STAGES`` stages; K is never split (G times the N tiles fill the card on every
+    MoE path). Anything else takes the tile route.
+    """
+    if g > _MAX_GROUPS:
+        raise ValueError(f"{g} groups > {_MAX_GROUPS}: the launch grid holds one group an index")
+    return _plan_grouped_aligned(m, n, k, a_ptr % 16 == 0 and b_ptr % 16 == 0)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_grouped_aligned(m: int, n: int, k: int, aligned: bool) -> Plan:
+    plan = _plan_aligned(m, n, k, aligned)
+    if plan.route != "sm90":
+        return plan
+    return plan._replace(stages=_GROUPED_STAGES[plan.bm], splits=1, k_bounds=(0, k))
 
 
 def _check_common(k, c, c_shapes, out_dtype, epilogue, epilogue_operands):
@@ -260,7 +304,7 @@ def opope_gemm_q8_grouped_plain(
 
 
 def _launch_tile(fn_name, grouped, a_q, a_scale, b_q, b_scale, c, out, dims, out_dtype, ep):
-    """One launch of the tile body (K2's tile route, or K5)."""
+    """One launch of the tile body (the tile route of K2, or of K5)."""
     k = a_q.shape[-1]
     n = b_q.shape[-1]
     # 16-byte A vectors stay inside a row (and every group's base aligned)
@@ -387,13 +431,34 @@ def opope_gemm_q8_grouped(
     a_q: [G, M, K] int8 with scales [G, M, 1]; b_q: [G, K, N] int8 with
     scales [G, 1, N]; c: [G, M, N] or [G, N]; all contiguous.
     ``epilogue_operands``: scalar ``(1,1,1)``, row ``(G,1,N)``, full
-    ``(G,M,N)``. ``out_dtype`` defaults to fp32.
+    ``(G,M,N)``. ``out_dtype`` defaults to fp32. The route is
+    :func:`_plan_grouped`'s.
     """
     if a_q.device.type == "cpu":
         return opope_gemm_q8_grouped_plain(
             a_q, a_scale, b_q, b_scale, c, out_dtype=out_dtype, epilogue=epilogue,
             epilogue_operands=epilogue_operands,
         )
+    return _launch_grouped(a_q, a_scale, b_q, b_scale, c, out_dtype=out_dtype,
+                           epilogue=epilogue, epilogue_operands=epilogue_operands)
+
+
+def _launch_grouped(
+    a_q: torch.Tensor,
+    a_scale: torch.Tensor,
+    b_q: torch.Tensor,
+    b_scale: torch.Tensor,
+    c: Optional[torch.Tensor] = None,
+    *,
+    out_dtype: Optional[torch.dtype] = None,
+    epilogue: Tuple[str, ...] = (),
+    epilogue_operands: Tuple[torch.Tensor, ...] = (),
+    route: Optional[str] = None,
+) -> torch.Tensor:
+    """One K5 launch on the planned route; ``route`` forces one (``"tile"``
+    takes every operand the kernel takes; ``"sm90"`` raises, launching
+    nothing, where the plan is not sm90), so a caller can hold and time both
+    on the same call."""
     if a_q.device.type != "cuda":
         raise ValueError(f"opope_gemm_q8_grouped runs on cuda tensors, got {a_q.device}")
     out_dtype = out_dtype or torch.float32
@@ -403,15 +468,34 @@ def opope_gemm_q8_grouped(
                            out_dtype, epilogue, epilogue_operands)
     ep = _epilogue_struct(epilogue, epilogue_operands,
                           {"scalar": (1, 1, 1), "row": (g, 1, n), "full": (g, m, n)})
+    plan = _plan_grouped(g, m, n, k, a_q.data_ptr(), b_q.data_ptr())
+    if route == "sm90" and plan.route != "sm90":
+        raise ValueError(f"the sm90 route does not take this call ({plan})")
+    route = route or plan.route
     out = torch.empty((g, m, n), dtype=out_dtype, device=a_q.device)
     if g == 0 or m == 0 or n == 0:
         return out
-    _launch_tile("opope_q8_grouped_launch", True, a_q, a_scale, b_q, b_scale, c, out,
-                 (g, m, n, k), out_dtype, ep)
+    if route == "sm90":
+        with torch.cuda.device(a_q.device):
+            stream = torch.cuda.current_stream(a_q.device).cuda_stream
+            rc = _grouped_sm90_launcher()(
+                a_q.data_ptr(), a_scale.data_ptr(), b_q.data_ptr(), b_scale.data_ptr(),
+                out.data_ptr(), g, m, n, k, None if c is None else c.data_ptr(),
+                0 if c is None else (2 if c.ndim == 2 else 3),
+                0 if c is None else _DTYPE_CODES[c.dtype], _DTYPE_CODES[out_dtype],
+                ctypes.byref(ep), plan.config, stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"opope_gemm_q8_grouped sm90 kernel launch failed: error {rc}")
+    else:
+        _launch_tile("opope_q8_grouped_launch", True, a_q, a_scale, b_q, b_scale, c, out,
+                     (g, m, n, k), out_dtype, ep)
     opope_gemm_q8_grouped.launches += 1
+    opope_gemm_q8_grouped.launches_by_route[route] += 1
     return out
 
 
 opope_gemm_q8.launches = 0
 opope_gemm_q8.launches_by_route = {"sm90": 0, "tile": 0}
 opope_gemm_q8_grouped.launches = 0
+opope_gemm_q8_grouped.launches_by_route = {"sm90": 0, "tile": 0}

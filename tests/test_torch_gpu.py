@@ -578,6 +578,175 @@ def test_k2_routes_and_their_counters(cuda_device):
             assert (q8.opope_gemm_q8.launches, q8.opope_gemm_q8.launches_by_route) == before
 
 
+def _k5_route(a, b):
+    """The route K5's plan gives these operands."""
+    return _q8_module()._plan_grouped(a.shape[0], a.shape[1], b.shape[2], a.shape[2],
+                                      a.data_ptr(), b.data_ptr()).route
+
+
+# K5's sm90 route at G = 3 and 64: M of 1, 5 and 8 (the 8-row tile), 9, 64,
+# 65 and 130 (the 128-row tile, one or two of them), K tails of 144 and 1040
+# (a partial 128-byte panel), N of 144 and 208 (a partial 128-column tile),
+# and deepseek-moe-16b's w_up at decode.
+K5_SM90_SHAPES = [(3, 1, 144, 272), (3, 5, 1040, 208), (3, 8, 400, 144), (3, 9, 144, 208),
+                  (3, 65, 272, 144), (3, 130, 1040, 208), (64, 1, 2048, 1408),
+                  (64, 64, 1040, 208)]
+
+
+@pytest.mark.parametrize("shape", K5_SM90_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k5_sm90_matches_plain_for_every_op(cuda_device, shape):
+    """Every C form and epilogue op, fp32/bf16/fp16 out, and a requant_int8
+    chain, bitwise against the plain version (transcendental ops within one
+    ulp), every launch on the sm90 route; with unit scales the integer
+    product exactly."""
+    q8 = _q8_module()
+    g, m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(g + m + k + n)
+    a, sa, b, sb = _q8_operands(gen, cuda_device, (g, m), k, n)
+    assert _k5_route(a, b) == "sm90"
+    row = torch.randn((g, 1, n), generator=gen, device=cuda_device)
+    full = torch.randn((g, m, n), generator=gen, device=cuda_device).to(torch.bfloat16)
+    crow = torch.randn((g, n), generator=gen, device=cuda_device)
+    scalar = torch.full((1, 1, 1), 0.05, device=cuda_device)
+    kern = q8.opope_gemm_q8_grouped
+    for c in (None, crow, full):
+        for op in tep.epilogue_ops():
+            operands = {"none": (), "row": (row,), "full": (full,),
+                        "scalar": (scalar,)}[tep.op_kind(op)]
+            for out_dtype in ((torch.int8,) if op == "requant_int8" else
+                              (torch.float32, torch.bfloat16, torch.float16)):
+                before = dict(kern.launches_by_route)
+                got = kern(a, sa, b, sb, c, out_dtype=out_dtype, epilogue=(op,),
+                           epilogue_operands=operands)
+                torch.cuda.synchronize()
+                assert kern.launches_by_route == dict(before, sm90=before["sm90"] + 1)
+                want = q8.opope_gemm_q8_grouped_plain(a, sa, b, sb, c, out_dtype=out_dtype,
+                                                      epilogue=(op,), epilogue_operands=operands)
+                _check_q8(got, want, op)
+    operands = (crow.reshape(g, 1, n), row, full, full, scalar)
+    got = kern(a, sa, b, sb, full, out_dtype=torch.int8, epilogue=Q8_REQUANT_CHAIN,
+               epilogue_operands=operands)
+    want = q8.opope_gemm_q8_grouped_plain(a, sa, b, sb, full, out_dtype=torch.int8,
+                                          epilogue=Q8_REQUANT_CHAIN, epilogue_operands=operands)
+    assert torch.equal(got, want)
+    ones_a, ones_b = torch.ones_like(sa), torch.ones_like(sb)
+    exact = torch.matmul(a.double(), b.double())
+    assert exact.abs().max() < 2 ** 24
+    assert torch.equal(kern(a, ones_a, b, ones_b).double(), exact)
+
+
+@pytest.mark.parametrize("shape", [(64, 1, 2048, 1408), (64, 60, 1408, 2048), (3, 9, 1040, 208)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k5_sm90_is_bitwise_on_repeat_and_against_the_tile_route(cuda_device, shape):
+    """A repeat gives the same bits, the plain version's, and so does the
+    tile route."""
+    q8 = _q8_module()
+    g, m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    a, sa, b, sb = _q8_operands(gen, cuda_device, (g, m), k, n)
+    gate = torch.randn((g, m, n), generator=gen, device=cuda_device).to(torch.bfloat16)
+    kw = dict(out_dtype=torch.bfloat16, epilogue=("residual",), epilogue_operands=(gate,))
+    outs = [q8.opope_gemm_q8_grouped(a, sa, b, sb, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    want = q8.opope_gemm_q8_grouped_plain(a, sa, b, sb, **kw)
+    assert torch.equal(outs[0], want)
+    assert torch.equal(q8._launch_grouped(a, sa, b, sb, route="tile", **kw), want)
+
+
+def test_k5_zero_capacity_experts_give_exact_zeros(cuda_device):
+    """At decode, experts that no token reached hold zero rows (quantized to
+    q = 0 with a floor scale): their outputs are exactly zero, on sm90."""
+    from repro_torch.quant import backends as qb
+
+    q8 = _q8_module()
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    x = torch.randn((64, 1, 2048), generator=gen, device=cuda_device).to(torch.bfloat16)
+    x[::2] = 0
+    w = (torch.randn((64, 2048, 1408), generator=gen, device=cuda_device) * 2048 ** -0.5)
+    xq, wq = qb.quantize_grouped_operands(x, w.to(torch.bfloat16))
+    assert _k5_route(xq.q, wq.q) == "sm90"
+    before = dict(q8.opope_gemm_q8_grouped.launches_by_route)
+    for od in (torch.float32, torch.bfloat16):
+        out = q8.opope_gemm_q8_grouped(xq.q, xq.scale, wq.q, wq.scale, out_dtype=od)
+        torch.cuda.synchronize()
+        assert not out[::2].any() and out[1::2].any()
+        assert torch.equal(out, q8.opope_gemm_q8_grouped_plain(xq.q, xq.scale, wq.q, wq.scale,
+                                                               out_dtype=od))
+    assert q8.opope_gemm_q8_grouped.launches_by_route == dict(before, sm90=before["sm90"] + 2)
+
+
+def test_k5_routes_and_their_counters(cuda_device):
+    """Ragged K or N and a misaligned base take the tile route; each call
+    counts on its route; both routes forced agree bit for bit; sm90 refuses,
+    launching nothing, what its plan does not take; more groups than the
+    grid holds raise on both routes before any launch."""
+    q8 = _q8_module()
+    kern = q8.opope_gemm_q8_grouped
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    a, sa, b, sb = _q8_operands(gen, cuda_device, (3, 8), 1000, 264)
+    flat = torch.randint(-127, 128, (3 * 8 * 256 + 8,), generator=gen, device=cuda_device,
+                         dtype=torch.int8)
+    off = flat[8:].view(3, 8, 256)  # a base 8 bytes off a 16-byte boundary
+    assert off.data_ptr() % 16 == 8
+    cases = [((a, sa, b, sb), "tile"),                                    # K off 16
+             ((a[..., :992].contiguous(), sa, b[:, :992, :256].contiguous(), sb[..., :256]),
+              "sm90"),
+             ((a[..., :40].contiguous(), sa, b[:, :40, :24].contiguous(), sb[..., :24]), "tile"),
+             ((off, sa, b[:, :256, :256].contiguous(), sb[..., :256]), "tile")]
+    for (x, xs, w, ws), route in cases:
+        ws = ws.contiguous()
+        assert _k5_route(x, w) == route
+        before = (kern.launches, dict(kern.launches_by_route))
+        got = kern(x, xs, w, ws, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert kern.launches == before[0] + 1
+        assert kern.launches_by_route == dict(before[1], **{route: before[1][route] + 1})
+        want = q8.opope_gemm_q8_grouped_plain(x, xs, w, ws, out_dtype=torch.bfloat16)
+        assert torch.equal(got, want)
+        forced = {r: q8._launch_grouped(x, xs, w, ws, out_dtype=torch.bfloat16, route=r)
+                  for r in (("sm90", "tile") if route == "sm90" else ("tile",))}
+        assert all(torch.equal(v, want) for v in forced.values())
+        if route == "tile":
+            before = (kern.launches, dict(kern.launches_by_route))
+            with pytest.raises(ValueError, match="sm90"):
+                q8._launch_grouped(x, xs, w, ws, route="sm90")
+            assert (kern.launches, kern.launches_by_route) == before
+    g = q8._MAX_GROUPS + 1
+    x = torch.zeros((g, 1, 16), dtype=torch.int8, device=cuda_device)
+    w = torch.zeros((g, 16, 16), dtype=torch.int8, device=cuda_device)
+    xs, ws = torch.ones((g, 1, 1), device=cuda_device), torch.ones((g, 1, 16), device=cuda_device)
+    before = (kern.launches, dict(kern.launches_by_route))
+    for route in (None, "sm90", "tile"):
+        with pytest.raises(ValueError, match="groups"):
+            q8._launch_grouped(x, xs, w, ws, route=route)
+    assert (kern.launches, kern.launches_by_route) == before
+
+
+def test_reduced_deepseek_q8_runs_every_k5_launch_on_sm90(cuda_device):
+    """A reduced deepseek-moe-16b prefill and decode step under
+    ``{"moe": "q8"}``: every K5 launch on the sm90 route, the logits within
+    the q8 model test's bound of the plain backends'."""
+    cfg = _reduced_bf16("deepseek-moe-16b")
+    policy = PrecisionPolicy(rules={"moe": "q8"})
+    plain_policy = PrecisionPolicy(rules={"moe": "torch_q8"}, default="torch")
+    params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(1))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 16)))
+    tokens = tokens.to(cuda_device)
+    kern = tq8.opope_gemm_q8_grouped
+    with torch.inference_mode():
+        ref, _ = api.prefill(cfg, params, {"tokens": tokens}, 24, backend=plain_policy)
+        before = (kern.launches, dict(kern.launches_by_route))
+        got, caches = api.prefill(cfg, params, {"tokens": tokens}, 24, backend=policy)
+        logits, _ = api.decode(cfg, params, got.argmax(-1)[:, None], caches, 16, backend=policy)
+        torch.cuda.synchronize()
+    launches = kern.launches - before[0]
+    assert launches == 3 * cfg.n_layers * 2
+    assert kern.launches_by_route == dict(before[1], sm90=before[1]["sm90"] + launches)
+    assert torch.isfinite(got).all() and torch.isfinite(logits).all()
+    assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
 @pytest.mark.parametrize("arch,policy,counts", [
     ("chatglm3-6b", mlp_q8_policy(), {"k1": 4, "k2": 3, "k5": 0}),
     ("deepseek-moe-16b", PrecisionPolicy(rules={"moe": "q8"}), {"k1": 5, "k2": 3, "k5": 3}),

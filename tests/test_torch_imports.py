@@ -54,7 +54,7 @@ def test_every_port_module_is_scanned():
                 "repro_torch/kernels/opope_scan.py", "repro_torch/kernels/__init__.py"):
         assert mod in names
     assert kbuild.sources() == ["opope_attention", "opope_gemm", "opope_grouped", "opope_q8",
-                                "opope_scan"]
+                                "opope_q8_grouped", "opope_scan"]
 
 
 @pytest.fixture
