@@ -16,8 +16,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (a) prefill logits through the kernel against the plain backend,
    (b) the continuous-batching engine on a Poisson trace — the first main
        path, whose kernel launches are counted, every one on K1's sm90
-       route — (c) the lockstep engine, and (d) a lockstep decode step's
-       wall time beside its K1 device time;
+       route — (c) the lockstep engine, (d) a lockstep decode step's
+       wall time beside its K1 device time, (e) a 4 x 200-token prefill in
+       chunks of 32 (``api.prefill_chunk``) against the bucketed prefill,
+       (f) the continuous engine with chunked prefill and the prefix cache
+       on a shared-system-prompt trace against the same engine without
+       them (12 hits, greedy agreement at least the kernels-vs-plain floor
+       of this run less 0.02), and (g) the same with int8 K/V lanes (half
+       the bf16 pool's bytes a slot), plus the trie's gather and int8 scale
+       adoption checked bitwise on the card — every K1 launch of (b)–(g)
+       counted and on its sm90 route;
 5. the grouped O-POPE GEMM kernel (K4) against its plain version on the
    card, at deepseek-moe-16b's expert shapes and chains for M = 1, 30 and 60
    (required on the sm90 route and checked on the tile route too; timed by
@@ -105,6 +113,12 @@ FREE_ROUTING_FLOOR = 0.9
 # after a 1-ulp difference upstream moves the logits by one quantization
 # step in both comparisons alike.
 Q8_LOGIT_FLOOR_FACTOR = 3.0
+# Chunked prefill and the prefix cache (phase 4(f)), teacher-forced logits
+# of features on against off: their RMS difference at most this many times
+# that of the plain GEMM against the kernels on the features-off path, in
+# the same run. Both are bf16 rounding of equally valid orders; a wrong
+# attach, chunk write or slot moves the logits by their own size.
+PROMPT_LOGIT_FLOOR_FACTOR = 3.0
 
 
 def log(msg: str) -> None:
@@ -487,6 +501,257 @@ def model_phase(torch, np, cfg, ops, dev):
             f"K1 {dev_ms['k1']:.3f} ms ({per_forward} launches, byte bound {bound:.3f} ms)")
     return {"continuous": report, "launches": launches, "decode_step_ms": step_ms,
             "device_ms": dev_ms, "params": params}
+
+
+def _reset_k1(ops, opope_gemm):
+    """Every count K1's gates read set to zero."""
+    ops.reset_counts()
+    opope_gemm.launches = 0
+    opope_gemm.launches_by_route.update(sm90=0, tile=0)
+
+
+def _valid_outputs(report, trace, vocab, what):
+    for r in trace:
+        out = report.outputs[r.rid]
+        if len(out) != r.max_new_tokens or not all(0 <= t < vocab for t in out):
+            raise AssertionError(f"{what}: request {r.rid}: bad output {out}")
+
+
+def _same_streams(a, b):
+    """Share of requests whose greedy token streams are identical."""
+    return sum(a.outputs[rid] == b.outputs[rid] for rid in a.outputs) / len(a.outputs)
+
+
+def prompt_phase(torch, np, cfg, params, ops, dev):
+    """Phase 4(e)-(g) on chatglm3-6b's resident weights: chunked prefill
+    against bucketed prefill, the prefix cache, and int8 K/V lanes."""
+    from repro_torch.kernels.opope_gemm import opope_gemm, opope_gemm_plain
+    from repro_torch.models import api
+    from repro_torch.quant.kvcache import _dequant, quantize_kv_rows
+    from repro_torch.serve import (ContinuousEngine, PrefixCache, Scheduler, SlotPool,
+                                   shared_prefix_trace)
+    from repro_torch.serve import continuous as cont_mod
+
+    per_forward = 7 * cfg.n_layers
+    out = {}
+
+    # (e) a 4 x 200-token prefill in chunks of 32 against the bucketed
+    # prefill of the same prompts (bucket 256), at 4(a)'s tolerance.
+    rows, plen, w, lb = 4, 200, 32, 256
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab, (rows, plen))
+    padded = np.zeros((rows, lb), np.int64)
+    padded[:, :plen] = tokens
+    n_chunks = -(-plen // w)
+    with torch.inference_mode():
+        ref, ref_c = api.prefill_bucketed(cfg, params, torch.from_numpy(padded).to(dev),
+                                          torch.full((rows,), plen, device=dev))
+        caches = api.init_state(cfg, rows, lb, torch.bfloat16, dev)
+        _reset_k1(ops, opope_gemm)
+        for j in range(n_chunks):
+            off, end = j * w, min((j + 1) * w, plen)
+            ctoks = np.zeros((rows, w), np.int64)
+            ctoks[:, : end - off] = tokens[:, off:end]
+            got, caches = api.prefill_chunk(
+                cfg, params, torch.from_numpy(ctoks).to(dev), caches,
+                torch.full((rows,), off, device=dev),
+                torch.full((rows,), end - 1 - off, device=dev))
+    if opope_gemm.launches != per_forward * n_chunks or ops.backend("torch").calls != 0:
+        raise AssertionError(f"4(e) K1 launches {opope_gemm.launches} != {per_forward} * "
+                             f"{n_chunks} chunk steps")
+    check_routes(opope_gemm, opope_gemm.launches, "4(e)")
+    if not torch.isfinite(got).all() or tuple(got.shape) != (rows, cfg.vocab):
+        raise AssertionError(f"4(e) chunked logits {tuple(got.shape)} not finite or misshapen")
+    delta, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    if delta > 2e-2 * scale:
+        raise AssertionError(f"4(e) chunked logits: max|delta| {delta} > 2e-2 * {scale}")
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    dk = max((c.k[:, :plen].float() - r.k[:, :plen].float()).abs().max().item()
+             for c, r in zip(caches, ref_c))
+    log(f"(e) chunked prefill 4 x {plen} in {n_chunks} chunks of {w}: max|dlogits| {delta:.4g} "
+        f"<= 2e-2 * max|logits| {scale:.4g} against bucketed prefill (bucket {lb}); argmax "
+        f"agreement {agree:.2f}; max|dK| over the layers {dk:.4g} (not gated); K1 launches "
+        f"{opope_gemm.launches} = 7 * {cfg.n_layers} * {n_chunks}, all on the sm90 route")
+    out["chunked"] = {"max_abs_dlogits": delta, "max_abs_logits": scale, "argmax_agreement": agree,
+                      "k1_launches": opope_gemm.launches, "chunk_steps": n_chunks}
+
+    # (f) the prefix cache on the reference's bench_prefix_cache trace
+    # (benchmarks/serving_bench.py): 12 prompts opening with one 192-token
+    # system prompt. Each engine serves it once as a warm-up (which fills
+    # the trie, as a long-lived server's would be) before the timed serve.
+    def trace():
+        return shared_prefix_trace(12, seed=0, vocab=cfg.vocab, prefix_len=192,
+                                   tail_lens=(8, 12, 16), gen_lens=(8, 16, 24),
+                                   mean_interarrival=2.0)
+
+    def timed(eng, what):
+        eng.serve(trace())
+        stats0 = eng.prefix_cache_stats()
+        chunk_steps = []
+
+        def counting(*a, **kw):
+            chunk_steps.append(1)
+            return orig(*a, **kw)
+
+        _reset_k1(ops, opope_gemm)
+        with _patched(cont_mod.model_api, "prefill_chunk", counting) as orig:
+            report = eng.timed_serve(trace())
+        forwards = report.decode_steps + (len(chunk_steps) if eng.prefill_chunk
+                                          else report.prefill_batches)
+        if opope_gemm.launches != per_forward * forwards or ops.backend("torch").calls != 0:
+            raise AssertionError(f"{what}: K1 launches {opope_gemm.launches} != {per_forward} * "
+                                 f"{forwards} forwards")
+        check_routes(opope_gemm, opope_gemm.launches, what)
+        _valid_outputs(report, trace(), cfg.vocab, what)
+        stats = eng.prefix_cache_stats()
+        hits = misses = None
+        if stats is not None:
+            hits, misses = stats["hits"] - stats0["hits"], stats["misses"] - stats0["misses"]
+            if (hits, misses) != (12, 0):
+                raise AssertionError(f"{what}: {hits} hits, {misses} misses in the timed run, "
+                                     f"want 12 and 0")
+        log(f"{what}: {report.generated_tokens} tokens, decode_steps {report.decode_steps}, "
+            f"chunk steps {len(chunk_steps)}, prefill_batches {report.prefill_batches}, wall "
+            f"{report.wall_time_s:.3f} s, {report.tokens_per_sec:.1f} tokens/s, TTFT p50 "
+            f"{report.ttft_p50 * 1e3:.1f} ms, ITL p50 {report.itl_p50 * 1e3:.1f} ms, K1 launches "
+            f"{opope_gemm.launches} = 7 * {cfg.n_layers} * {forwards}, all on the sm90 route"
+            + ("" if stats is None else f"; prefix hits {hits}, misses {misses}, cached_tokens "
+               f"{stats['cached_tokens']}") + f"; kv_bytes_per_slot {report.kv_bytes_per_slot:.0f}")
+        return report, {"tokens_per_s": report.tokens_per_sec, "ttft_p50_s": report.ttft_p50,
+                        "itl_p50_s": report.itl_p50, "decode_steps": report.decode_steps,
+                        "chunk_steps": len(chunk_steps), "k1_launches": opope_gemm.launches,
+                        "hits": hits, "misses": misses,
+                        "kv_bytes_per_slot": report.kv_bytes_per_slot}
+
+    def forced(eng, stream, steps=7):
+        """The engine's own join path for the trace's requests, ``n_slots``
+        at a time into a fresh pool (prefix attach and suffix chunks, or a
+        bucketed prefill), then ``steps`` decode steps fed ``stream``'s
+        greedy tokens: logits [requests, 1 + steps, V] in fp32."""
+        reqs, outs = trace(), []
+        with torch.inference_mode():
+            for b0 in range(0, len(reqs), eng.n_slots):
+                batch = reqs[b0:b0 + eng.n_slots]
+                sched = Scheduler(cfg, max_bucket=eng.max_len)
+                pool = SlotPool.create(cfg, eng.n_slots, eng.max_len, eng.cache_dtype, dev,
+                                       kv_format=eng.kv_format)
+                plens = [len(r.prompt) for r in batch]
+                if eng.prefill_chunk:
+                    pj = eng._begin_join(sched, pool, batch, 0)
+                    while not pj.all_done:
+                        eng._advance_chunk(pj)
+                    pool.join(pj.caches, pj.slots, pj.floors)
+                    for nodes in pj.nodes:
+                        if nodes:
+                            eng._trie.release(nodes)
+                    first, slots = pj.first_logits[: len(batch)], pj.slots
+                else:
+                    toks = np.zeros((len(batch), sched.bucket(max(plens))), np.int64)
+                    for i, r in enumerate(batch):
+                        toks[i, : plens[i]] = r.prompt
+                    first, caches = api.prefill_bucketed(
+                        cfg, params, torch.from_numpy(toks).to(dev),
+                        torch.tensor(plens, device=dev), eng.cache_dtype)
+                    slots = pool.allocate([r.rid for r in batch])
+                    pool.join(caches, slots)
+                if slots != list(range(len(batch))):
+                    raise AssertionError(f"forced join leased slots {slots}")
+                pos = torch.tensor(plens, device=dev)
+                rows = [first.float()]
+                for j in range(steps):
+                    tok = torch.tensor([[stream.outputs[r.rid][j]] for r in batch], device=dev)
+                    logits, pool.caches = api.decode_at(cfg, params, tok, pool.caches, pos)
+                    rows.append(logits.float())
+                    pos = pos + 1
+                outs.append(torch.stack(rows, 1))
+        return torch.cat(outs)
+
+    common = dict(cfg=cfg, params=params, n_slots=4, max_len=288)
+    off_eng = ContinuousEngine(**common, prefill_chunk=None, prefix_cache=False)
+    off, out["off"] = timed(off_eng, "(f) features off")
+    with _patched(ops.backend("cuda"), "fn", opope_gemm_plain):
+        plain = ContinuousEngine(**common, prefill_chunk=None, prefix_cache=False).serve(trace())
+    on_eng = ContinuousEngine(**common, prefill_chunk=32, prefix_cache=True, prefix_block=32)
+    on, out["on"] = timed(on_eng, "(f) chunked prefill + prefix cache")
+    # Greedy agreement of whole streams is printed, not gated: in bf16 a
+    # near-tied greedy choice flips under rounding alone (chunk attention
+    # and blockwise attention round differently, and K1 runs at other M,
+    # as it does against the plain GEMM), and one flip changes the rest of
+    # the stream, so over 12 requests the share moves by 1/12 steps between
+    # equally valid variants. The gate below compares logits instead.
+    agree, floor = _same_streams(on, off), _same_streams(off, plain)
+    log(f"(f) greedy streams identical, features on vs off: {agree:.4f} of requests; kernels "
+        f"vs the plain GEMM, features off: {floor:.4f} (not gated)")
+    # The gate: the engine's own join path (prefix attach + suffix chunk,
+    # or bucketed prefill), then 7 decode steps over the joined pool fed
+    # the features-off run's greedy tokens (teacher forcing), for the 12
+    # requests in 3 joins of 4. The logits of features on against off must
+    # stay within PROMPT_LOGIT_FLOOR_FACTOR of the RMS difference that the
+    # plain GEMM makes on the features-off path in this run. A wrong
+    # attach, chunk write, scale or slot moves logits by their own size.
+    ref = forced(off_eng, off)
+    with _patched(ops.backend("cuda"), "fn", opope_gemm_plain):
+        ref_plain = forced(off_eng, off)
+    got = forced(on_eng, off)
+    d_floor = (ref_plain - ref).pow(2).mean().sqrt().item()
+    d_on = (got - ref).pow(2).mean().sqrt().item()
+    arg_on = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    arg_floor = (ref_plain.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    log(f"(f) teacher-forced logits, 12 requests x (first token + 7 decode steps): features on "
+        f"vs off RMS {d_on:.4g} (gated <= {PROMPT_LOGIT_FLOOR_FACTOR} x {d_floor:.4g}, the plain "
+        f"GEMM vs the kernels, features off); argmax agreement {arg_on:.4f} (floor "
+        f"{arg_floor:.4f}); max|logits| {ref.abs().max().item():.4g}")
+    if not d_on <= PROMPT_LOGIT_FLOOR_FACTOR * d_floor:
+        raise AssertionError(f"(f) features on vs off logits RMS {d_on} > "
+                             f"{PROMPT_LOGIT_FLOOR_FACTOR} x {d_floor}")
+    out["agreement"] = {"streams_on_vs_off": agree, "streams_kernels_vs_plain": floor,
+                        "logit_rms_on_vs_off": d_on, "logit_rms_kernels_vs_plain": d_floor,
+                        "argmax_on_vs_off": arg_on, "argmax_kernels_vs_plain": arg_floor}
+
+    # (g) int8 K/V lanes with the prefix cache, on a fresh engine.
+    q8_eng = ContinuousEngine(**common, prefill_chunk=32, prefix_cache=True, prefix_block=32,
+                              kv_format="int8")
+    q8, out["int8"] = timed(q8_eng, "(g) int8 K/V + chunked prefill + prefix cache")
+    ratio = q8.kv_bytes_per_slot / off.kv_bytes_per_slot
+    if ratio > 0.51:
+        raise AssertionError(f"(g) int8 pool {q8.kv_bytes_per_slot} bytes a slot, "
+                             f"{ratio:.4f} of bf16's")
+    out["int8"]["agreement_vs_bf16_pool"] = _same_streams(q8, on)
+    d_q8 = (forced(q8_eng, off) - got).pow(2).mean().sqrt().item()
+    out["int8"]["logit_rms_vs_bf16_pool"] = d_q8
+    log(f"(g) kv_bytes_per_slot {q8.kv_bytes_per_slot:.0f} = {ratio:.4f} of the bf16 pool's "
+        f"{off.kv_bytes_per_slot:.0f} (gated <= 0.51); against the bf16 pool (both features "
+        f"on): greedy streams identical {out['int8']['agreement_vs_bf16_pool']:.4f}, "
+        f"teacher-forced logits RMS {d_q8:.4g} (neither gated)")
+
+    # (g) on the card, bitwise: a full-precision trie's gather gives back
+    # the K/V its path was inserted from (copies, not views), and int8
+    # scale adoption gives back the stored codes.
+    trie = PrefixCache(block_size=32)
+    trie.insert(tokens[0].tolist(), plen, ref_c, 0)
+    path, matched = trie.match(tokens[0].tolist())
+    spans, _ = trie.gather(path)
+    for c, (k, v) in zip(ref_c, spans):
+        if not (torch.equal(k, c.k[0, :matched]) and torch.equal(v, c.v[0, :matched])):
+            raise AssertionError("(g) trie gather differs from the inserted K/V")
+    if any(x.untyped_storage().data_ptr() in (c.k.untyped_storage().data_ptr(),
+                                              c.v.untyped_storage().data_ptr())
+           for n in path for c, p in zip(ref_c, n.payload) for x in p):
+        raise AssertionError("(g) a trie payload is a view of the prefill's buffer")
+    n_kv, k0, v0 = cfg.n_kv, ref_c[0].k[:, :matched].float(), ref_c[0].v[:, :matched].float()
+    k_q, v_q, k_s, v_s = quantize_kv_rows(k0, v0, n_kv, fmt="int8")
+    small = torch.full((rows, 16, k0.shape[-1]), 1e-4, device=dev)
+    k_q2, v_q2, k_s2, v_s2 = quantize_kv_rows(
+        torch.cat([_dequant(k_q, k_s, torch.float32), small], 1),
+        torch.cat([_dequant(v_q, v_s, torch.float32), small], 1),
+        n_kv, fmt="int8", k_scale_floor=k_s, v_scale_floor=v_s)
+    if not (torch.equal(k_q2[:, :matched], k_q) and torch.equal(v_q2[:, :matched], v_q)
+            and torch.equal(k_s2, k_s) and torch.equal(v_s2, v_s)):
+        raise AssertionError("(g) int8 scale adoption changed a code or a scale")
+    log(f"(g) bitwise on the card: the trie's gather of a {matched}-token path over "
+        f"{cfg.n_layers} layers equals the K/V it was inserted from (payloads are copies); "
+        f"int8 scale adoption over {rows} x {matched} x {k0.shape[-1]} K/V gives back every "
+        f"code and scale")
+    return out
 
 
 def k4_plain(k4, a, b, c, steps, ops_):
@@ -1715,6 +1980,7 @@ def main() -> int:
     dev = torch.device("cuda")
     layer, rows, max_err = kernel_phase(torch, ep, cfg, mcfg, dev)
     res = model_phase(torch, np, cfg, ops, dev)
+    prompt_phase(torch, np, cfg, res["params"], ops, dev)
 
     # One layer's 7 GEMMs of a 4-slot decode step (and of a 512-row
     # prefill), from the timed rows.

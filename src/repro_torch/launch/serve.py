@@ -7,6 +7,9 @@
 
 Runs on ``--device cuda`` (default) or ``cpu``. Parameters are random, drawn
 from ``--seed``. ``--reduced`` serves the tiny same-family config.
+``--kv-format`` narrows the continuous engine's K/V pool to int8 or fp8;
+``REPRO_PREFILL_CHUNK=<power of two>`` turns on chunked prefill and
+``REPRO_PREFIX_CACHE=1`` the prefix cache (with chunks of 32 unless set).
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ def _continuous(cfg, params, device, args) -> dict:
     eng = ContinuousEngine(
         cfg=cfg, params=params, n_slots=args.slots,
         max_len=args.prompt_len + args.gen, cache_dtype=param_dtype(cfg),
-        temperature=args.temperature,
+        temperature=args.temperature, kv_format=args.kv_format,
     )
     report = eng.timed_serve(
         trace, generator=torch.Generator(device=device).manual_seed(args.seed)
@@ -70,6 +73,8 @@ def _continuous(cfg, params, device, args) -> dict:
         "mean_occupancy": report.mean_occupancy,
         "ttft_p50_s": report.ttft_p50, "ttft_p99_s": report.ttft_p99,
         "itl_p50_s": report.itl_p50, "itl_p99_s": report.itl_p99,
+        "kv_format": args.kv_format, "kv_bytes_per_slot": report.kv_bytes_per_slot,
+        "prefill_chunk": eng.prefill_chunk, "prefix_cache": eng.prefix_cache_stats(),
         "first_request_output": report.outputs[trace[0].rid],
     }
 
@@ -88,6 +93,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--kv-format", default=None, choices=(None, "int8", "fp8_e4m3", "fp8_e5m2"),
+                    help="continuous engine: narrow K/V lanes (half the bf16 pool's bytes)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 

@@ -1,7 +1,8 @@
 """Model API of the port: init, prefill and decode entry points.
 
 The port of :mod:`repro.models.api` for token-prompt dense and MoE decoders. Decode
-state is a list of per-layer :class:`KVCache`. ``init_params`` and
+state is a list of per-layer :class:`KVCache` (or, in a quantized slot pool,
+:class:`~repro_torch.quant.kvcache.QuantKVCache`). ``init_params`` and
 ``init_state`` run on ``cuda`` unless the caller passes ``device="cpu"``;
 the other entry points run where their tensors are. Their ``backend=`` is a
 backend name of :mod:`repro_torch.kernels.ops` or a precision policy
@@ -10,6 +11,7 @@ backend name of :mod:`repro_torch.kernels.ops` or a precision policy
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -25,6 +27,7 @@ __all__ = [
     "prefill",
     "decode",
     "prefill_bucketed",
+    "prefill_chunk",
     "decode_at",
     "param_count",
     "active_param_count",
@@ -106,6 +109,34 @@ def prefill_bucketed(
     return tf_mod.lm_logits(params, last[:, None], cfg)[:, 0], caches
 
 
+def prefill_chunk(
+    cfg: ArchConfig, params, tokens: torch.Tensor, caches: List[KVCache],
+    offsets: torch.Tensor, last_idx: torch.Tensor, *, backend=None,
+) -> Tuple[torch.Tensor, List[KVCache]]:
+    """Advance a prompt-chunk window: tokens [B, C] written at per-row
+    ``offsets[b]``; returns (logits [B, V], caches).
+
+    Row ``b``'s chunk takes absolute positions ``offsets[b] ..
+    offsets[b] + C - 1`` of its cache, which may start past 0 (earlier
+    chunks, or a cached prefix attached below ``offsets[b]``). ``offsets``
+    is the source of truth for the fill point, as ``pos`` is for
+    :func:`decode_at`. A row with nothing left to prefill passes an offset
+    ``>= S_max``: its writes drop and its logits are not read. Logits are
+    read at chunk index ``last_idx[b]`` (the row's last prompt token when
+    this chunk finishes it; callers mask the others)."""
+    b, c = tokens.shape
+    offsets = offsets.to(torch.int64)
+    positions = offsets[:, None] + torch.arange(c, device=tokens.device)[None, :]
+    caches = _with_slot_lengths(caches, offsets)
+    hidden, caches, _ = tf_mod.lm_forward(
+        params, tokens, cfg, mode="chunk", caches=caches, positions=positions,
+        backend=backend,
+    )
+    rows = torch.arange(b, device=tokens.device)
+    last = hidden[rows, last_idx.to(torch.int64)]
+    return tf_mod.lm_logits(params, last[:, None], cfg)[:, 0], caches
+
+
 def decode_at(
     cfg: ArchConfig, params, token: torch.Tensor, caches: List[KVCache],
     pos: torch.Tensor, *, backend=None,
@@ -114,12 +145,18 @@ def decode_at(
     over its own history. ``pos`` [B] is the source of truth for every
     layer's fill point."""
     pos = pos.to(torch.int64)
-    caches = [KVCache(c.k, c.v, pos) for c in caches]
+    caches = _with_slot_lengths(caches, pos)
     hidden, caches, _ = tf_mod.lm_forward(
         params, token, cfg, mode="decode", caches=caches, positions=pos[:, None],
         backend=backend,
     )
     return tf_mod.lm_logits(params, hidden, cfg)[:, 0], caches
+
+
+def _with_slot_lengths(caches, pos: torch.Tensor):
+    """Every cache (full-precision or quantized, scales kept) with its fill
+    point set to the per-slot positions ``pos``."""
+    return [dataclasses.replace(c, length=pos) for c in caches]
 
 
 def _leaves(tree) -> Iterator[torch.Tensor]:

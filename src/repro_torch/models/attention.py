@@ -8,7 +8,11 @@ product accumulates in fp32. Masks use the finite ``NEG_INF``, so a fully
 masked row gives uniform weights, not NaN.
 
 Caches are updated in place (the reference builds new arrays): a decode step
-writes one position per row into the pool's buffers instead of copying them.
+writes one position per row into the pool's buffers instead of copying them,
+and a chunk of prefill writes its positions of each row. A
+:class:`~repro_torch.quant.kvcache.QuantKVCache` takes the decode step only:
+the appended token is quantized through the slot's scales, and attention
+reads an fp32 view dequantized inside the step.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.quant.kvcache import QuantKVCache
 from .layers import Initializer, apply_rope, dense_init, role_backend
 
 __all__ = [
@@ -28,6 +33,7 @@ __all__ = [
     "attention_init",
     "attention_apply",
     "blockwise_attention",
+    "chunk_attention",
     "decode_attention",
 ]
 
@@ -158,9 +164,41 @@ def decode_attention(
     return o.permute(0, 3, 1, 2, 4).reshape(b, 1, hq, d).to(q.dtype)
 
 
-def _append(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> KVCache:
+def chunk_attention(
+    q: torch.Tensor,
+    cache: KVCache,
+    q_pos: torch.Tensor,
+    *,
+    n_kv: int,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Chunked-prefill attention: C query tokens per row, each at its own
+    absolute position, against the row's cache. q: [B,C,Hq,D]; q_pos: [B,C]
+    -> [B,C,Hq,D]. Token ``(b, j)`` attends over every cache position
+    ``<= q_pos[b, j]``: the chunk's own K/V is already in the cache, so
+    causality inside the chunk and attention over earlier chunks (or an
+    attached cached prefix) are one mask, and rows may sit at different
+    offsets."""
+    b, c, hq, d = q.shape
+    t = cache.k.shape[1]
+    g = hq // n_kv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, c, n_kv, g, d)
+    k = cache.k.reshape(b, t, n_kv, d)
+    v = cache.v.reshape(b, t, n_kv, d)
+    s = _scores(qg, k, scale)  # [B, Hkv, G, C, T]
+    kp = torch.arange(t, device=q.device)
+    valid = kp[None, None, :] <= q_pos[:, :, None]  # [B, C, T]
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = _pv(p, v)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, c, hq, d).to(q.dtype)
+
+
+def _append(cache, k: torch.Tensor, v: torch.Tensor):
     """Write one token per row at the fill point, in place; returns the
-    cache advanced by one. Per-slot positions past the buffer are dropped."""
+    cache advanced by one. Per-slot positions past the buffer are dropped.
+    ``k``/``v`` are already in the cache's dtype for a ``QuantKVCache``."""
     b = k.shape[0]
     kf = k.reshape(b, -1).to(cache.k.dtype)
     vf = v.reshape(b, -1).to(cache.v.dtype)
@@ -172,10 +210,27 @@ def _append(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> KVCache:
         keep = (idx < t)[:, None]
         cache.k[rows, at] = torch.where(keep, kf, cache.k[rows, at])
         cache.v[rows, at] = torch.where(keep, vf, cache.v[rows, at])
-        return KVCache(cache.k, cache.v, idx + 1)
+        return dataclasses.replace(cache, length=idx + 1)
     cache.k[:, cache.length] = kf
     cache.v[:, cache.length] = vf
-    return KVCache(cache.k, cache.v, cache.length + 1)
+    return dataclasses.replace(cache, length=cache.length + 1)
+
+
+def _scatter_chunk(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
+                   positions: torch.Tensor) -> None:
+    """``cache.k[b, positions[b, j]] = k[b, j]`` (and ``v``) in place, for
+    k/v ``[B, C, fused]``; writes at positions ``>= S_max`` drop. Each cache
+    position takes the chunk token that targets it, found by comparison, so
+    no two writes land on one element (an index write with the dropped
+    positions clamped would collide with a kept write at ``S_max - 1``) and
+    nothing waits on the host."""
+    t = cache.k.shape[1]
+    hit = positions[:, None, :] == torch.arange(t, device=positions.device)[None, :, None]
+    src = hit.to(torch.int64).argmax(dim=-1)[..., None]  # [B, T, 1]: the chunk index
+    written = hit.any(dim=-1)[..., None]
+    for buf, x in ((cache.k, k), (cache.v, v)):
+        vals = torch.gather(x.to(buf.dtype), 1, src.expand(-1, -1, x.shape[-1]))
+        buf.copy_(torch.where(written, vals, buf))
 
 
 def attention_apply(
@@ -199,13 +254,16 @@ def attention_apply(
     """Attention block: QKV projections (bias on the C preload), RoPE, core,
     and the output projection with ``residual`` fused into its epilogue.
 
-    Modes: ``cache is None`` — prefill without cache; ``cache`` and one token
-    — decode (append, attend); ``cache`` and a longer ``x`` — prefill that
-    fills and returns the cache. Chunked prefill is not ported yet. The
-    projections take the policy roles ``attn_qkv`` and ``attn_out``.
+    Modes: ``cache is None`` — prefill without cache; ``cache`` and
+    ``chunk=True`` — chunked prefill: write the C tokens' K/V at the per-row
+    ``positions`` (which may start past 0, and at or past ``S_max`` for a
+    row with nothing to write), attend over each row's history; ``cache``
+    and one token — decode (append, attend); ``cache`` and a longer ``x`` —
+    prefill that fills and returns the cache. A ``QuantKVCache`` takes the
+    decode step only: chunks and prefills fill full-precision caches, which
+    the slot pool's join quantizes. The projections take the policy roles
+    ``attn_qkv`` and ``attn_out``.
     """
-    if chunk:
-        raise NotImplementedError("chunked prefill is not ported yet")
     b, s, _ = x.shape
     qkv_be = role_backend(backend, "attn_qkv")
     q = ops.linear(x, params["wq"]["w"], params["wq"].get("b"), backend=qkv_be)
@@ -221,10 +279,34 @@ def attention_apply(
         k = apply_rope(k, positions, rotary_frac=rotary_frac, theta=rope_theta)
 
     new_cache = None
-    if cache is not None and s == 1:
-        new_cache = _append(cache, k, v)
-        o = decode_attention(q, new_cache, n_kv=n_kv)
+    if cache is not None and chunk and s > 1:
+        if isinstance(cache, QuantKVCache):
+            raise NotImplementedError(
+                "chunked prefill into a QuantKVCache is unsupported: chunk into "
+                "a full-precision cache and quantize at the slot-pool join "
+                "(serve.cache.scatter_slots)"
+            )
+        _scatter_chunk(cache, k.reshape(b, s, -1), v.reshape(b, s, -1), positions)
+        new_cache = KVCache(cache.k, cache.v, positions[:, -1] + 1)
+        o = chunk_attention(q, new_cache, positions, n_kv=n_kv)
+    elif cache is not None and s == 1:
+        if isinstance(cache, QuantKVCache):
+            # The appended token quantizes through the slot's fixed scales;
+            # attention reads an fp32 view dequantized here, in the step.
+            kq, vq = cache.quantize_rows(k.reshape(b, -1), v.reshape(b, -1))
+            new_cache = _append(cache, kq, vq)
+            attend_over = KVCache(new_cache.dequant_k(), new_cache.dequant_v(),
+                                  new_cache.length)
+        else:
+            new_cache = attend_over = _append(cache, k, v)
+        o = decode_attention(q, attend_over, n_kv=n_kv)
     else:
+        if isinstance(cache, QuantKVCache):
+            raise NotImplementedError(
+                "prefill into a QuantKVCache is unsupported: prefill "
+                "full-precision caches and quantize at the slot-pool join "
+                "(serve.cache.scatter_slots)"
+            )
         o = blockwise_attention(
             q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk
         )

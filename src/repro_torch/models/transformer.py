@@ -7,11 +7,12 @@ Parameters are a dict; ``params["blocks"]`` is a list with one dict per
 layer, in place of the reference's per-period stacks under ``lax.scan``.
 Caches are a list of one :class:`KVCache` per layer.
 
-Modes: ``prefill`` (full sequence, fills the caches) and ``decode`` (one
-token against the caches); without caches a prefill returns hidden states
-only. ``lm_forward`` also returns the MoE router's load-balancing loss,
-summed over layers, as the reference does. Other block patterns raise
-``NotImplementedError``.
+Modes: ``prefill`` (full sequence, fills the caches), ``chunk`` (a chunk of
+prompt tokens written at per-row ``positions`` of the caches and attending
+over each row's history) and ``decode`` (one token against the caches);
+without caches a prefill returns hidden states only. ``lm_forward`` also
+returns the MoE router's load-balancing loss, summed over layers, as the
+reference does. Other block patterns raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -126,7 +127,7 @@ def init_caches(
     ]
 
 
-def _block_apply(cfg: ArchConfig, p, x, *, positions, cache, backend):
+def _block_apply(cfg: ArchConfig, p, x, *, positions, cache, backend, chunk=False):
     """One layer: attention with its skip connection fused into the output
     projection, then the pre-norm MLP with its skip fused into w_down, or
     the pre-norm MoE with a plain skip add. Returns (x, new_cache, aux loss
@@ -145,6 +146,7 @@ def _block_apply(cfg: ArchConfig, p, x, *, positions, cache, backend):
         kv_chunk=cfg.kv_chunk,
         backend=backend,
         residual=x,
+        chunk=chunk,
     )
     h = _norm(cfg, p["norm_ffn"], stream)
     if "mlp" in p:
@@ -175,8 +177,9 @@ def lm_forward(
     0-d fp32 tensor, zero without MoE layers). ``backend`` is a backend name
     or a precision policy; each GEMM site resolves its own role."""
     check_supported(cfg)
-    if mode not in ("prefill", "decode"):
+    if mode not in ("prefill", "chunk", "decode"):
         raise NotImplementedError(f"lm_forward mode {mode!r} is not ported yet")
+    chunk = mode == "chunk"  # chunked prefill: scatter-append at `positions`
     x = params["embed"]["table"][tokens]
     b, s, _ = x.shape
     if positions is None:
@@ -185,7 +188,8 @@ def lm_forward(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, p in enumerate(params["blocks"]):
         cache = caches[layer] if caches is not None else None
-        x, nc, a = _block_apply(cfg, p, x, positions=positions, cache=cache, backend=backend)
+        x, nc, a = _block_apply(cfg, p, x, positions=positions, cache=cache,
+                                backend=backend, chunk=chunk)
         if a is not None:
             aux = aux + a
         if new_caches is not None:

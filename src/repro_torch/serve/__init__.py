@@ -1,7 +1,7 @@
-"""Serving layer of the port: scheduler, slot pool, lockstep and
-continuous-batching engines."""
+"""Serving layer of the port: scheduler, slot pool, prefix cache, lockstep
+and continuous-batching engines."""
 
-from .cache import SlotPool, init_slot_caches, scatter_slots
+from .cache import PrefixCache, PrefixNode, SlotPool, init_slot_caches, scatter_slots
 from .continuous import ContinuousEngine, ServingReport
 from .engine import ServeEngine, sample_token
 from .scheduler import (
@@ -16,6 +16,8 @@ from .scheduler import (
 
 __all__ = [
     "ContinuousEngine",
+    "PrefixCache",
+    "PrefixNode",
     "Request",
     "RequestState",
     "Scheduler",

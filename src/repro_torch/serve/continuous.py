@@ -1,10 +1,9 @@
 """Continuous-batching serving engine: keep every decode lane busy.
 
-The port of the monolithic-prefill path of :mod:`repro.serve.continuous`.
-One masked decode step runs over a fixed pool of ``n_slots`` lanes; a
-finished request frees its slot mid-flight and the next queued requests are
-prefilled (one prompt-length bucket, rows rounded up to a power of two) and
-copied in.
+The port of :mod:`repro.serve.continuous`. One masked decode step runs over
+a fixed pool of ``n_slots`` lanes; a finished request frees its slot
+mid-flight and the next queued requests are prefilled (one prompt-length
+bucket, rows rounded up to a power of two) and copied in.
 
 Step loop (one tick = one decode step over the pool):
 
@@ -19,14 +18,31 @@ Step loop (one tick = one decode step over the pool):
 Without EOS or a streaming callback, retirement depends only on token
 counts, so token values are fetched once at the end of the run.
 
-Chunked prefill, the prefix cache, quantized K/V lanes, SLO goodput and
-tracing are not ported yet; setting them raises ``NotImplementedError``.
+Prompt-side features (attention-only patterns, off by default: the
+``prefill_chunk`` / ``prefix_cache`` fields or the ``REPRO_PREFILL_CHUNK`` /
+``REPRO_PREFIX_CACHE`` knobs):
+
+* **Chunked prefill** — a join becomes a pending pipeline: its standalone
+  caches advance by one power-of-two chunk (``api.prefill_chunk``) per tick,
+  between the pool's decode steps, and the batch joins the pool when every
+  row's prompt is consumed.
+* **Prefix cache** — a trie over token-id blocks
+  (:class:`~repro_torch.serve.cache.PrefixCache`) keeps finished prompts'
+  K/V. A request attaches its longest cached prefix (snapped down to a chunk
+  boundary) into its standalone caches and chunk-prefills the suffix; a
+  quantized pool quantizes the attached span again at the prefix's own
+  scales (scale adoption, :mod:`repro_torch.quant.kvcache`).
+
+``kv_format`` narrows the pool's K/V lanes (int8 or fp8). SLO goodput and
+tracing are not ported yet; setting ``slo_ttft_ms`` or ``slo_itl_ms`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -38,11 +54,16 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api as model_api
 from repro_torch.models.transformer import check_supported
 
-from .cache import SlotPool
+from .cache import PrefixCache, SlotPool
 from .engine import sample_token
 from .scheduler import Request, Scheduler
 
 __all__ = ["ContinuousEngine", "ServingReport", "percentile"]
+
+# Chunk-prefill pipelines in flight at once. One removes head-of-line
+# blocking (decode never waits on a whole prefill) and keeps the slots
+# leased but not yet decoding bounded.
+_MAX_PENDING = 1
 
 
 def percentile(values: Sequence[float], q: float) -> Optional[float]:
@@ -61,6 +82,31 @@ def percentile(values: Sequence[float], q: float) -> Optional[float]:
 
 
 @dataclasses.dataclass
+class _PendingJoin:
+    """A join mid-chunk: standalone caches filling one chunk per tick."""
+
+    batch: List[Request]
+    slots: List[int]
+    caches: Any  # standalone full-precision caches, per layer [rows, lb, fused]
+    rows: int
+    lb: int
+    offsets: np.ndarray  # [len(batch)] next fill position per row
+    plens: np.ndarray  # [len(batch)] prompt lengths
+    nodes: List[list]  # per-row acquired trie nodes (released at completion)
+    floors: Any  # scale floors for a quantized pool's join, or None
+    first_logits: Optional[torch.Tensor] = None  # [rows, V]; valid where done
+    done: Optional[np.ndarray] = None  # [len(batch)] row consumed its prompt
+
+    def __post_init__(self) -> None:
+        if self.done is None:
+            self.done = np.zeros(len(self.batch), bool)
+
+    @property
+    def all_done(self) -> bool:
+        return bool(self.done.all())
+
+
+@dataclasses.dataclass
 class ServingReport:
     """Outcome of one ``serve`` run and its utilization counters."""
 
@@ -70,6 +116,7 @@ class ServingReport:
     prefill_batches: int
     mean_occupancy: float  # mean active-slot fraction per decode step
     wall_time_s: float
+    kv_bytes_per_slot: float = 0.0  # K/V pool bytes per slot (+ quant scales)
     # Host-clock latency percentiles in seconds (None without samples).
     # TTFT: from the request's arrival tick to its first token (sampled from
     # the prefill logits at join). ITL: between a lane's consecutive tokens;
@@ -101,10 +148,18 @@ class ContinuousEngine:
     temperature: float = 0.0
     eos_id: Optional[int] = None
     exact_buckets: Optional[bool] = None  # None = exact iff recurrent mixers
-    # Not ported yet: must stay unset.
+    # Narrow K/V lanes for the pool ("int8", "fp8_e4m3", "fp8_e5m2"). Prefill
+    # stays full-precision; the join calibrates per-slot scales.
     kv_format: Optional[str] = None
+    # Chunked prefill width, a power of two (None = REPRO_PREFILL_CHUNK,
+    # unset = off).
     prefill_chunk: Optional[int] = None
+    # Prefix cache (None = REPRO_PREFIX_CACHE, unset = off). It implies
+    # chunked prefill; the trie lives as long as the engine.
     prefix_cache: Optional[bool] = None
+    prefix_block: int = 16  # trie block size, tokens
+    prefix_capacity: int = 1 << 16  # trie capacity, tokens
+    # Not ported yet: must stay unset.
     slo_ttft_ms: Optional[float] = None
     slo_itl_ms: Optional[float] = None
 
@@ -121,10 +176,52 @@ class ContinuousEngine:
                 RuntimeWarning,
                 stacklevel=2,
             )
-        for name in ("kv_format", "prefill_chunk", "prefix_cache", "slo_ttft_ms", "slo_itl_ms"):
+        for name in ("slo_ttft_ms", "slo_itl_ms"):
             if getattr(self, name):
                 raise NotImplementedError(f"ContinuousEngine.{name} is not ported yet")
+        # The prompt-side knobs: fields beat the environment.
+        if self.prefill_chunk is None:
+            env = os.environ.get("REPRO_PREFILL_CHUNK", "")
+            self.prefill_chunk = int(env) if env else None
+        if self.prefix_cache is None:
+            env = os.environ.get("REPRO_PREFIX_CACHE", "")
+            self.prefix_cache = env.lower() not in ("", "0", "false", "no")
+        if self.prefix_cache and self.prefill_chunk is None:
+            self.prefill_chunk = 32  # the suffix prefill rides the chunk entry
+        if self.prefill_chunk is not None:
+            w = self.prefill_chunk
+            if w < 1 or (w & (w - 1)):
+                raise ValueError(f"prefill_chunk must be a power of two, got {w}")
+            if not all(bd.mixer in ("attn", "attn_local", "none") for bd in self.cfg.pattern):
+                # Recurrent state cannot resume mid-prompt from a scatter:
+                # fall back to whole-bucket prefill.
+                warnings.warn(
+                    "chunked prefill / prefix cache need attention-only "
+                    f"patterns; disabled for {self.cfg.name}",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+                self.prefill_chunk = None
+                self.prefix_cache = False
+        self._trie: Optional[PrefixCache] = (
+            PrefixCache(block_size=self.prefix_block, capacity_tokens=self.prefix_capacity,
+                        kv_format=self.kv_format, n_kv=self.cfg.n_kv)
+            if self.prefix_cache else None
+        )
+        self._pending: List[_PendingJoin] = []
         self.device = self.params["embed"]["table"].device
+
+    def prefix_cache_stats(self) -> Optional[Dict[str, int]]:
+        """Hit, miss, eviction and residency counts of the prefix trie
+        (None when the cache is off)."""
+        if self._trie is None:
+            return None
+        return {
+            "hits": self._trie.hits,
+            "misses": self._trie.misses,
+            "evictions": self._trie.evictions,
+            "cached_tokens": self._trie.cached_tokens,
+        }
 
     # -- serving -----------------------------------------------------------
 
@@ -155,8 +252,13 @@ class ContinuousEngine:
         for r in requests:
             sched.submit(r)
         pool = SlotPool.create(
-            self.cfg, self.n_slots, self.max_len, self.cache_dtype, self.device
+            self.cfg, self.n_slots, self.max_len, self.cache_dtype, self.device,
+            kv_format=self.kv_format,
         )
+        # Abandoned pipelines end with their serve() call (slot leases are
+        # per pool); the prefix trie stays, so a warm-up run fills it for
+        # the runs that follow.
+        self._pending = []
 
         b = self.n_slots
         tok = torch.zeros((b, 1), dtype=torch.int64, device=self.device)
@@ -181,7 +283,18 @@ class ContinuousEngine:
         occupancy_acc = 0.0
         limit = max_steps if max_steps is not None else (
             sum(r.arrival + r.max_new_tokens for r in requests) + 10 * self.max_len
+            # a chunked join spends up to ceil(plen / W) more ticks
+            + (sum(len(r.prompt) for r in requests) if self.prefill_chunk else 0)
         )
+
+        def stamp_first_tokens(batch):
+            # TTFT closes when the first token's work is issued, as in the
+            # JAX engine; without ``sync`` the card may not have run it
+            # yet, so TTFT and ITL are host-issue times.
+            ts = wall()
+            for r in batch:
+                ttfts.append(ts - arrive.get(r.rid, ts))
+                last_tok[r.rid] = ts
 
         while not (sched.drained and pool.n_active == 0):
             if step > limit:
@@ -195,31 +308,62 @@ class ContinuousEngine:
 
             # -- join: refill free slots from the queue ---------------------
             joined = False
+            chunked = self.prefill_chunk is not None
             while pool.n_free:
-                batch = sched.next_batch(pool.n_free, now=step)
+                admissible = None
+                if chunked and len(self._pending) >= _MAX_PENDING:
+                    # Pipeline full: only prompts whose remaining prefill
+                    # fits one chunk may join (they complete inline); the
+                    # scheduler falls through to them past a blocked head.
+                    admissible = lambda r: self._suffix_len(r) <= self.prefill_chunk  # noqa: E731
+                batch = sched.next_batch(pool.n_free, now=step, admissible=admissible)
                 if not batch:
                     break
-                tok, pos, n_gen = self._join(
-                    sched, pool, batch, tok, pos, active, generator, step,
-                    on_token, sync, pending,
-                )
+                if chunked:
+                    pj = self._begin_join(sched, pool, batch, step)
+                    if len(self._pending) < _MAX_PENDING:
+                        self._pending.append(pj)  # advances below, this tick
+                        continue
+                    # One chunk finishes every prompt of this batch (a loop:
+                    # an eviction after the admissibility check can
+                    # lengthen a suffix).
+                    while not pj.all_done:
+                        self._advance_chunk(pj)
+                    tok, pos = self._complete_join(
+                        pj, sched, pool, tok, pos, active, generator, step,
+                        on_token, sync, pending,
+                    )
+                else:
+                    tok, pos = self._join(
+                        sched, pool, batch, tok, pos, active, generator, step,
+                        on_token, sync, pending,
+                    )
                 prefill_batches += 1
-                generated += n_gen  # one token per request, prefill logits
+                generated += len(batch)  # one token per request, prefill logits
                 joined = True
-                # TTFT closes when the first token's work is issued, as in
-                # the JAX engine; without ``sync`` the card may not have
-                # run it yet, so TTFT and ITL are host-issue times.
-                ts = wall()
-                for r in batch:
-                    ttfts.append(ts - arrive.get(r.rid, ts))
-                    last_tok[r.rid] = ts
+                stamp_first_tokens(batch)
+
+            # -- advance the pending chunk pipeline by one chunk ------------
+            if self._pending:
+                pj = self._pending[0]
+                self._advance_chunk(pj)
+                if pj.all_done:
+                    tok, pos = self._complete_join(
+                        pj, sched, pool, tok, pos, active, generator, step,
+                        on_token, sync, pending,
+                    )
+                    prefill_batches += 1
+                    generated += len(pj.batch)
+                    joined = True
+                    stamp_first_tokens(pj.batch)
+                    self._pending.pop(0)
             if joined:
                 active_dev = torch.tensor(active, device=self.device)
 
             if not any(active):
-                if sched.drained:
+                if sched.drained and not self._pending:
                     break
-                step += 1  # idle tick: wait for the next arrival
+                step += 1  # idle tick: the next arrival or pending chunk
                 continue
 
             # -- decode: one masked step over the whole pool ----------------
@@ -278,6 +422,7 @@ class ContinuousEngine:
             prefill_batches=prefill_batches,
             mean_occupancy=(occupancy_acc / decode_steps) if decode_steps else 0.0,
             wall_time_s=0.0,  # stamped by timed_serve
+            kv_bytes_per_slot=pool.kv_bytes_per_slot(),
             ttft_p50=percentile(ttfts, 50),
             ttft_p99=percentile(ttfts, 99),
             itl_p50=percentile(itls, 50),
@@ -309,11 +454,7 @@ class ContinuousEngine:
     ):
         """Prefill one bucket, copy it into leased slots, seed the lanes."""
         lb = sched.bucket(max(len(r.prompt) for r in batch))
-        # Rows round up to a power of two, as the reference bounds its
-        # compiled prefill shapes (filler rows repeat row 0 and are dropped).
-        rows = 1
-        while rows < len(batch):
-            rows *= 2
+        rows = _pow2_rows(len(batch))
         tokens = np.zeros((rows, lb), np.int64)
         lengths = np.ones((rows,), np.int64)
         for i, r in enumerate(batch):
@@ -329,18 +470,22 @@ class ContinuousEngine:
             self.cache_dtype,
         )
         first = sample_token(logits, generator, self.temperature)
-
         slots = pool.allocate([r.rid for r in batch])
         sched.admit(batch, slots, now=step)
         pool.join(caches, slots)
+        return self._seed_lanes(sched, pool, batch, slots, first, lengths[: len(batch)],
+                                tok, pos, active, step, on_token, sync, pending)
 
+    def _seed_lanes(self, sched, pool, batch, slots, first, plens, tok, pos, active,
+                    step, on_token, sync, pending):
+        """Point the joined lanes at their first tokens and positions, and
+        retire any request whose first token ends it."""
         n = len(batch)
         slot_idx = torch.tensor(slots, dtype=torch.int64, device=self.device)
         # Out of place: earlier `tok` tensors wait in `pending` for the fetch.
         tok = tok.index_put((slot_idx,), first[:n])
-        pos = pos.index_put(
-            (slot_idx,), torch.from_numpy(lengths[:n]).to(self.device)
-        )
+        plens = torch.from_numpy(np.asarray(plens, np.int64)).to(self.device)
+        pos = pos.index_put((slot_idx,), plens)
         if sync:
             first_host = first[:, 0].cpu().numpy()
             for i, r in enumerate(batch):
@@ -358,4 +503,135 @@ class ContinuousEngine:
                     pool.release(slots[i])
                 else:
                     active[slots[i]] = True
-        return tok, pos, n
+        return tok, pos
+
+    def _attach_len(self, matched: int, plen: int) -> int:
+        """The usable cached span: the trie match snapped down to a chunk
+        boundary (resume offsets stay chunk-aligned), leaving at least one
+        token to prefill."""
+        w = self.prefill_chunk
+        return max((min(matched, plen - 1) // w) * w, 0)
+
+    def _suffix_len(self, r: Request) -> int:
+        """Prompt tokens left to prefill after a prefix attach: what a full
+        chunk pipeline admits by."""
+        if self._trie is None:
+            return len(r.prompt)
+        _, matched = self._trie.match(r.prompt)
+        return len(r.prompt) - self._attach_len(matched, len(r.prompt))
+
+    def _begin_join(
+        self, sched: Scheduler, pool: SlotPool, batch: List[Request], step: int
+    ) -> _PendingJoin:
+        """Lease slots, build standalone caches, attach cached prefixes. The
+        pipeline then advances one chunk per tick; the batch joins the pool
+        (and its lanes activate) when it completes."""
+        lb = sched.bucket(max(len(r.prompt) for r in batch))
+        rows = _pow2_rows(len(batch))
+        plens = np.array([len(r.prompt) for r in batch], np.int64)
+        caches = model_api.init_state(self.cfg, rows, lb, self.cache_dtype, self.device)
+        offsets = np.zeros(len(batch), np.int64)
+        nodes: List[list] = [[] for _ in batch]
+        floors = None
+        if self._trie is not None:
+            for i, r in enumerate(batch):
+                path, matched = self._trie.match(r.prompt)
+                attach = self._attach_len(matched, int(plens[i]))
+                if attach <= 0:
+                    self._trie.misses += 1
+                    continue
+                self._trie.hits += 1
+                # Keep resident only the nodes the attach covers.
+                nodes[i] = path[: -(-attach // self._trie.block_size)]
+                self._trie.acquire(nodes[i])
+                spans, fls = self._trie.gather(nodes[i])
+                _attach_prefix(caches, spans, i, attach)
+                if fls is not None:
+                    if floors is None:
+                        floors = _zero_floors(rows, fls, self.device)
+                    for f, fl in zip(floors, fls):
+                        if fl is not None:
+                            f[0][i] = fl[0]
+                            f[1][i] = fl[1]
+                offsets[i] = attach
+        slots = pool.allocate([r.rid for r in batch])
+        sched.admit(batch, slots, now=step)
+        return _PendingJoin(batch=batch, slots=slots, caches=caches, rows=rows, lb=lb,
+                            offsets=offsets, plens=plens, nodes=nodes, floors=floors)
+
+    def _advance_chunk(self, pj: _PendingJoin) -> None:
+        """Advance every unfinished row of ``pj`` by one prompt chunk."""
+        w = self.prefill_chunk
+        ctoks = np.zeros((pj.rows, w), np.int64)
+        # Sentinel offset = bucket length: every write of that row drops
+        # and its logits row is never selected.
+        offs = np.full((pj.rows,), pj.lb, np.int64)
+        last_idx = np.zeros((pj.rows,), np.int64)
+        fin = np.zeros((pj.rows,), bool)
+        for i, r in enumerate(pj.batch):
+            if pj.done[i]:
+                continue
+            off = int(pj.offsets[i])
+            end = min(off + w, int(pj.plens[i]))
+            offs[i] = off
+            ctoks[i, : end - off] = np.asarray(r.prompt[off:end], np.int64)
+            if end >= pj.plens[i]:
+                fin[i] = True
+                last_idx[i] = int(pj.plens[i]) - 1 - off
+            pj.offsets[i] = end
+        logits, pj.caches = model_api.prefill_chunk(
+            self.cfg, self.params, torch.from_numpy(ctoks).to(self.device), pj.caches,
+            torch.from_numpy(offs).to(self.device), torch.from_numpy(last_idx).to(self.device),
+        )
+        if pj.first_logits is None:
+            pj.first_logits = logits
+        else:
+            fin_dev = torch.from_numpy(fin).to(self.device)
+            pj.first_logits = torch.where(fin_dev[:, None], logits, pj.first_logits)
+        pj.done |= fin[: len(pj.batch)]
+
+    def _complete_join(
+        self, pj: _PendingJoin, sched: Scheduler, pool: SlotPool, tok, pos, active,
+        generator, step, on_token, sync, pending,
+    ):
+        """Every prompt consumed: join the pool, seed the lanes with their
+        first tokens, insert the prompts into the prefix trie."""
+        first = sample_token(pj.first_logits, generator, self.temperature)
+        pool.join(pj.caches, pj.slots, pj.floors)
+        tok, pos = self._seed_lanes(sched, pool, pj.batch, pj.slots, first, pj.plens,
+                                    tok, pos, active, step, on_token, sync, pending)
+        if self._trie is not None:
+            for i, r in enumerate(pj.batch):
+                self._trie.insert(r.prompt, int(pj.plens[i]), pj.caches, i)
+                if pj.nodes[i]:
+                    self._trie.release(pj.nodes[i])
+        return tok, pos
+
+
+def _pow2_rows(n: int) -> int:
+    """Rows of a join: ``n`` rounded up to a power of two, as the reference
+    bounds its compiled prefill shapes (filler rows are dropped at the join)."""
+    rows = 1
+    while rows < n:
+        rows *= 2
+    return rows
+
+
+def _attach_prefix(caches, spans, row: int, attach: int) -> None:
+    """Write a gathered prefix span into positions ``[0, attach)`` of one row
+    of the standalone caches, in place (the span may run past ``attach``)."""
+    for c, sp in zip(caches, spans):
+        if sp is not None:
+            c.k[row, :attach] = sp[0][:attach].to(c.k.dtype)
+            c.v[row, :attach] = sp[1][:attach].to(c.v.dtype)
+
+
+def _zero_floors(rows: int, fls, device):
+    """Zero scale floors per layer, ``[rows, n_kv]``; rows that attach a
+    quantized prefix overwrite theirs."""
+    return [
+        None if f is None else tuple(
+            torch.zeros((rows, f[0].shape[-1]), dtype=torch.float32, device=device)
+            for _ in range(2))
+        for f in fls
+    ]

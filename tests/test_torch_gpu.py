@@ -366,6 +366,110 @@ def test_continuous_engine_runs_every_gemm_on_the_kernel(cuda_device):
     assert all(len(report.outputs[r.rid]) == r.max_new_tokens for r in trace)
 
 
+def _chunk_inputs(cfg, device, rows=4, lb=32, w=8):
+    """Caches with a random history and one chunk at mixed offsets: a
+    prompt start, a resume, a chunk running past the bucket, a sentinel."""
+    rng = np.random.default_rng(2)
+    fused = cfg.n_kv * cfg.head_dim_
+    caches = api.init_state(cfg, rows, lb, torch.float32, device)
+    for c in caches:
+        c.k.copy_(torch.from_numpy(rng.normal(size=(rows, lb, fused)).astype(np.float32)))
+        c.v.copy_(torch.from_numpy(rng.normal(size=(rows, lb, fused)).astype(np.float32)))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (rows, w))).to(device)
+    offsets = torch.tensor([0, 13, 28, lb], device=device)
+    last_idx = torch.tensor([7, 3, 3, 0], device=device)
+    return toks, caches, offsets, last_idx
+
+
+def test_chunk_step_on_the_card_matches_the_cpu(cuda_device):
+    """api.prefill_chunk on the card (fp32: K1's tile route) against the
+    same step on the CPU (the plain GEMM): logits and K/V within the fp32
+    tolerance; the dropped writes leave the history bit for bit."""
+    cfg = dataclasses.replace(get_config("chatglm3-6b").reduced(), n_layers=2)
+    params = api.init_params(cfg, torch.Generator(device="cpu").manual_seed(0), "cpu")
+    params_dev = _to(params, cuda_device)
+    want, want_c = api.prefill_chunk(cfg, params, *_chunk_inputs(cfg, "cpu"))
+    inputs = _chunk_inputs(cfg, cuda_device)
+    history = [c.k.clone() for c in inputs[1]]
+    before = opope_gemm.launches
+    with torch.inference_mode():
+        got, got_c = api.prefill_chunk(cfg, params_dev, *inputs)
+    assert opope_gemm.launches - before == 7 * cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-3 * max(1.0, want.abs().max().item()))
+    for g, w, h in zip(got_c, want_c, history):
+        torch.testing.assert_close(g.k.cpu(), w.k, rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(g.v.cpu(), w.v, rtol=1e-4, atol=1e-3)
+        assert torch.equal(g.k[3], h[3]) and torch.equal(g.k[0, 8:], h[0, 8:])
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3", "fp8_e5m2"])
+def test_quantized_decode_step_on_the_card_matches_the_cpu(cuda_device, fmt):
+    """One api.decode_at over a quantized pool on the card (fp32 weights)
+    against the CPU: logits within the fp32 tolerance, and the appended
+    codes written at each row's own position (fp8 moves as bytes)."""
+    from repro_torch.serve import SlotPool
+
+    cfg = get_config("chatglm3-6b").reduced()
+    params = api.init_params(cfg, torch.Generator(device="cpu").manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)))
+    outs = []
+    for device, p in (("cpu", params), (cuda_device, _to(params, cuda_device))):
+        with torch.inference_mode():
+            _, caches = api.prefill_bucketed(cfg, p, toks.to(device),
+                                             torch.tensor([12, 9], device=device), torch.float32)
+            pool = SlotPool.create(cfg, 3, 24, torch.float32, device, kv_format=fmt)
+            pool.join(caches, [2, 0])
+            pos = torch.tensor([9, 0, 12], device=device)
+            logits, new = api.decode_at(cfg, p, torch.tensor([[5], [0], [7]], device=device),
+                                        pool.caches, pos)
+        outs.append((logits.cpu(), [(c.k.view(torch.uint8) if c.k.element_size() == 1
+                                     else c.k).cpu() for c in new]))
+    (want, want_k), (got, got_k) = outs
+    torch.testing.assert_close(got[[0, 2]], want[[0, 2]], rtol=1e-4,
+                               atol=1e-3 * max(1.0, want.abs().max().item()))
+    for g, w in zip(got_k, want_k):
+        assert (g[0, :9] == w[0, :9]).all() and (g[2, :12] == w[2, :12]).all()
+        assert (g[0, 9] != 0).any() and (g[2, 12] != 0).any()
+
+
+def test_chunked_prefix_cached_int8_serve_runs_on_the_kernels(cuda_device, monkeypatch):
+    """Chunked prefill, the prefix cache and an int8 pool on a reduced bf16
+    model: every GEMM on K1's sm90 route, one forward per decode or chunk
+    step, prefix hits, outputs of the right length."""
+    from repro_torch.serve import continuous, shared_prefix_trace
+
+    cfg = _reduced_bf16()
+    params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    chunk_steps = []
+
+    def counting(*a, **kw):
+        chunk_steps.append(1)
+        return orig(*a, **kw)
+
+    orig = continuous.model_api.prefill_chunk
+    monkeypatch.setattr(continuous.model_api, "prefill_chunk", counting)
+    trace = shared_prefix_trace(6, seed=1, vocab=cfg.vocab, prefix_len=40, tail_lens=(3, 9),
+                                gen_lens=(3, 6), mean_interarrival=1.0)
+    eng = ContinuousEngine(cfg=cfg, params=params, n_slots=2, max_len=64, prefill_chunk=16,
+                           prefix_cache=True, prefix_block=16, kv_format="int8")
+    before, routes = opope_gemm.launches, dict(opope_gemm.launches_by_route)
+    report = eng.serve(trace)
+    launches = opope_gemm.launches - before
+    assert launches == 7 * cfg.n_layers * (report.decode_steps + len(chunk_steps))
+    assert opope_gemm.launches_by_route["sm90"] - routes["sm90"] == launches
+    assert eng.prefix_cache_stats()["hits"] > 0
+    assert all(len(report.outputs[r.rid]) == r.max_new_tokens for r in trace)
+
+
 def test_reduced_deepseek_serves_every_expert_gemm_on_the_grouped_kernel(cuda_device):
     cfg = _reduced_bf16("deepseek-moe-16b")
     params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))

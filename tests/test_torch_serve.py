@@ -36,8 +36,8 @@ def model():
 
 @pytest.fixture(autouse=True)
 def _monolithic_reference(monkeypatch):
-    # The reference engine reads these knobs from the environment; the port
-    # serves the monolithic path only.
+    # Both engines read these knobs from the environment; the cases here
+    # serve the monolithic path (tests/test_torch_chunked.py: the chunked).
     for var in ("REPRO_PREFILL_CHUNK", "REPRO_PREFIX_CACHE", "REPRO_SLO_TTFT_MS",
                 "REPRO_SLO_ITL_MS"):
         monkeypatch.delenv(var, raising=False)
@@ -101,8 +101,7 @@ def test_continuous_engine_eos_and_streaming_match_jax(model):
 
 def test_unported_engine_options_raise(model):
     _, tcfg, _, tparams = model
-    for kw in ({"prefill_chunk": 8}, {"prefix_cache": True}, {"kv_format": "int8"},
-               {"slo_ttft_ms": 50.0}):
+    for kw in ({"slo_ttft_ms": 50.0}, {"slo_itl_ms": 20.0}):
         with pytest.raises(NotImplementedError):
             ContinuousEngine(cfg=tcfg, params=tparams, n_slots=2, max_len=32, **kw)
 
