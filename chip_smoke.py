@@ -25,7 +25,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
        of this run less 0.02), and (g) the same with int8 K/V lanes (half
        the bf16 pool's bytes a slot), plus the trie's gather and int8 scale
        adoption checked bitwise on the card — every K1 launch of (b)–(g)
-       counted and on its sm90 route;
+       counted and on its sm90 route — and (h) telemetry (``repro_torch.obs``):
+       (i) a 4-row masked decode step and a whole serve of (b)'s trace with
+       telemetry on and off — the same device kernels in the same order, the
+       same device-to-host copies and host syncs, the same greedy streams —
+       with the step's median wall time and the host time of a GEMM call on
+       and off; (ii) the prefix-cache trace of (f) with SLOs set: each
+       request's queue, prefix-attach and chunk-prefill phases sum to its
+       TTFT, the Chrome trace validates, 12 hits and 0 misses, 12 requests
+       admitted and retired, goodput 1.0 at SLOs of 1e9 ms and 0.0 at 1e-6
+       ms, and every K1 bucket of the decode step with a roofline fraction
+       at most 1.0; (iii) the scrape surface (``REPRO_METRICS_PORT``) fetched
+       on 127.0.0.1, ``/metrics`` equal to ``prometheus_text()`` after the
+       run;
 5. the grouped O-POPE GEMM kernel (K4) against its plain version on the
    card, at deepseek-moe-16b's expert shapes and chains for M = 1, 30 and 60
    (required on the sm90 route and checked on the tile route too; timed by
@@ -61,7 +73,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    steps through ``api.prefill``/``api.decode`` with exact launch counts,
    every K1, K2 and K5 launch required on the sm90 route —
    and (e) a decode step's wall and device time and its kernel split, each
-   kernel booked by its own name, none that the path launched at zero;
+   kernel booked by its own name, none that the path launched at zero; and
+   for chatglm3-6b (f) the shadow auditor with ``REPRO_AUDIT=1``: one MLP's
+   direct K2 calls audited against K1 within 5 % and no drift event, a
+   served q8 decode step audited nowhere;
 9. after deepseek-moe-16b's weights are freed, the ``kernels`` entry points
    of K3 and K6: (a) ``opope_attention_bhsd`` at chatglm3-6b's attention
    width (32 heads of 128, its 2 KV heads expanded) at a 4 x 2048 causal
@@ -751,6 +766,341 @@ def prompt_phase(torch, np, cfg, params, ops, dev):
         f"{cfg.n_layers} layers equals the K/V it was inserted from (payloads are copies); "
         f"int8 scale adoption over {rows} x {matched} x {k0.shape[-1]} K/V gives back every "
         f"code and scale")
+    return out, on_eng
+
+
+def _device_traces(torch, fns, what):
+    """Each of ``fns`` in turn inside one torch.profiler session (CUDA
+    activity only): for each, (device activity names in launch order,
+    device-to-host copies, host synchronizations, its result).
+
+    Everything is ordered by CUPTI correlation id, which counts the host's
+    runtime calls (launches, copies, syncs) and tags each device event with
+    its launch's: by start time, one fill and one sin kernel of a
+    151358-kernel serve traded places between two runs on an H100. The runs
+    are compared inside one session, cut apart by marker kernels (an int16
+    fill: the port launches no int16 kernel), because the profiler drops
+    the first device events of a session, more in each later session of a
+    process (on an H100: a serve's first 7 to 29 kernels, later the marker
+    itself); 64 markers pad the session's start. Events come from
+    the Kineto results directly (``prof.events()`` takes minutes at 10^5
+    kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def marker():
+        torch.full((1,), 7, dtype=torch.int16, device="cuda")
+
+    results = []
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            marker()
+        torch.cuda.synchronize()
+        for fn in fns:
+            marker()
+            results.append(fn())
+            torch.cuda.synchronize()
+        marker()
+        t1 = time.perf_counter()
+    raw = prof.profiler.kineto_results.events()
+    device = sorted((e.correlation_id(), e.start_ns(), e.name()) for e in raw
+                    if e.device_type() == DeviceType.CUDA)
+    syncs = [e.correlation_id() for e in raw
+             if e.device_type() != DeviceType.CUDA and "Synchronize" in e.name()]
+    cuts = [c for c, _, n in device if "FillFunctor<short>" in n][-(len(fns) + 1):]
+    if len(cuts) != len(fns) + 1:
+        raise AssertionError(f"4(h) {what}: the profiler recorded {len(cuts)} of the "
+                             f"{len(fns) + 1} markers that cut the runs apart")
+    out = []
+    for i, result in enumerate(results):
+        dev = [n for c, _, n in device if cuts[i] < c < cuts[i + 1]]
+        d2h = sum("DtoH" in x or "Device -> Pageable" in x or "Device -> Pinned" in x
+                  for x in dev)
+        n_sync = sum(cuts[i] < c < cuts[i + 1] for c in syncs)
+        if not n_sync:  # each run ends on a synchronize of its own
+            raise AssertionError(f"4(h) {what}: no host sync recorded in run {i}")
+        out.append((dev, d2h, n_sync, result))
+    log(f"(h) {what}: {len(device)} device events; runs under the profiler {t1 - t0:.1f} s, "
+        f"its session's end and the trace read {time.perf_counter() - t1:.1f} s")
+    return out
+
+
+def _first_difference(a, b):
+    """Where two name sequences part, and which names one has more of."""
+    import collections
+
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    ca, cb = collections.Counter(a), collections.Counter(b)
+    return (f"first difference at event {i} ({a[i:i + 1]} vs {b[i:i + 1]}); more on the "
+            f"left: {dict((ca - cb).most_common(3))}; more on the right: "
+            f"{dict((cb - ca).most_common(3))}")
+
+
+def telemetry_phase(torch, cfg, params, ops, dev, warm_eng):
+    """Phase 4(h) on chatglm3-6b's resident weights: telemetry on against
+    off (the same device kernels, copies and syncs; host cost a step and a
+    GEMM call), the lifecycle trace and SLO goodput on the prefix-cache
+    trace, and the scrape surface."""
+    import os
+    import threading
+    import urllib.request
+
+    from repro_torch import obs
+    from repro_torch.kernels.opope_gemm import opope_gemm
+    from repro_torch.obs import attr as obs_attr
+    from repro_torch.obs import http as obs_http
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import tracing as obs_tracing
+    from repro_torch.serve import ContinuousEngine, SlotPool, poisson_trace, shared_prefix_trace
+
+    out = {}
+    t_phase = time.perf_counter()
+    obs.reset()
+    obs_tracing.reset()
+
+    # (i) a 4-row masked decode step as the engine runs it: its step scope,
+    # the decode, the per-tick attribution and histogram.
+    eng = ContinuousEngine(cfg=cfg, params=params, n_slots=4, max_len=256)
+    pool = SlotPool.create(cfg, 4, 256, torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tok0 = torch.randint(0, cfg.vocab, (4, 1), device=dev, generator=gen)
+    pos0 = torch.full((4,), 64, dtype=torch.int64, device=dev)
+    active = torch.ones(4, dtype=torch.bool, device=dev)
+
+    def tick():
+        t0 = time.perf_counter()
+        with torch.inference_mode(), eng._steps.dispatch(("decode",), "decode") as st:
+            tok, pool.caches, _ = eng._decode(pool.caches, tok0, pos0, active, gen)
+        dt = time.perf_counter() - t0
+        obs.histogram("serve.step_seconds").observe(dt)
+        if st.workload:
+            obs_attr.observe_step(st.workload, dt)
+        return tok
+
+    def with_telemetry(flag, fn):
+        prev = obs_metrics.set_enabled(flag)
+        try:
+            return fn()
+        finally:
+            obs_metrics.set_enabled(prev)
+
+    tick()  # the capturing dispatch
+    sync(torch, dev)
+    step_trace = dict(zip((True, False), _device_traces(
+        torch, [functools.partial(with_telemetry, flag, tick) for flag in (True, False)],
+        "decode step")))
+    if step_trace[True][:3] != step_trace[False][:3]:
+        raise AssertionError(f"4(h) decode step: telemetry on and off differ: "
+                             f"{len(step_trace[True][0])} vs {len(step_trace[False][0])} device "
+                             f"events, D2H {step_trace[True][1]} vs {step_trace[False][1]}, "
+                             f"syncs {step_trace[True][2]} vs {step_trace[False][2]}; "
+                             + _first_difference(step_trace[True][0], step_trace[False][0]))
+    if not torch.equal(step_trace[True][3], step_trace[False][3]):
+        raise AssertionError("4(h) decode step: the sampled tokens differ on and off")
+    n_k1 = sum("opope_gemm_kernel" in n for n in step_trace[True][0])
+    if n_k1 != 7 * cfg.n_layers:
+        raise AssertionError(f"4(h) decode step: {n_k1} K1 kernels in the trace, want "
+                             f"{7 * cfg.n_layers}")
+    # Host wall of single steps, telemetry on and off in turns (the host's
+    # own spread is wide: 46-95 ms a step from run to run).
+    walls = {True: [], False: []}
+    gc.collect()
+    for i in range(48):
+        flag = (i % 4) in (0, 3)  # on, off, off, on, ...
+
+        def timed_step(flag=flag):
+            t0 = time.perf_counter()
+            tick()
+            walls[flag].append(time.perf_counter() - t0)
+        with_telemetry(flag, timed_step)
+    sync(torch, dev)
+    quart = {flag: [1e3 * sorted(w)[len(w) * q // 4] for q in (1, 2, 3)]
+             for flag, w in walls.items()}
+    med = {flag: q[1] for flag, q in quart.items()}
+    # The host time of one direct K1 call at the decode step's wq shape:
+    # telemetry on (every direct call counts), off, and inside a quiet step
+    # scope (what a served step's later dispatches pay).
+    x = torch.randn(4, cfg.d_model, device=dev, dtype=torch.bfloat16)
+    w = params["blocks"][0]["attn"]["wq"]["w"]
+
+    def call_us(n=300):
+        ops.matmul(x, w)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ops.matmul(x, w)
+        host = time.perf_counter() - t0
+        sync(torch, dev)
+        return 1e6 * host / n
+
+    def quiet_us():
+        with obs_attr.step_scope(False):
+            return call_us()
+
+    per_call = {"on": with_telemetry(True, call_us), "off": with_telemetry(False, call_us),
+                "quiet_scope": with_telemetry(True, quiet_us)}
+    log(f"(h)(i) 4-row masked decode step: {len(step_trace[True][0])} device events, "
+        f"{n_k1} K1, D2H copies {step_trace[True][1]}, host syncs {step_trace[True][2]}, "
+        f"identical with telemetry on and off; wall over {len(walls[True])} steps each, in "
+        f"turns (quartiles): on {quart[True][0]:.3f} / {med[True]:.3f} / {quart[True][2]:.3f} "
+        f"ms, off {quart[False][0]:.3f} / {med[False]:.3f} / {quart[False][2]:.3f} ms (medians "
+        f"{med[True] - med[False]:+.3f} ms); host "
+        f"time a direct GEMM call ({x.shape[0]}x{w.shape[0]} @ {w.shape[0]}x{w.shape[1]} on "
+        f"K1): on {per_call['on']:.2f} us, off {per_call['off']:.2f} us, in a quiet step "
+        f"scope {per_call['quiet_scope']:.2f} us")
+
+    t_step = time.perf_counter()
+    # (i) a whole serve of 4(b)'s Poisson trace on fresh engines, on and off.
+    def poisson():
+        return poisson_trace(8, seed=0, vocab=cfg.vocab, prompt_lens=(32, 64, 128),
+                             gen_lens=(8, 16, 32))
+
+    def serve_fresh():
+        e = ContinuousEngine(cfg=cfg, params=params, n_slots=4, max_len=256)
+        _reset_k1(ops, opope_gemm)
+        report = e.serve(poisson())
+        check_routes(opope_gemm, opope_gemm.launches, "4(h) serve")
+        return report, opope_gemm.launches
+
+    on, off = (trace[:3] + trace[3] for trace in _device_traces(
+        torch, [functools.partial(with_telemetry, flag, serve_fresh) for flag in (True, False)],
+        "serve"))
+    if on[:3] != off[:3] or on[4] != off[4]:
+        raise AssertionError(f"4(h) serve: telemetry on and off differ: {len(on[0])} vs "
+                             f"{len(off[0])} device events, D2H {on[1]} vs {off[1]}, syncs "
+                             f"{on[2]} vs {off[2]}, K1 launches {on[4]} vs {off[4]}; "
+                             + _first_difference(on[0], off[0]))
+    if on[3].outputs != off[3].outputs:
+        raise AssertionError("4(h) serve: greedy streams differ with telemetry on and off")
+    n_k1 = sum("opope_gemm_kernel" in n for n in on[0])
+    if n_k1 != on[4] or on[1] < 1:
+        raise AssertionError(f"4(h) serve: {n_k1} K1 kernels in the trace against {on[4]} "
+                             f"launches counted; {on[1]} D2H copies")
+    log(f"(h)(i) serve of 4(b)'s trace: {len(on[0])} device events ({n_k1} K1, all sm90), "
+        f"D2H copies {on[1]}, host syncs {on[2]}, identical with telemetry on and off; greedy "
+        f"streams identical")
+    t_serve = time.perf_counter()
+    out["on_off"] = {"decode_step_wall_ms_quartiles": quart, "gemm_call_host_us": per_call,
+                     "decode_step_device_events": len(step_trace[True][0]),
+                     "serve_device_events": len(on[0]), "serve_d2h": on[1],
+                     "serve_syncs": on[2]}
+
+    # (ii) the bench_prefix_cache trace on 4(f)'s engine (chunked prefill,
+    # the prefix cache; its trie warm) with SLOs set.
+    def prefix_trace():
+        return shared_prefix_trace(12, seed=0, vocab=cfg.vocab, prefix_len=192,
+                                   tail_lens=(8, 12, 16), gen_lens=(8, 16, 24),
+                                   mean_interarrival=2.0)
+
+    os.environ["REPRO_METRICS_PORT"] = "0"
+    server = obs_http.maybe_serve_from_env()
+
+    def fetch(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}{path}", timeout=10) as r:
+            return r.read().decode()
+
+    try:
+        obs.reset()
+        obs_tracing.reset()
+        warm_eng.slo_ttft_ms = warm_eng.slo_itl_ms = 1e9
+        report = warm_eng.timed_serve(prefix_trace())
+        snap = obs.snapshot()
+        c = snap["counters"]
+        reqs = obs_tracing.snapshot()["requests"]
+        phases = ("queue", "prefix_attach", "chunk_prefill")
+        worst = 0.0
+        for r in reqs:
+            names = [p["name"] for p in r["phases"]]
+            if names != list(phases) + ["decode"]:
+                raise AssertionError(f"4(h) request {r['rid']}: phases {names}")
+            (first,) = [i for i in r["instants"] if i["name"] == "first_token"]
+            total = sum(p["t1"] - p["t0"] for p in r["phases"] if p["name"] in phases)
+            worst = max(worst, abs(total - first["ttft_s"]))
+        if len(reqs) != 12 or worst > 1e-9:
+            raise AssertionError(f"4(h) {len(reqs)} requests traced; phases off TTFT by {worst}")
+        n_spans = obs_tracing.validate_chrome_trace(obs_tracing.chrome_trace())
+        hits = c.get("serve.prefix_cache.hits", {}).get("", 0)
+        misses = c.get("serve.prefix_cache.misses", {}).get("", 0)
+        served = c["serve.requests"]
+        tokens = c["serve.tokens"][""]
+        if (n_spans, hits, misses) != (12, 12, 0) or served != {"event=admitted": 12,
+                                                               "event=retired": 12}:
+            raise AssertionError(f"4(h) spans {n_spans}, hits {hits}, misses {misses}, "
+                                 f"requests {served}")
+        # serve.tokens counts decode-step tokens; each request's first token
+        # comes from its prefill logits at the join.
+        if tokens + served["event=admitted"] != report.generated_tokens:
+            raise AssertionError(f"4(h) serve.tokens {tokens} + 12 first tokens != "
+                                 f"generated {report.generated_tokens}")
+        if report.goodput != 1.0:
+            raise AssertionError(f"4(h) goodput at SLO 1e9 ms: {report.goodput}")
+        fractions = {}
+        for label, h in snap["histograms"]["gemm.roofline_fraction"].items():
+            d = dict(p.split("=", 1) for p in label.split(","))
+            fractions[d["bucket"]] = (h["count"], h["p50"], h["max"])
+            if d["backend"] != "cuda" or not 0.0 < h["max"] <= 1.0:
+                raise AssertionError(f"4(h) roofline fraction {label}: {h}")
+        decode_buckets = {e.bucket for e in warm_eng._steps.workloads[("decode",)].values()}
+        chunk_buckets = {e.bucket for k, wl in warm_eng._steps.workloads.items() if len(k) == 4
+                         for e in wl.values()}
+        if not decode_buckets <= set(fractions) or not chunk_buckets & set(fractions):
+            raise AssertionError(f"4(h) K1 buckets without a roofline fraction: decode "
+                                 f"{sorted(decode_buckets - set(fractions))}; chunk steps "
+                                 f"read {sorted(chunk_buckets & set(fractions))}")
+        decode_frac = fractions[sorted(decode_buckets)[0]][1]
+        log(f"(h)(ii) prefix-cache trace, chunked prefill + prefix cache, SLOs 1e9 ms: 12 "
+            f"requests, phases sum to TTFT (worst {worst:.2g} s), {n_spans} spans validated, "
+            f"hits {hits}, misses {misses}, admitted/retired 12/12, serve.tokens {tokens:.0f} + "
+            f"12 first tokens = {report.generated_tokens}, goodput {report.goodput}; p50 queue "
+            f"{report.queue_p50 * 1e3:.3f} ms, attach {report.attach_p50 * 1e3:.3f} ms, chunk "
+            f"prefill {report.chunk_prefill_p50 * 1e3:.3f} ms, TTFT {report.ttft_p50 * 1e3:.3f} "
+            f"ms, ITL {report.itl_p50 * 1e3:.3f} ms, {report.tokens_per_sec:.1f} tokens/s")
+        for bucket, (n, p50, mx) in sorted(fractions.items()):
+            log(f"(h)(ii)   gemm.roofline_fraction {bucket}: {n} steps, p50 {p50:.4g}, max "
+                f"{mx:.4g}")
+        out["prefix_trace"] = {
+            "tokens_per_s": report.tokens_per_sec, "ttft_p50_s": report.ttft_p50,
+            "queue_p50_s": report.queue_p50, "attach_p50_s": report.attach_p50,
+            "chunk_prefill_p50_s": report.chunk_prefill_p50, "itl_p50_s": report.itl_p50,
+            "roofline_fraction": fractions, "decode_roofline_fraction_p50": decode_frac}
+
+        # The same at SLOs of 1e-6 ms, with /requests polled while it runs.
+        seen, stop = [], threading.Event()
+
+        def poll():
+            while not stop.is_set():
+                seen.append(len(json.loads(fetch("/requests"))))
+                stop.wait(0.2)
+
+        poller = threading.Thread(target=poll, daemon=True)
+        warm_eng.slo_ttft_ms = warm_eng.slo_itl_ms = 1e-6
+        poller.start()
+        try:
+            report = warm_eng.serve(prefix_trace())
+        finally:
+            stop.set()
+            poller.join(timeout=10)
+        if report.goodput != 0.0:
+            raise AssertionError(f"4(h) goodput at SLO 1e-6 ms: {report.goodput}")
+        # (iii) the scrape surface after the run.
+        scraped = fetch("/metrics")
+        if scraped != obs.prometheus_text():
+            raise AssertionError("4(h) /metrics differs from prometheus_text()")
+        n_trace = obs_tracing.validate_chrome_trace(json.loads(fetch("/trace")))
+        if n_trace != 24 or not seen or max(seen) < 1 or json.loads(fetch("/requests")):
+            raise AssertionError(f"4(h) /trace spans {n_trace}, /requests in flight {seen}")
+        log(f"(h)(ii) goodput at SLOs 1e-6 ms: {report.goodput}; (iii) scrape on 127.0.0.1:"
+            f"{server.port}: /requests polled {len(seen)} times during the run (up to "
+            f"{max(seen)} in flight), /trace {n_trace} spans validated, /metrics "
+            f"({len(scraped)} bytes) equal to prometheus_text() after the run")
+    finally:
+        warm_eng.slo_ttft_ms = warm_eng.slo_itl_ms = None
+        obs_http.shutdown()
+        del os.environ["REPRO_METRICS_PORT"]
+    t_end = time.perf_counter()
+    log(f"(h) took {t_end - t_phase:.1f} s: (i) decode step {t_step - t_phase:.1f} s, serve "
+        f"{t_serve - t_step:.1f} s; (ii)-(iii) {t_end - t_serve:.1f} s")
     return out
 
 
@@ -1415,11 +1765,12 @@ def _greedy_decode(torch, api, cfg, params, prompts, gen, policy):
 
 
 def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops, ep, kernels,
-                   dev, tag):
+                   dev, tag, audit=False):
     """Phase 8 for one model on its full-width weights, under ``policy`` on
     the kernels and ``plain_policy`` on the plain versions. ``per_layer``
     maps each kernel name of ``kernels`` to its launches per layer and
-    forward on the quantized main path."""
+    forward on the quantized main path. ``audit``: (f), the shadow auditor
+    on direct K2 calls and on a served q8 step."""
     from repro_torch.models import api
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tf_mod
@@ -1555,9 +1906,64 @@ def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops,
             f"{dev_ms['busy']:.3f} ms: " + ", ".join(f"{k} {dev_ms[k]:.3f} ms" for k in names)
             + f", other kernels (the per-call quantization passes among them) "
             f"{dev_ms['other']:.3f} ms")
+    audited = q8_audit(torch, cfg, params, policy, kernels, dev, tag) if audit else None
     return {"launches": launches, "layer_err": layer_err, "logits_rms": d_k,
             "logits_floor_rms": d_f, "q8_vs_bf16": q8_vs_bf16, "greedy_s": wall,
-            "decode_step_ms": step_ms, "device_ms": dev_ms}
+            "decode_step_ms": step_ms, "device_ms": dev_ms, "audit": audited}
+
+
+def q8_audit(torch, cfg, params, policy, kernels, dev, tag):
+    """Phase 8(f) (4(h)(iv)): with ``REPRO_AUDIT=1`` in force, one MLP of
+    direct calls (K2 at the model's three MLP shapes, each re-executed on K1
+    by the auditor) is audited within the q8 policy's 5 % with no drift
+    event; a served q8 decode step (its first, capturing dispatch and a
+    later, quiet one) is audited nowhere."""
+    from repro_torch import obs
+    from repro_torch.models import api
+    from repro_torch.models.layers import mlp_apply
+    from repro_torch.obs import attr as obs_attr
+    from repro_torch.obs import audit as obs_audit
+
+    obs.reset()
+    obs.clear_events()
+    obs_audit.set_audit_every(1)
+    try:
+        x = torch.randn(4, cfg.d_model, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(5)).to(torch.bfloat16)
+        k1_0, k2_0 = kernels["K1"].launches, kernels["K2"].launches
+        with torch.inference_mode():
+            mlp_apply(params["blocks"][0]["mlp"], x, backend=policy, residual=x)
+        sync(torch, dev)
+        snap = obs.snapshot()
+        audits = snap["counters"].get("numerics.audits", {})
+        rel = snap["histograms"].get("numerics.rel_err", {})
+        drift = obs.recent_events(kind="numerics_drift")
+        k1, k2 = kernels["K1"].launches - k1_0, kernels["K2"].launches - k2_0
+        worst = max((h["max"] for h in rel.values()), default=None)
+        if (audits != {"backend=cuda_q8,family=q8,shape=dense": 3.0} or (k1, k2) != (3, 3)
+                or worst is None or not worst < 0.05 or drift):
+            raise AssertionError(f"{tag} (f) audit: {audits}, K1/K2 launches {k1}/{k2}, "
+                                 f"max rel_err {worst}, drift events {drift}")
+        # A served step: the engines run each dispatch in a step scope.
+        prompts = torch.randint(0, cfg.vocab, (4, 16), device=dev)
+        obs_audit.set_audit_every(0)
+        with torch.inference_mode():
+            logits, caches = api.prefill(cfg, params, {"tokens": prompts}, 24, backend=policy)
+            tok = logits.argmax(-1)[:, None]
+            obs_audit.set_audit_every(1)
+            for i, capture in enumerate((True, False)):
+                with obs_attr.step_scope(capture):
+                    logits, caches = api.decode(cfg, params, tok, caches, 16 + i, backend=policy)
+        sync(torch, dev)
+        after = obs.snapshot()["counters"].get("numerics.audits", {})
+        if after != audits:
+            raise AssertionError(f"{tag} (f) a served q8 step was audited: {after}")
+        log(f"{tag} (f) REPRO_AUDIT=1: the 3 direct MLP calls audited (K2, re-executed on K1: "
+            f"K1 +{k1}, K2 +{k2} launches), max rel_err {worst:.4g} < 0.05, no drift event; "
+            f"a served q8 decode step (capturing and quiet dispatch) audited none")
+        return {"audits": 3, "max_rel_err": worst}
+    finally:
+        obs_audit.set_audit_every(None)
 
 
 # K3 against its plain version: fp32 within rtol = atol = 2e-4 (the
@@ -1980,7 +2386,9 @@ def main() -> int:
     dev = torch.device("cuda")
     layer, rows, max_err = kernel_phase(torch, ep, cfg, mcfg, dev)
     res = model_phase(torch, np, cfg, ops, dev)
-    prompt_phase(torch, np, cfg, res["params"], ops, dev)
+    _, prefix_eng = prompt_phase(torch, np, cfg, res["params"], ops, dev)
+    telemetry_phase(torch, cfg, res["params"], ops, dev, prefix_eng)
+    del prefix_eng
 
     # One layer's 7 GEMMs of a 4-slot decode step (and of a 512-row
     # prefill), from the timed rows.
@@ -2014,7 +2422,7 @@ def main() -> int:
     glm_q8 = q8_model_phase(
         torch, np, cfg, res.pop("params"), qz.mlp_q8_policy(),
         qz.PrecisionPolicy(rules={"mlp": "torch_q8", "moe": "torch_q8"}, default="torch"),
-        {"K1": 4, "K2": 3}, ops, ep, kernels, dev, "8 chatglm3-6b q8")
+        {"K1": 4, "K2": 3}, ops, ep, kernels, dev, "8 chatglm3-6b q8", audit=True)
     # Free chatglm3-6b before deepseek-moe-16b's 33 GB are drawn.
     gc.collect()
     torch.cuda.empty_cache()

@@ -22,6 +22,18 @@ The port of the ``matmul``/``linear``/``grouped_matmul`` core of
 A backend that cannot take the tensors it is given raises: there are no
 fallback chains. Each backend keeps plain integer counts of the GEMMs it
 ran: ``calls`` for 2-D ones, ``grouped_calls`` for grouped ones.
+
+Telemetry (:mod:`repro_torch.obs`, host-side only): every entry-point call
+counts into ``gemm.calls`` (labels ``backend``, ``family``, ``shape``
+dense/grouped, ``tile`` and ``fusion``) and, under
+:class:`repro_torch.obs.attr.capture_gemms`, appends a ``GemmRecord``. The
+port has no tuning table, so ``tile`` is always ``"heuristic"`` and
+``fusion`` ``"default"`` (every backend runs the epilogue at its
+writeback). Inside an engine's quiet step scope (a step key's later
+dispatches) the call pays none of this; see :mod:`repro_torch.obs.attr`.
+``REPRO_AUDIT=N`` re-executes one in N direct q8-family calls on the
+backend's ``grad_backend`` (:mod:`repro_torch.obs.audit`); calls inside an
+engine step are never audited.
 """
 
 from __future__ import annotations
@@ -31,6 +43,9 @@ import math
 from typing import Callable, Dict, List, Optional
 
 import torch
+
+from repro_torch import obs as _obs
+from repro_torch.obs import attr as _attr
 
 from . import epilogue as _epi
 from .opope_gemm import opope_gemm, opope_gemm_plain
@@ -129,6 +144,50 @@ def family_of(name: str) -> str:
     return be.family
 
 
+def _note_gemm_call(
+    shape_family: str, backend: str, m: int, k: int, n: int, groups: int,
+    dtype, b_dtype, out_dtype,
+) -> None:
+    """Count one GEMM entry-point call into ``gemm.calls`` and, while a
+    capture is active, record it for utilization attribution. Host-side
+    only; a no-op with telemetry off or inside a quiet step scope."""
+    if not _obs.enabled() or _attr.step_quiet():
+        return
+    family = _REGISTRY[backend].family
+    _obs.counter(
+        "gemm.calls", backend=backend, family=family, shape=shape_family,
+        tile="heuristic", fusion="default",
+    ).inc()
+    if _attr.capturing():
+        _attr.record_call(_attr.GemmRecord(
+            shape_family=shape_family, backend=backend, family=family,
+            m=int(m), k=int(k), n=int(n), g=int(groups),
+            a_dtype=_dtype_name(dtype), b_dtype=_dtype_name(b_dtype),
+            out_dtype=_dtype_name(out_dtype), tile_source="heuristic",
+            tile_key=(backend, shape_family, int(m), int(k), int(n), int(groups),
+                      1 if family == "q8" else dtype.itemsize),
+        ))
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _maybe_audit_gemm(kind, backend, out, ref_fn, m, k, n, g=0) -> None:
+    """Shadow-audit hook for quantized-family entry-point calls: cheap
+    rejections first (telemetry off, fp family, inside an engine step), the
+    sampling gate in :mod:`repro_torch.obs.audit`."""
+    if not _obs.enabled() or _attr.in_step():
+        return
+    family = _REGISTRY[backend].family
+    if family == "fp":
+        return
+    _obs.audit.maybe_audit_gemm(
+        kind=kind, backend=backend, family=family, out=out, ref_fn=ref_fn,
+        m=int(m), k=int(k), n=int(n), g=int(g),
+    )
+
+
 def matmul(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -160,6 +219,7 @@ def matmul(
     batch_shape = tuple(arr.shape[:-1])
     m = math.prod(batch_shape)
     n = b.shape[-1]
+    _note_gemm_call("dense", name, m, arr.shape[-1], n, 0, arr.dtype, b.dtype, out_dtype)
     steps, raw_ops = _epi.normalize_epilogue(epilogue)
     if steps and c is not None:
         # C enters the accumulator linearly: preload-then-epilogue equals
@@ -187,10 +247,14 @@ def matmul(
         a2 = QuantizedTensor(
             a2, scale.reshape(m, 1) if scale.numel() == m else scale.reshape(1, 1))
     be.calls += 1
-    out = be.fn(
-        a2, b.contiguous(), c,
-        out_dtype=out_dtype, epilogue=steps, epilogue_operands=ep_ops,
-    )
+    b2 = b.contiguous()
+    out = be.fn(a2, b2, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ep_ops)
+    if not pre_q:  # a pre-quantized A has no fp twin to audit against
+        _maybe_audit_gemm(
+            "dense", name, out,
+            lambda: _REGISTRY[be.grad_backend].fn(
+                a2, b2, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ep_ops),
+            m, a2.shape[1], n)
     return out.reshape(*batch_shape, n)
 
 
@@ -236,6 +300,7 @@ def grouped_matmul(
     out_dtype = out_dtype or a.dtype
     name = resolve_backend(backend, a.device)
     g, m, n = a.shape[0], a.shape[1], b.shape[2]
+    _note_gemm_call("grouped", name, m, a.shape[2], n, g, a.dtype, b.dtype, out_dtype)
     steps, raw_ops = _epi.normalize_epilogue(epilogue)
     if steps and c is not None:
         name_c = "bias" if c.ndim == 2 else "residual"
@@ -248,7 +313,12 @@ def grouped_matmul(
     )
     be = _REGISTRY[name]
     be.grouped_calls += 1
-    return be.grouped_fn(
-        a.contiguous(), b.contiguous(), None if c is None else c.contiguous(),
-        out_dtype=out_dtype, epilogue=steps, epilogue_operands=ep_ops,
-    )
+    a2, b2, c2 = a.contiguous(), b.contiguous(), None if c is None else c.contiguous()
+    out = be.grouped_fn(a2, b2, c2, out_dtype=out_dtype, epilogue=steps,
+                        epilogue_operands=ep_ops)
+    _maybe_audit_gemm(
+        "grouped", name, out,
+        lambda: _REGISTRY[be.grad_backend].grouped_fn(
+            a2, b2, c2, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ep_ops),
+        m, a.shape[2], n, g=g)
+    return out

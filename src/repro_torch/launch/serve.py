@@ -10,6 +10,14 @@ from ``--seed``. ``--reduced`` serves the tiny same-family config.
 ``--kv-format`` narrows the continuous engine's K/V pool to int8 or fp8;
 ``REPRO_PREFILL_CHUNK=<power of two>`` turns on chunked prefill and
 ``REPRO_PREFIX_CACHE=1`` the prefix cache (with chunks of 32 unless set).
+``REPRO_SLO_TTFT_MS`` / ``REPRO_SLO_ITL_MS`` set the SLOs the report's
+goodput is measured against (there are no flags for them).
+
+The run's result is one JSON line on stdout; progress lines go through the
+structured logger (``REPRO_LOG=text|json``). ``REPRO_METRICS_PORT=<port>``
+starts the scrape server (``/metrics``, ``/requests``, ``/trace`` on
+127.0.0.1; 0 picks a free port), and ``--linger-seconds`` keeps the process
+and that server alive after the run so the final state can be fetched.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.models import api
 from repro_torch.models.transformer import param_dtype
@@ -64,6 +73,12 @@ def _continuous(cfg, params, device, args) -> dict:
     report = eng.timed_serve(
         trace, generator=torch.Generator(device=device).manual_seed(args.seed)
     )
+    log = obs.get_logger("serve")
+    log.info("phases", queue_p50_s=report.queue_p50, queue_p99_s=report.queue_p99,
+             attach_p50_s=report.attach_p50, chunk_prefill_p50_s=report.chunk_prefill_p50,
+             slot_hwm=report.slot_hwm)
+    if report.goodput is not None:
+        log.info("goodput", fraction=report.goodput)
     return {
         "engine": "continuous", "requests": len(trace),
         "tokens": report.generated_tokens, "wall_s": report.wall_time_s,
@@ -73,6 +88,11 @@ def _continuous(cfg, params, device, args) -> dict:
         "mean_occupancy": report.mean_occupancy,
         "ttft_p50_s": report.ttft_p50, "ttft_p99_s": report.ttft_p99,
         "itl_p50_s": report.itl_p50, "itl_p99_s": report.itl_p99,
+        "queue_p50_s": report.queue_p50, "queue_p99_s": report.queue_p99,
+        "attach_p50_s": report.attach_p50, "attach_p99_s": report.attach_p99,
+        "chunk_prefill_p50_s": report.chunk_prefill_p50,
+        "chunk_prefill_p99_s": report.chunk_prefill_p99,
+        "goodput": report.goodput, "slot_hwm": report.slot_hwm,
         "kv_format": args.kv_format, "kv_bytes_per_slot": report.kv_bytes_per_slot,
         "prefill_chunk": eng.prefill_chunk, "prefix_cache": eng.prefix_cache_stats(),
         "first_request_output": report.outputs[trace[0].rid],
@@ -96,18 +116,34 @@ def main(argv=None) -> dict:
     ap.add_argument("--kv-format", default=None, choices=(None, "int8", "fp8_e4m3", "fp8_e5m2"),
                     help="continuous engine: narrow K/V lanes (half the bf16 pool's bytes)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--linger-seconds", type=float, default=0.0,
+                    help="keep the process (and its REPRO_METRICS_PORT scrape server) alive "
+                    "this long after the run, so /metrics, /requests and /trace can be "
+                    "fetched from the final registry (SIGINT ends the linger early)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     device = api.resolve_device(args.device)
+    log = obs.get_logger("serve")
+    server = obs.http.maybe_serve_from_env()
+    if server is not None:
+        log.info("metrics_server", port=server.port, endpoints="/metrics /requests /trace")
     params = api.init_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed), device
     )
     run = _static if args.engine == "static" else _continuous
     out = {"arch": cfg.name, "device": str(device), **run(cfg, params, device, args)}
-    print(json.dumps(out))
+    print(json.dumps(out), flush=True)
+    if args.linger_seconds > 0 and server is not None:
+        # Nothing changes the registry any more: /metrics now serves what
+        # REPRO_METRICS_DUMP writes at exit.
+        log.info("metrics_linger", port=server.port, seconds=args.linger_seconds)
+        try:
+            time.sleep(args.linger_seconds)
+        except KeyboardInterrupt:
+            pass
     return out
 
 

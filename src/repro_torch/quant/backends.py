@@ -15,7 +15,9 @@ Both quantize the weight operand B on every call, as the reference does.
 An A operand that is already quantized (anything with ``.q``/``.scale``, the
 output of an upstream ``requant_int8`` epilogue) skips its quantization.
 The reference's fallback chains are not ported: a backend launches its
-kernel or raises.
+kernel or raises. Importing the module registers the family's shadow-audit
+drift policy (``rel_err=0.05``, :mod:`repro_torch.obs.audit`), as the
+reference's registration does.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
+
+from repro_torch.obs import audit
 
 from .opope_q8 import (
     opope_gemm_q8,
@@ -92,3 +96,9 @@ torch_q8 = _dense(opope_gemm_q8_plain)
 torch_q8_grouped = _grouped(opope_gemm_q8_grouped_plain)
 cuda_q8 = _dense(opope_gemm_q8)
 cuda_q8_grouped = _grouped(opope_gemm_q8_grouped)
+
+# Shadow-audit drift policy for the family (REPRO_AUDIT=N): per-row and
+# per-channel int8 keeps the max error within a few quantization steps of
+# the fp reference's max magnitude, well under 5 %. Breaching it means a
+# wrong scale, an overflow or a kernel bug, not quantization noise.
+audit.set_policy("q8", rel_err=0.05)

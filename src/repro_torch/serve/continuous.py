@@ -33,24 +33,45 @@ Prompt-side features (attention-only patterns, off by default: the
   quantized pool quantizes the attached span again at the prefix's own
   scales (scale adoption, :mod:`repro_torch.quant.kvcache`).
 
-``kv_format`` narrows the pool's K/V lanes (int8 or fp8). SLO goodput and
-tracing are not ported yet; setting ``slo_ttft_ms`` or ``slo_itl_ms`` raises
-``NotImplementedError``.
+``kv_format`` narrows the pool's K/V lanes (int8 or fp8).
+
+Telemetry (:mod:`repro_torch.obs`, host-side only; the step's device
+kernels are the same with it on or off). Every request's lifecycle —
+arrival, admission (with the fall-through bucket), prefix attach, chunk
+ticks, first token, each ITL, retirement — is stamped into
+:mod:`repro_torch.obs.tracing` keyed by ``Request.uid``. The ``queue`` /
+``prefix_attach`` / ``chunk_prefill`` phases are contiguous and share the
+TTFT stamps, so per request they sum to its ``serve.ttft_seconds`` sample.
+``slo_ttft_ms`` / ``slo_itl_ms`` (or ``REPRO_SLO_TTFT_MS`` /
+``REPRO_SLO_ITL_MS``) turn those stamps into ``ServingReport.goodput``.
+Each tick records the ``serve.*`` histograms, counters and gauges, and the
+prefix trie its ``serve.prefix_cache.*`` counters. Every step — a decode
+step, a prefill per (rows, bucket), a chunk step per (rows, bucket, width,
+first chunk of its join or not) — is dispatched through the engine's
+:class:`repro_torch.obs.attr.StepKeys`: its key's first dispatch captures its GEMM workload (and counts ``gemm.calls``, as the
+reference's trace does), later dispatches charge their host wall time to
+that workload (``gemm.roofline_fraction``) and pay no per-GEMM telemetry.
+The lifecycle stamps read host counts only: no telemetry reads a token
+value or synchronizes the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 import os
 import time
 import warnings
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.roofline import HardwareSpec, spec_for_device
+from repro_torch.obs import attr as _attr
+from repro_torch.obs import tracing as _tracing
+from repro_torch.obs.metrics import percentile
 from repro_torch.models import api as model_api
 from repro_torch.models.transformer import check_supported
 
@@ -64,21 +85,6 @@ __all__ = ["ContinuousEngine", "ServingReport", "percentile"]
 # blocking (decode never waits on a whole prefill) and keeps the slots
 # leased but not yet decoding bounded.
 _MAX_PENDING = 1
-
-
-def percentile(values: Sequence[float], q: float) -> Optional[float]:
-    """Linear-interpolated percentile (q in [0, 100]); ``None`` when there
-    are no samples — no data is not zero latency."""
-    if not values:
-        return None
-    xs = sorted(values)
-    if len(xs) == 1:
-        return float(xs[0])
-    rank = (q / 100.0) * (len(xs) - 1)
-    lo = int(math.floor(rank))
-    hi = min(lo + 1, len(xs) - 1)
-    frac = rank - lo
-    return float(xs[lo] * (1.0 - frac) + xs[hi] * frac)
 
 
 @dataclasses.dataclass
@@ -106,6 +112,115 @@ class _PendingJoin:
         return bool(self.done.all())
 
 
+class _Lifecycle:
+    """Per-``serve()`` request-lifecycle bookkeeping.
+
+    Owns the wall stamps the report's TTFT, ITL and phase percentiles and
+    its goodput are computed from, emits the phase histograms, and mirrors
+    every lifecycle edge into :mod:`repro_torch.obs.tracing`. The phase
+    chain — queue → prefix_attach → chunk_prefill → decode (chunked) or
+    queue → prefill → decode (monolithic) — is contiguous and shares these
+    exact stamps, so each request's pre-decode phases sum to its
+    ``serve.ttft_seconds`` sample.
+    """
+
+    def __init__(self) -> None:
+        self.arrive: Dict[int, float] = {}  # rid -> clock-start stamp
+        self.admit: Dict[int, float] = {}  # rid -> queue-exit stamp
+        self.attach: Dict[int, float] = {}  # rid -> attach-done stamp
+        self.last_tok: Dict[int, float] = {}
+        self.ttfts: List[float] = []
+        self.itls: List[float] = []
+        self.queue_s: List[float] = []
+        self.attach_s: List[float] = []
+        self.chunk_s: List[float] = []
+        self.ttft_by_rid: Dict[int, float] = {}
+        self.itl_max: Dict[int, float] = {}
+
+    def arrival(self, r: Request, ts: float) -> None:
+        """Queue enter: the loop reached the request's arrival tick."""
+        self.arrive[r.rid] = ts
+        _tracing.begin_request(r.uid, r.rid, ts)
+
+    def admitted(self, batch: List[Request], ts: float, bucket, fallthrough: bool,
+                 phase: str) -> None:
+        """Queue exit: the scheduler popped ``batch`` for one join."""
+        for r in batch:
+            q = ts - self.arrive.get(r.rid, ts)
+            self.admit[r.rid] = ts
+            self.queue_s.append(q)
+            _obs.histogram("serve.queue_seconds").observe(q)
+            _tracing.annotate(r.uid, bucket=bucket, fallthrough=fallthrough)
+            _tracing.instant(r.uid, "admitted", ts, bucket=bucket, fallthrough=fallthrough,
+                             queue_s=q)
+            _tracing.begin_phase(r.uid, phase, ts)
+
+    def attached(self, batch: List[Request], ts: float) -> None:
+        """Chunked path: slots leased and cached prefixes attached; the
+        chunk pipeline owns the request from here to its first token."""
+        for r in batch:
+            a = ts - self.admit.get(r.rid, ts)
+            self.attach[r.rid] = ts
+            self.attach_s.append(a)
+            _obs.histogram("serve.prefill_attach_seconds").observe(a)
+            _tracing.begin_phase(r.uid, "chunk_prefill", ts)
+
+    def first_token(self, batch: List[Request], sched: Scheduler, eos_id, ts: float,
+                    chunked: bool) -> None:
+        """First token sampled (from prefill logits, at join): closes the
+        TTFT window and the last pre-decode phase with the same stamp."""
+        _obs.counter("serve.requests", event="admitted").inc(len(batch))
+        for r in batch:
+            ttft = ts - self.arrive.get(r.rid, ts)
+            self.ttfts.append(ttft)
+            self.ttft_by_rid[r.rid] = ttft
+            self.last_tok[r.rid] = ts
+            _obs.histogram("serve.ttft_seconds").observe(ttft)
+            if chunked:
+                c = ts - self.attach.get(r.rid, ts)
+                self.chunk_s.append(c)
+                _obs.histogram("serve.chunk_prefill_seconds").observe(c)
+            _tracing.instant(r.uid, "first_token", ts, ttft_s=ttft)
+            _tracing.begin_phase(r.uid, "decode", ts)
+            st = sched.states[r.rid]
+            if st.done:  # one-token request: retires at its own join tick
+                _obs.counter("serve.requests", event="retired").inc()
+                reason = ("eos" if eos_id is not None and st.tokens and st.tokens[-1] == eos_id
+                          else "budget")
+                self.retired(r, st, reason, ts)
+
+    def token(self, r: Request, ts: float) -> None:
+        prev = self.last_tok.get(r.rid)
+        if prev is not None:
+            itl = ts - prev
+            self.itls.append(itl)
+            self.itl_max[r.rid] = max(self.itl_max.get(r.rid, 0.0), itl)
+            _obs.histogram("serve.itl_seconds").observe(itl)
+            _tracing.instant(r.uid, "token", ts, itl_s=itl)
+        self.last_tok[r.rid] = ts
+
+    def retired(self, r: Request, st, reason: str, ts: float) -> None:
+        _obs.event("request_retired", uid=r.uid, rid=r.rid, reason=reason,
+                   tokens=st.n_emitted, slot=st.slot)
+        _tracing.end_request(r.uid, reason, ts)
+
+    def goodput(self, requests: List[Request], slo_ttft_s, slo_itl_s) -> Optional[float]:
+        """Fraction of requests meeting every configured SLO; None when no
+        SLO is set (no objective must not read as 100 %)."""
+        if (slo_ttft_s is None and slo_itl_s is None) or not requests:
+            return None
+        good = 0
+        for r in requests:
+            ok = True
+            if slo_ttft_s is not None:
+                ttft = self.ttft_by_rid.get(r.rid)
+                ok = ok and ttft is not None and ttft <= slo_ttft_s
+            if slo_itl_s is not None:
+                ok = ok and self.itl_max.get(r.rid, 0.0) <= slo_itl_s
+            good += bool(ok)
+        return good / len(requests)
+
+
 @dataclasses.dataclass
 class ServingReport:
     """Outcome of one ``serve`` run and its utilization counters."""
@@ -125,6 +240,20 @@ class ServingReport:
     ttft_p99: Optional[float] = None
     itl_p50: Optional[float] = None
     itl_p99: Optional[float] = None
+    # SLO and phase decomposition. ``goodput``: share of requests whose TTFT
+    # (and worst ITL) met every configured objective; None without one.
+    # ``queue_*``: arrival to admission. ``attach_*`` / ``chunk_prefill_*``:
+    # the chunked path's prefix-attach and chunk-prefill phases (None on the
+    # monolithic path). The three phases are contiguous and share the TTFT
+    # stamps. ``slot_hwm``: peak concurrently leased slots.
+    goodput: Optional[float] = None
+    queue_p50: Optional[float] = None
+    queue_p99: Optional[float] = None
+    attach_p50: Optional[float] = None
+    attach_p99: Optional[float] = None
+    chunk_prefill_p50: Optional[float] = None
+    chunk_prefill_p99: Optional[float] = None
+    slot_hwm: int = 0
 
     @property
     def tokens_per_sec(self) -> float:
@@ -159,7 +288,9 @@ class ContinuousEngine:
     prefix_cache: Optional[bool] = None
     prefix_block: int = 16  # trie block size, tokens
     prefix_capacity: int = 1 << 16  # trie capacity, tokens
-    # Not ported yet: must stay unset.
+    # TTFT and worst-ITL objectives in ms (None = REPRO_SLO_TTFT_MS /
+    # REPRO_SLO_ITL_MS, unset = none). With one set, ServingReport.goodput
+    # is the share of requests meeting every configured objective.
     slo_ttft_ms: Optional[float] = None
     slo_itl_ms: Optional[float] = None
 
@@ -176,10 +307,13 @@ class ContinuousEngine:
                 RuntimeWarning,
                 stacklevel=2,
             )
-        for name in ("slo_ttft_ms", "slo_itl_ms"):
-            if getattr(self, name):
-                raise NotImplementedError(f"ContinuousEngine.{name} is not ported yet")
-        # The prompt-side knobs: fields beat the environment.
+        # The SLO and prompt-side knobs: fields beat the environment.
+        if self.slo_ttft_ms is None:
+            env = os.environ.get("REPRO_SLO_TTFT_MS", "")
+            self.slo_ttft_ms = float(env) if env else None
+        if self.slo_itl_ms is None:
+            env = os.environ.get("REPRO_SLO_ITL_MS", "")
+            self.slo_itl_ms = float(env) if env else None
         if self.prefill_chunk is None:
             env = os.environ.get("REPRO_PREFILL_CHUNK", "")
             self.prefill_chunk = int(env) if env else None
@@ -210,6 +344,22 @@ class ContinuousEngine:
         )
         self._pending: List[_PendingJoin] = []
         self.device = self.params["embed"]["table"].device
+        # Prefix-trie residency high-watermark (tokens); the trie outlives
+        # serve() calls, so the peak does too.
+        self._prefix_hwm = 0
+        # Utilization attribution: the step keys dispatched so far and the
+        # GEMM workload each key's capturing dispatch recorded. Keys: one
+        # decode step; prefills per (rows, bucket); chunk steps per
+        # (rows, bucket, width, whether the join already ran a chunk).
+        self._hw: Optional[HardwareSpec] = None
+        self._steps = _attr.StepKeys(hardware=self._hardware)
+
+    def _hardware(self) -> HardwareSpec:
+        """The roofline spec steps are costed against (resolved at first
+        use: the H100 SXM; any other card raises)."""
+        if self._hw is None:
+            self._hw = spec_for_device(self.device)
+        return self._hw
 
     def prefix_cache_stats(self) -> Optional[Dict[str, int]]:
         """Hit, miss, eviction and residency counts of the prefix trie
@@ -268,13 +418,13 @@ class ContinuousEngine:
         sync = on_token is not None or self.eos_id is not None
         pending = []  # (device tokens [*, 1], [(row, rid), ...]) per step
 
+        # Lifecycle wall stamps (always kept: the report's percentiles are
+        # product, not telemetry; only the obs emission is gated). A
+        # request's clock starts when the loop reaches its arrival tick.
         wall = time.perf_counter
         by_arrival = sorted(requests, key=lambda r: r.arrival)
         n_arrival_stamped = 0
-        arrive: Dict[int, float] = {}
-        last_tok: Dict[int, float] = {}
-        ttfts: List[float] = []
-        itls: List[float] = []
+        lc = _Lifecycle()
 
         step = 0
         decode_steps = 0
@@ -287,15 +437,6 @@ class ContinuousEngine:
             + (sum(len(r.prompt) for r in requests) if self.prefill_chunk else 0)
         )
 
-        def stamp_first_tokens(batch):
-            # TTFT closes when the first token's work is issued, as in the
-            # JAX engine; without ``sync`` the card may not have run it
-            # yet, so TTFT and ITL are host-issue times.
-            ts = wall()
-            for r in batch:
-                ttfts.append(ts - arrive.get(r.rid, ts))
-                last_tok[r.rid] = ts
-
         while not (sched.drained and pool.n_active == 0):
             if step > limit:
                 raise RuntimeError(f"serving did not drain within {limit} steps")
@@ -303,7 +444,7 @@ class ContinuousEngine:
                 n_arrival_stamped < len(by_arrival)
                 and by_arrival[n_arrival_stamped].arrival <= step
             ):
-                arrive[by_arrival[n_arrival_stamped].rid] = wall()
+                lc.arrival(by_arrival[n_arrival_stamped], wall())
                 n_arrival_stamped += 1
 
             # -- join: refill free slots from the queue ---------------------
@@ -319,8 +460,12 @@ class ContinuousEngine:
                 batch = sched.next_batch(pool.n_free, now=step, admissible=admissible)
                 if not batch:
                     break
+                adm = sched.last_admission or {}
                 if chunked:
+                    lc.admitted(batch, wall(), adm.get("bucket"), bool(adm.get("fallthrough")),
+                                phase="prefix_attach")
                     pj = self._begin_join(sched, pool, batch, step)
+                    lc.attached(batch, wall())
                     if len(self._pending) < _MAX_PENDING:
                         self._pending.append(pj)  # advances below, this tick
                         continue
@@ -334,6 +479,8 @@ class ContinuousEngine:
                         on_token, sync, pending,
                     )
                 else:
+                    lc.admitted(batch, wall(), adm.get("bucket"), bool(adm.get("fallthrough")),
+                                phase="prefill")
                     tok, pos = self._join(
                         sched, pool, batch, tok, pos, active, generator, step,
                         on_token, sync, pending,
@@ -341,7 +488,9 @@ class ContinuousEngine:
                 prefill_batches += 1
                 generated += len(batch)  # one token per request, prefill logits
                 joined = True
-                stamp_first_tokens(batch)
+                # The first tokens exist now: one stamp closes each request's
+                # TTFT window and its last pre-decode phase.
+                lc.first_token(batch, sched, self.eos_id, wall(), chunked)
 
             # -- advance the pending chunk pipeline by one chunk ------------
             if self._pending:
@@ -355,7 +504,7 @@ class ContinuousEngine:
                     prefill_batches += 1
                     generated += len(pj.batch)
                     joined = True
-                    stamp_first_tokens(pj.batch)
+                    lc.first_token(pj.batch, sched, self.eos_id, wall(), chunked)
                     self._pending.pop(0)
             if joined:
                 active_dev = torch.tensor(active, device=self.device)
@@ -367,10 +516,12 @@ class ContinuousEngine:
                 continue
 
             # -- decode: one masked step over the whole pool ----------------
+            t_step = wall()
             n_live = sum(active)
-            tok, pool.caches, pos = self._decode(
-                pool.caches, tok, pos, active_dev, generator
-            )
+            with self._steps.dispatch(("decode",), "decode") as st:
+                tok, pool.caches, pos = self._decode(
+                    pool.caches, tok, pos, active_dev, generator
+                )
             decode_steps += 1
             occupancy_acc += n_live / self.n_slots
             step += 1
@@ -381,6 +532,8 @@ class ContinuousEngine:
                 if active[s] and pool.owner_of(s) is not None
             ]
             live_rids = [pool.owner_of(s) for s in live]
+            n_retired = 0
+            retired_now: List[tuple] = []  # (Request, reason)
             changed = False
             if sync:
                 emitted = tok[:, 0].cpu().numpy()
@@ -390,7 +543,10 @@ class ContinuousEngine:
                         on_token(rid, t)
                     generated += 1
                     if sched.record_token(rid, t, now=step):
-                        pool.release(slot)
+                        reason = ("eos" if self.eos_id is not None and t == self.eos_id
+                                  else "budget")
+                        retired_now.append((sched.states[rid].request, reason))
+                        n_retired += pool.release(slot)
                         active[slot] = False
                         changed = True
             else:
@@ -398,24 +554,46 @@ class ContinuousEngine:
                 for slot, rid in zip(live, live_rids):
                     generated += 1
                     if sched.record_emitted(rid, now=step):
-                        pool.release(slot)
+                        retired_now.append((sched.states[rid].request, "budget"))
+                        n_retired += pool.release(slot)
                         active[slot] = False
                         changed = True
             if changed:
                 active_dev = torch.tensor(active, device=self.device)
+
+            # Per-tick telemetry: the step's wall time, each live lane's
+            # inter-token gap, queue and occupancy gauges. Retirement stamps
+            # come after the token stamps, so a request's last ITL instant
+            # lies inside its span.
             now = wall()
+            _obs.histogram("serve.step_seconds").observe(now - t_step)
+            if st.workload:
+                # Host wall, as ITL: on the deferred path the host's issue
+                # cadence, on the sync path token-to-token time.
+                _attr.observe_step(st.workload, now - t_step)
             for rid in live_rids:
-                prev = last_tok.get(rid)
-                if prev is not None:
-                    itls.append(now - prev)
-                last_tok[rid] = now
+                lc.token(sched.states[rid].request, now)
+            for r, reason in retired_now:
+                lc.retired(r, sched.states[r.rid], reason, now)
+            _obs.counter("serve.tokens").inc(len(live_rids))
+            if n_retired:
+                _obs.counter("serve.requests", event="retired").inc(n_retired)
+            _obs.gauge("serve.queue_depth").set(sched.n_arrived(step))
+            _obs.gauge("serve.occupancy").set(n_live / self.n_slots)
+            _obs.gauge("serve.slot_pool_hwm").set(pool.leased_hwm)
 
         # Deferred fetch: token values come to the host once, at the end.
         for arr, pairs in pending:
             vals = arr[:, 0].cpu().numpy()
             for row, rid in pairs:
                 sched.states[rid].tokens.append(int(vals[row]))
-        return ServingReport(
+        _obs.gauge("serve.slot_pool_hwm").set(pool.leased_hwm)
+        goodput = lc.goodput(
+            requests,
+            None if self.slo_ttft_ms is None else self.slo_ttft_ms / 1e3,
+            None if self.slo_itl_ms is None else self.slo_itl_ms / 1e3,
+        )
+        report = ServingReport(
             outputs={rid: st.tokens for rid, st in sched.states.items()},
             generated_tokens=generated,
             decode_steps=decode_steps,
@@ -423,11 +601,35 @@ class ContinuousEngine:
             mean_occupancy=(occupancy_acc / decode_steps) if decode_steps else 0.0,
             wall_time_s=0.0,  # stamped by timed_serve
             kv_bytes_per_slot=pool.kv_bytes_per_slot(),
-            ttft_p50=percentile(ttfts, 50),
-            ttft_p99=percentile(ttfts, 99),
-            itl_p50=percentile(itls, 50),
-            itl_p99=percentile(itls, 99),
+            ttft_p50=percentile(lc.ttfts, 50),
+            ttft_p99=percentile(lc.ttfts, 99),
+            itl_p50=percentile(lc.itls, 50),
+            itl_p99=percentile(lc.itls, 99),
+            goodput=goodput,
+            queue_p50=percentile(lc.queue_s, 50),
+            queue_p99=percentile(lc.queue_s, 99),
+            attach_p50=percentile(lc.attach_s, 50),
+            attach_p99=percentile(lc.attach_s, 99),
+            chunk_prefill_p50=percentile(lc.chunk_s, 50),
+            chunk_prefill_p99=percentile(lc.chunk_s, 99),
+            slot_hwm=pool.leased_hwm,
         )
+        _obs.event(
+            "serving_report",
+            requests=len(requests),
+            generated_tokens=report.generated_tokens,
+            decode_steps=report.decode_steps,
+            mean_occupancy=report.mean_occupancy,
+            ttft_p50=report.ttft_p50,
+            ttft_p99=report.ttft_p99,
+            itl_p50=report.itl_p50,
+            itl_p99=report.itl_p99,
+            goodput=report.goodput,
+            queue_p50=report.queue_p50,
+            queue_p99=report.queue_p99,
+            slot_hwm=report.slot_hwm,
+        )
+        return report
 
     def timed_serve(self, requests: List[Request], **kw) -> ServingReport:
         """``serve`` with its wall time stamped (the run ends on a host
@@ -463,15 +665,20 @@ class ContinuousEngine:
         if rows > len(batch):
             tokens[len(batch):] = tokens[0]
             lengths[len(batch):] = lengths[0]
-        logits, caches = model_api.prefill_bucketed(
-            self.cfg, self.params,
-            torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(lengths).to(self.device),
-            self.cache_dtype,
-        )
+        tokens_dev = torch.from_numpy(tokens).to(self.device)
+        lengths_dev = torch.from_numpy(lengths).to(self.device)
+        t_pf = time.perf_counter()
+        with self._steps.dispatch((rows, lb), "prefill") as st:
+            logits, caches = model_api.prefill_bucketed(
+                self.cfg, self.params, tokens_dev, lengths_dev, self.cache_dtype,
+            )
+        if st.workload:
+            _attr.observe_step(st.workload, time.perf_counter() - t_pf)
         first = sample_token(logits, generator, self.temperature)
         slots = pool.allocate([r.rid for r in batch])
         sched.admit(batch, slots, now=step)
+        for r, s in zip(batch, slots):
+            _tracing.set_slot(r.uid, s)
         pool.join(caches, slots)
         return self._seed_lanes(sched, pool, batch, slots, first, lengths[: len(batch)],
                                 tok, pos, active, step, on_token, sync, pending)
@@ -539,13 +746,21 @@ class ContinuousEngine:
                 attach = self._attach_len(matched, int(plens[i]))
                 if attach <= 0:
                     self._trie.misses += 1
+                    _obs.counter("serve.prefix_cache.misses").inc()
+                    _tracing.instant(r.uid, "prefix_miss", time.perf_counter(),
+                                     matched=int(matched))
                     continue
                 self._trie.hits += 1
+                _obs.counter("serve.prefix_cache.hits").inc()
                 # Keep resident only the nodes the attach covers.
-                nodes[i] = path[: -(-attach // self._trie.block_size)]
+                n_nodes = -(-attach // self._trie.block_size)
+                nodes[i] = path[:n_nodes]
                 self._trie.acquire(nodes[i])
                 spans, fls = self._trie.gather(nodes[i])
                 _attach_prefix(caches, spans, i, attach)
+                _tracing.instant(r.uid, "prefix_attach", time.perf_counter(),
+                                 tokens=int(attach), matched=int(matched), spans=int(n_nodes))
+                _tracing.annotate(r.uid, prefix_tokens=int(attach), prefix_spans=int(n_nodes))
                 if fls is not None:
                     if floors is None:
                         floors = _zero_floors(rows, fls, self.device)
@@ -556,6 +771,8 @@ class ContinuousEngine:
                 offsets[i] = attach
         slots = pool.allocate([r.rid for r in batch])
         sched.admit(batch, slots, now=step)
+        for r, s in zip(batch, slots):
+            _tracing.set_slot(r.uid, s)
         return _PendingJoin(batch=batch, slots=slots, caches=caches, rows=rows, lb=lb,
                             offsets=offsets, plens=plens, nodes=nodes, floors=floors)
 
@@ -568,6 +785,7 @@ class ContinuousEngine:
         offs = np.full((pj.rows,), pj.lb, np.int64)
         last_idx = np.zeros((pj.rows,), np.int64)
         fin = np.zeros((pj.rows,), bool)
+        advanced = []  # (uid, off, end): trace slices stamped after the dispatch
         for i, r in enumerate(pj.batch):
             if pj.done[i]:
                 continue
@@ -579,10 +797,24 @@ class ContinuousEngine:
                 fin[i] = True
                 last_idx[i] = int(pj.plens[i]) - 1 - off
             pj.offsets[i] = end
-        logits, pj.caches = model_api.prefill_chunk(
-            self.cfg, self.params, torch.from_numpy(ctoks).to(self.device), pj.caches,
-            torch.from_numpy(offs).to(self.device), torch.from_numpy(last_idx).to(self.device),
-        )
+            advanced.append((r.uid, off, end))
+        args = (torch.from_numpy(ctoks).to(self.device), pj.caches,
+                torch.from_numpy(offs).to(self.device),
+                torch.from_numpy(last_idx).to(self.device))
+        # A join's first chunk and its continuations are two step keys, as
+        # they are two compiled programs in the reference (its fresh caches
+        # carry a per-row length, a chunk's output a per-period one).
+        key = (pj.rows, pj.lb, w, pj.first_logits is not None)
+        t_ck = time.perf_counter()
+        with self._steps.dispatch(key, "chunk") as st:
+            logits, pj.caches = model_api.prefill_chunk(self.cfg, self.params, *args)
+        t_done = time.perf_counter()
+        if st.workload:
+            _attr.observe_step(st.workload, t_done - t_ck)
+        # One slice per row advanced this tick (the host's dispatch bracket:
+        # the chunk step runs asynchronously, as every step does).
+        for uid, off, end in advanced:
+            _tracing.slice_event(uid, "chunk", t_ck, t_done, offset=off, end=end)
         if pj.first_logits is None:
             pj.first_logits = logits
         else:
@@ -601,10 +833,16 @@ class ContinuousEngine:
         tok, pos = self._seed_lanes(sched, pool, pj.batch, pj.slots, first, pj.plens,
                                     tok, pos, active, step, on_token, sync, pending)
         if self._trie is not None:
+            ev0 = self._trie.evictions
             for i, r in enumerate(pj.batch):
                 self._trie.insert(r.prompt, int(pj.plens[i]), pj.caches, i)
                 if pj.nodes[i]:
                     self._trie.release(pj.nodes[i])
+            if self._trie.evictions > ev0:
+                _obs.counter("serve.prefix_cache.evictions").inc(self._trie.evictions - ev0)
+            _obs.gauge("serve.prefix_cache.cached_tokens").set(self._trie.cached_tokens)
+            self._prefix_hwm = max(self._prefix_hwm, self._trie.cached_tokens)
+            _obs.gauge("serve.prefix_cache.hwm_tokens").set(self._prefix_hwm)
         return tok, pos
 
 

@@ -1,7 +1,11 @@
 """Lockstep batched serving: prefill, then greedy or sampled decode.
 
 The port of :mod:`repro.serve.engine`. PyTorch runs eagerly, so each step is
-a sequence of launches rather than one compiled program.
+a sequence of launches rather than one compiled program. Each step is
+dispatched through :class:`repro_torch.obs.attr.StepKeys`, whose step
+scope is the analogue of the reference's ``jit`` trace: the prefill per prompt shape and the decode step
+per batch size count their GEMMs into ``gemm.calls`` on their first
+dispatch only.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api as model_api
+from repro_torch.obs import attr as _attr
 
 __all__ = ["ServeEngine", "sample_token"]
 
@@ -37,6 +42,9 @@ class ServeEngine:
     cache_dtype: torch.dtype = torch.bfloat16
     temperature: float = 0.0
 
+    def __post_init__(self) -> None:
+        self._steps = _attr.StepKeys()  # step keys dispatched so far
+
     @torch.inference_mode()
     def generate(
         self,
@@ -48,14 +56,16 @@ class ServeEngine:
         """Prefill the prompt batch and decode ``n_tokens``; returns the
         generated tokens [B, n_tokens]."""
         cfg, params = self.cfg, self.params
-        logits, caches = model_api.prefill(
-            cfg, params, batch, self.max_len, self.cache_dtype
-        )
+        with self._steps.dispatch(("prefill", tuple(batch["tokens"].shape))):
+            logits, caches = model_api.prefill(
+                cfg, params, batch, self.max_len, self.cache_dtype
+            )
         tok = sample_token(logits, generator, self.temperature)
         pos = batch["tokens"].shape[1]
         out = [tok]
         for i in range(n_tokens - 1):
-            logits, caches = model_api.decode(cfg, params, tok, caches, pos + i)
+            with self._steps.dispatch(("decode", tok.shape[0])):
+                logits, caches = model_api.decode(cfg, params, tok, caches, pos + i)
             tok = sample_token(logits, generator, self.temperature)
             out.append(tok)
         return torch.cat(out, dim=1)

@@ -51,7 +51,12 @@ def test_every_port_module_is_scanned():
                 "repro_torch/quant/quantize.py", "repro_torch/quant/policy.py",
                 "repro_torch/quant/opope_q8.py", "repro_torch/quant/backends.py",
                 "repro_torch/kernels/ref.py", "repro_torch/kernels/opope_attention.py",
-                "repro_torch/kernels/opope_scan.py", "repro_torch/kernels/__init__.py"):
+                "repro_torch/kernels/opope_scan.py", "repro_torch/kernels/__init__.py",
+                "repro_torch/obs/metrics.py", "repro_torch/obs/spans.py",
+                "repro_torch/obs/logging.py", "repro_torch/obs/tracing.py",
+                "repro_torch/obs/attr.py", "repro_torch/obs/audit.py",
+                "repro_torch/obs/http.py", "repro_torch/core/roofline.py",
+                "repro_torch/launch/stats.py"):
         assert mod in names
     assert kbuild.sources() == ["opope_attention", "opope_gemm", "opope_grouped", "opope_q8",
                                 "opope_q8_grouped", "opope_scan"]
