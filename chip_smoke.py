@@ -89,7 +89,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    route and on the tile route, beside SDPA and the bound, and
    checked on both routes at ragged fp32/bf16 cases and sm90 panel edges,
    plus chatglm3-6b's prefill_32k sequence (both routes and SDPA only);
-   (b) the prefill against the model's own ``blockwise_attention``.
+   (b) the prefill against the model's own ``blockwise_attention``;
+10. training on K1 (after phase 9): (a) the vjp of each of one full-width
+    chatglm3-6b layer's 7 GEMMs at M = 2048 through ``ops.matmul`` on the
+    kernels against the plain backend (every ``dA``, ``dB`` and epilogue
+    operand's gradient within TRAIN_GRAD_FLOOR_FACTOR times the RMS gap of
+    the plain version's fp32 and fp64 sums, in this run), K1's launches
+    counted by role, each backward GEMM timed by device time beside
+    ``torch.matmul`` on the same operands and the bound; (b) full-width
+    chatglm3-6b cut to 4 layers (bf16, remat "full", random weights from
+    seed 0) on the Markov stream at 4 x 512 tokens: the first step's loss
+    and every gradient leaf on the kernels against the plain backend under
+    the same floor, then 8 steps through ``repro_torch.train.train`` whose
+    loss must fall, with step time, tokens/s, peak memory and a profiled
+    step; (c) ``python -m repro_torch.launch.train --arch chatglm3-6b
+    --reduced --steps 40`` (loss must fall); (d) K1 launched in the backward
+    of (a) and (b), and (b)'s launches exactly 25 sm90 and 6 tile (the fp32
+    backward GEMMs) a layer and a step.
 
 The last lines are a JSON ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
@@ -134,6 +150,28 @@ Q8_LOGIT_FLOOR_FACTOR = 3.0
 # the same run. Both are bf16 rounding of equally valid orders; a wrong
 # attach, chunk write or slot moves the logits by their own size.
 PROMPT_LOGIT_FLOOR_FACTOR = 3.0
+# Training (phase 10): every gradient on the kernels against the plain
+# backend, their RMS difference at most this many times that of two plain
+# summation orders (fp32 and fp64 sums) in the same run; the loss within
+# this relative gap (one number: a ratio of two rounding draws is no gate).
+# The plain fp32 sums are sequential FMAs; K1's sm90 route sums bf16
+# products on the tensor cores, whose fp32 accumulation aligns and rounds
+# otherwise, so a lone GEMM's gradient sits 2.3-3.8x the floor in 10(a) on
+# an H100 where two IEEE orders would sit near 1.4x. A wrong rule or a
+# rounded cotangent moves a gradient by 30x the floor or more.
+TRAIN_GRAD_FLOOR_FACTOR = 8.0
+TRAIN_LOSS_RTOL = 1e-3
+FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (K1's fp32 tile route)
+# Full-width chatglm3-6b cut to 4 layers (1.35 G parameters: 16.2 GB with
+# bf16 gradients and fp32 AdamW moments; all 28 layers would need 74.9 GB
+# before activations), 4 x 512 tokens a step, 8 steps.
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 512
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 2, 1e-3
+# K1 launches a layer and a step under remat "full": 7 forward GEMMs twice
+# (the first forward and its recompute in the backward), wq/wk/wv/w_up's
+# dA and dB (8, bf16), and for wo, w_gate and w_down (epilogue'd) the fp32
+# accumulator's recompute and dA, dB on the fp32 cotangent (3 + 6).
+K1_TRAIN_SM90_PER_LAYER, K1_TRAIN_TILE_PER_LAYER = 14 + 8 + 3, 6
 
 
 def log(msg: str) -> None:
@@ -2292,7 +2330,307 @@ def attention_scan_phase(torch, F, kscan, mattn, cfg, jcfg, shape_32k, dev):
     return k3_record, k6_record
 
 
-def decode_profile(torch, step, step_ms, n_steps: int = 4, tag: str = "(d)"):
+def _leaf_paths(tree, prefix=""):
+    """``(path, leaf)`` of a parameter tree, in the order of its leaves."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, f"{prefix}.{k}" if prefix else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def _rms(x):
+    return x.double().pow(2).mean().sqrt().item()
+
+
+def _floor_gate(torch, got, ref, ref64, what):
+    """``got`` (kernels) against ``ref`` (plain) within TRAIN_GRAD_FLOOR_FACTOR
+    times the RMS gap of ``ref`` and ``ref64`` (plain, fp64 sums). Returns
+    (RMS kernels vs plain, the floor)."""
+    if tuple(got.shape) != tuple(ref.shape) or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs {tuple(ref.shape)} or "
+                             f"not finite")
+    d_k, d_f = _rms(got.float() - ref.float()), _rms(ref.float() - ref64.float())
+    if not d_k <= TRAIN_GRAD_FLOOR_FACTOR * d_f:
+        raise AssertionError(f"{what}: kernels vs plain RMS {d_k:.4g} > "
+                             f"{TRAIN_GRAD_FLOOR_FACTOR} x floor {d_f:.4g}")
+    return d_k, d_f
+
+
+def train_phase(torch, np, cfg, ops, ep, dev, *, layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, steps=TRAIN_STEPS):
+    """Phase 10: dense training on K1. (a) the backward GEMMs of one layer
+    at M = batch * seq, (b) the model cut to ``layers`` layers through
+    ``repro_torch.train.train``, (c) the training CLI at its reduced config,
+    (d) the launch gates. Returns K1's training record."""
+    import dataclasses
+    import importlib
+    import os
+
+    from repro_torch import obs
+    from repro_torch.data import MarkovLMDataset, make_batch_fn
+    from repro_torch.kernels.opope_gemm import full_fp32, opope_gemm
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import TrainLoopConfig, make_train_step, train
+    from repro_torch.tree import leaves, map_leaves
+    k1mod = importlib.import_module("repro_torch.kernels.opope_gemm")
+
+    t_phase = time.perf_counter()
+    fp64, plain = _fp64_plain(torch, ep), ops.backend("torch")
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(10)
+    m = batch * seq
+    d, dq, dkv, dff = cfg.d_model, cfg.n_heads * cfg.head_dim_, cfg.n_kv * cfg.head_dim_, cfg.d_ff
+    layer = [("wq", d, dq, ()), ("wk", d, dkv, ()), ("wv", d, dkv, ()),
+             ("wo", dq, d, ("residual",)), ("w_up", d, dff, ()),
+             ("w_gate", d, dff, ("silu", "mul")), ("w_down", dff, d, ("residual",))]
+
+    # The recompute's library lane: bf16 in, fp32 out in one call
+    # (torch.mm's out_dtype, on builds that have it).
+    try:
+        torch.mm(torch.ones((8, 8), dtype=bf16, device=dev),
+                 torch.ones((8, 8), dtype=bf16, device=dev), out_dtype=f32)
+        mm_out_dtype = True
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        mm_out_dtype = False
+        log(f"10(a) torch.mm(out_dtype=float32) unavailable ({type(e).__name__}): the "
+            f"recompute has no library lane")
+
+    # (a) each GEMM's vjp through ops.matmul on the kernels ("cuda") and on
+    # the plain backend (fp32 and fp64 sums), the same inputs and cotangent.
+    by_role = {"forward": 0, "recompute": 0, "bf16 backward": 0, "fp32 backward": 0}
+    rows, worst = [], 0.0
+    for name, k, n, steps_ in layer:
+        a = torch.randn((m, k), generator=gen, device=dev).to(bf16).requires_grad_()
+        b = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(bf16).requires_grad_()
+        operands = [torch.randn((m, n), generator=gen, device=dev).to(bf16).requires_grad_()
+                    for s_ in steps_ if ep.op_kind(s_) != "none"]
+        it = iter(operands)
+        spec = [s_ if ep.op_kind(s_) == "none" else (s_, next(it)) for s_ in steps_] or None
+        g = torch.randn((m, n), generator=gen, device=dev).to(bf16)
+        inputs = [a, b, *operands]
+
+        def vjp(backend):
+            out = ops.matmul(a, b, backend=backend, epilogue=spec)
+            return torch.autograd.grad(out, inputs, g)
+
+        _reset_k1(ops, opope_gemm)
+        out = ops.matmul(a, b, backend="cuda", epilogue=spec)
+        sync(torch, dev)
+        check_routes(opope_gemm, 1, f"10(a) {name} forward")
+        opope_gemm.launches_by_route.update(sm90=0, tile=0)
+        got = torch.autograd.grad(out, inputs, g)
+        sync(torch, dev)
+        want = {"sm90": 1, "tile": 2} if steps_ else {"sm90": 2, "tile": 0}
+        if opope_gemm.launches_by_route != want:
+            raise AssertionError(f"10(a) {name} backward: K1 launches by route "
+                                 f"{opope_gemm.launches_by_route} != {want}")
+        by_role["forward"] += 1
+        by_role["recompute" if steps_ else "bf16 backward"] += 1 if steps_ else 2
+        by_role["fp32 backward"] += 2 if steps_ else 0
+        ref = vjp("torch")
+        with _patched(plain, "fn", fp64):
+            ref64 = vjp("torch")
+        gaps = {}
+        for what, x, y, z in zip(["dA", "dB"] + [f"d_{s_}" for s_ in steps_
+                                                  if ep.op_kind(s_) != "none"], got, ref, ref64):
+            gaps[what] = _floor_gate(torch, x, y, z, f"10(a) {name} {what}")
+            worst = max(worst, gaps[what][0] / max(gaps[what][1], 1e-30))
+
+        # The backward's GEMMs as it runs them, one by one: the operand
+        # copies (transposes; casts to fp32 beside the fp32 cotangent), the
+        # kernel on its planned route, torch.matmul on the same operands.
+        with torch.no_grad():
+            a0, b0 = a.detach(), b.detach()
+            g_acc = g
+            gemms = []
+            if steps_:
+                acc = opope_gemm(a0, b0, out_dtype=f32)
+                g_acc, _ = ep.epilogue_vjp(steps_, tuple(o.detach() for o in operands), acc, g)
+                gemms.append(("recompute", a0, b0, f32))
+            gemms += [("dA", g_acc, b0.t(), bf16), ("dB", a0.t(), g_acc, bf16)]
+            for role, x, y, out_dtype in gemms:
+                dt = torch.promote_types(x.dtype, y.dtype)
+                copy_ms = queued_ms(torch, lambda i: (x.to(dt).contiguous(),
+                                                      y.to(dt).contiguous()), 5)
+                xc, yc = x.to(dt).contiguous(), y.to(dt).contiguous()
+                mm, kk, nn = xc.shape[0], xc.shape[1], yc.shape[1]
+                plan = k1mod._plan(mm, nn, kk, dt, xc.data_ptr(), yc.data_ptr())
+                iters = 5 if dt == f32 else 10
+                ms = queued_ms(torch, lambda i: opope_gemm(xc, yc, out_dtype=out_dtype), iters)
+                if dt == bf16 and out_dtype == f32:  # bf16 in, fp32 out: the recompute
+                    lib = (lambda i: torch.mm(xc, yc, out_dtype=f32)) if mm_out_dtype else None
+                else:  # fp32 in writes fp32: no single call casts to bf16
+                    lib = lambda i: torch.matmul(xc, yc)  # noqa: E731
+                with full_fp32():
+                    lib_ms = None if lib is None else queued_ms(torch, lib, iters)
+                t_bytes = (mm * kk * x.element_size() + kk * nn * y.element_size()
+                           + mm * nn * torch.empty((), dtype=out_dtype).element_size()
+                           ) / HBM_BYTES_PER_S
+                t_ops = 2 * mm * nn * kk / (FP32_FLOPS if dt == f32 else BF16_FLOPS)
+                row = {"gemm": name, "role": role, "m": mm, "k": kk, "n": nn,
+                       "in_dtype": str(dt).removeprefix("torch."),
+                       "out_dtype": str(out_dtype).removeprefix("torch."), "route": plan.route,
+                       "ms": ms, "library_ms": lib_ms, "copy_ms": copy_ms,
+                       "bound_ms": 1e3 * max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                rows.append(row)
+                log(f"10(a) {name} {role} [{mm}x{kk}]@[{kk}x{nn}] {row['in_dtype']} -> "
+                    f"{row['out_dtype']}: K1 {plan.route} {ms:.4f} ms ({2 * mm * nn * kk / ms / 1e9:.1f} "
+                    f"TFLOP/s), library {'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ms, "
+                    f"operand copies {copy_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                    f"({row['bound_by']})")
+        log(f"10(a) {name} vjp: " + ", ".join(
+            f"{w} RMS {dk:.3g} (floor {df:.3g})" for w, (dk, df) in gaps.items()))
+        del a, b, operands, inputs, got, ref, ref64, out
+    sums = {key: sum(r[key] or 0.0 for r in rows)
+            for key in ("ms", "library_ms", "copy_ms", "bound_ms")}
+    fp32_rows = [r for r in rows if r["in_dtype"] == "float32"]
+    fp32_sums = {key: sum(r[key] for r in fp32_rows) for key in ("ms", "library_ms", "bound_ms")}
+    log(f"10(a) one layer's backward GEMMs at M={m}: K1 {sums['ms']:.3f} ms (fp32 tile route "
+        f"{fp32_sums['ms']:.3f} ms of it), library {sums['library_ms']:.3f} ms, operand "
+        f"copies {sums['copy_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms; launches by role "
+        f"{by_role}; worst kernels/floor RMS ratio {worst:.3g} (gate {TRAIN_GRAD_FLOOR_FACTOR})")
+
+    # (b) the model at full width, cut to `layers` layers, bf16, remat
+    # "full". First step: loss and every gradient leaf on the kernels
+    # against the plain backend (fp32 and fp64 sums).
+    tcfg = dataclasses.replace(cfg, n_layers=layers)
+    if not (tcfg.remat and tcfg.remat_policy == "full"):
+        raise AssertionError(f"10(b) wants remat 'full', config has {tcfg.remat_policy}")
+    params = api.init_params(tcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    batch_fn = make_batch_fn(MarkovLMDataset(tcfg.vocab, seq, batch, seed=0), dev)
+    first = batch_fn(0)
+
+    def loss_grads(backend):
+        live = map_leaves(lambda p: p.detach().requires_grad_(), params)
+        loss = api.loss_fn(tcfg, live, first, backend=backend)
+        return loss.detach().float(), torch.autograd.grad(loss, list(leaves(live)))
+
+    _reset_k1(ops, opope_gemm)
+    loss_k, g_k = loss_grads("cuda")
+    sync(torch, dev)
+    first_routes = dict(opope_gemm.launches_by_route)
+    loss_p, g_p = loss_grads("torch")
+    with _patched(plain, "fn", fp64):
+        loss_64, g_64 = loss_grads("torch")
+    if not all(torch.isfinite(x) for x in (loss_k, loss_p, loss_64)):
+        raise AssertionError(f"10(b) first-step losses {loss_k}, {loss_p}, {loss_64}")
+    loss_gap = abs(loss_k.item() - loss_p.item())
+    if loss_gap > TRAIN_LOSS_RTOL * abs(loss_p.item()):
+        raise AssertionError(f"10(b) first-step loss: kernels {loss_k.item()} vs plain "
+                             f"{loss_p.item()}: gap {loss_gap} > {TRAIN_LOSS_RTOL} x loss")
+    leaf_gaps = {}
+    for (path, _), x, y, z in zip(_leaf_paths(params), g_k, g_p, g_64):
+        leaf_gaps[path] = _floor_gate(torch, x, y, z, f"10(b) first-step d{path}")
+    worst_leaf = max(leaf_gaps, key=lambda p: leaf_gaps[p][0] / max(leaf_gaps[p][1], 1e-30))
+    log(f"10(b) {tcfg.name} at {layers} layers ({n_params / 1e9:.3f} B params), first step "
+        f"{batch}x{seq}: loss kernels {loss_k.item():.6f}, plain {loss_p.item():.6f}, plain fp64 "
+        f"sums {loss_64.item():.6f}; {len(leaf_gaps)} gradient leaves within "
+        f"{TRAIN_GRAD_FLOOR_FACTOR} x floor (worst {worst_leaf}: RMS {leaf_gaps[worst_leaf][0]:.3g}, "
+        f"floor {leaf_gaps[worst_leaf][1]:.3g}); K1 launches {first_routes}")
+    del g_k, g_p, g_64
+
+    # Then `steps` steps through train(), every K1 launch counted.
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    obs.clear_events()
+    _reset_k1(ops, opope_gemm)
+    t0 = time.perf_counter()
+    res = train(tcfg, opt, TrainLoopConfig(total_steps=steps, log_every=1), batch_fn,
+                params=params, log=lambda msg: log(f"10(b) {msg}"))
+    sync(torch, dev)
+    train_s = time.perf_counter() - t0
+    train_routes = dict(opope_gemm.launches_by_route)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    events = obs.recent_events(steps, kind="train_step")
+    losses = res.losses
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"10(b) losses {losses}")
+    if not sum(losses[-2:]) / 2 < losses[0]:
+        raise AssertionError(f"10(b) loss did not fall: {losses}")
+    walls = [e["wall_s"] for e in events]
+    step_s = sum(walls[1:]) / max(1, len(walls) - 1)
+    tokens = batch * seq
+    log(f"10(b) {steps} steps in {train_s:.2f} s: losses {[round(x, 4) for x in losses]}; step "
+        f"wall {step_s * 1e3:.1f} ms (steps 2..{steps}; the first {walls[0] * 1e3:.1f} ms), "
+        f"{tokens / step_s:.1f} tokens/s; peak device memory {peak_gb:.2f} GB; K1 launches "
+        f"{train_routes}")
+
+    # One more step under the profiler (fresh moments): device busy share
+    # and the top kernels.
+    step_fn = make_train_step(tcfg, opt)
+    state = init_opt_state(params, opt)
+    prof = None
+    if dev.type == "cuda":
+        prof = decode_profile(torch, lambda i: step_fn(params, state, first), step_s * 1e3,
+                              n_steps=1, tag="10(b)", what="train step")
+    busy_ms = k1_ms = None
+    if prof is not None:
+        busy_ms = sum(ms for _, ms, _ in prof)
+        k1_ms = sum(ms for key, ms, _ in prof if "opope_gemm" in key)
+    del state, step_fn, params
+
+    # (c) the training CLI at its reduced config.
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_LOG="json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", cfg.name, "--reduced",
+         "--steps", "40"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"10(c) train CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    done = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{") and '"event": "done"' in line]
+    if len(done) != 1 or not done[0]["loss_last"] < done[0]["loss_first"]:
+        raise AssertionError(f"10(c) train CLI: {done or proc.stdout[-2000:]}")
+    cli_res = {"loss_first": done[0]["loss_first"], "loss_last": done[0]["loss_last"],
+               "seconds": time.perf_counter() - t0}
+    log(f"10(c) python -m repro_torch.launch.train --arch {cfg.name} --reduced --steps 40: "
+        f"loss {cli_res['loss_first']:.4f} -> {cli_res['loss_last']:.4f} in "
+        f"{cli_res['seconds']:.1f} s")
+
+    # (d) K1 ran in the backward of (a) and (b), and every forward and
+    # recompute launch of (b) on sm90: the fp32 backward GEMMs are the only
+    # tile launches, so the counts are exact.
+    want = {"sm90": K1_TRAIN_SM90_PER_LAYER * layers * steps,
+            "tile": K1_TRAIN_TILE_PER_LAYER * layers * steps}
+    if train_routes != want:
+        raise AssertionError(f"10(d) K1 launches by route {train_routes} != {want}")
+    if by_role["bf16 backward"] == 0 or by_role["fp32 backward"] == 0:
+        raise AssertionError(f"10(d) no K1 backward launch in (a): {by_role}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"10(d) K1 launches: (a) {by_role}, (b) {train_routes} = {layers} layers x {steps} "
+        f"steps x ({K1_TRAIN_SM90_PER_LAYER} sm90 + {K1_TRAIN_TILE_PER_LAYER} tile); phase 10 "
+        f"took {phase_s:.1f} s")
+    return {
+        "launches": sum(train_routes.values()),
+        "launches_by_route": train_routes,
+        "launches_per_layer_step": {"forward (sm90)": 7, "remat recompute (sm90)": 7,
+                                    "bf16 backward (sm90)": 8, "fp32 accumulator recompute (sm90)": 3,
+                                    "fp32 backward (tile)": 6},
+        "backward_gemms": rows,
+        "backward_layer": dict(sums, m=m, fp32_tile=fp32_sums),
+        "model": {"name": tcfg.name, "layers": layers, "params": n_params, "batch": batch,
+                  "seq": seq, "steps": steps, "peak_lr": TRAIN_LR, "losses": losses,
+                  "first_step_loss": {"kernels": loss_k.item(), "plain": loss_p.item(),
+                                      "plain_fp64": loss_64.item()},
+                  "step_ms": step_s * 1e3, "first_step_ms": walls[0] * 1e3,
+                  "tokens_per_sec": tokens / step_s, "device_busy_ms": busy_ms,
+                  "k1_device_ms": k1_ms, "peak_memory_gb": peak_gb},
+        "cli": cli_res,
+        "seconds": phase_s,
+    }
+
+
+def decode_profile(torch, step, step_ms, n_steps: int = 4, tag: str = "(d)",
+                   what: str = "decode step"):
     """Device time by kernel over ``n_steps`` decode steps (torch.profiler),
     beside the steps' host wall time: the device's busy share (kernels run
     one at a time on the one stream) and the top kernels. Prints "not
@@ -2315,7 +2653,7 @@ def decode_profile(torch, step, step_ms, n_steps: int = 4, tag: str = "(d)"):
     if not rows:
         log(f"{tag} profiler: device time not measured (no device events in the trace)")
         return None
-    log(f"{tag} profiled decode step: {wall_ms:.3f} ms host wall (unprofiled {step_ms:.3f} ms), "
+    log(f"{tag} profiled {what}: {wall_ms:.3f} ms host wall (unprofiled {step_ms:.3f} ms), "
         f"{busy_ms:.3f} ms device busy ({100 * busy_ms / wall_ms:.1f}%)")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:10]:
         log(f"{tag}   {ms:8.3f} ms  x{count:<4d} {key[:90]}")
@@ -2443,6 +2781,10 @@ def main() -> int:
     k3_record, k6_record = attention_scan_phase(
         torch, F, kscan, mattn, cfg, get_config("jamba-v0.1-52b"),
         shape_by_name("prefill_32k"), dev)
+    # Phase 10: training chatglm3-6b on K1, cut to TRAIN_LAYERS layers.
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_record = train_phase(torch, np, cfg, ops, ep, dev)
     # One MoE layer's 3 grouped GEMMs of a 4-slot decode step (capacity 1).
     g_decode = [r for r in g_rows if r["m"] == 1]
     g_sums = {key: sum(r[key] for r in g_decode)
@@ -2463,6 +2805,8 @@ def main() -> int:
     k1_paths = {cfg.name: res["launches"], mcfg.name: mres["launches"]["k1"],
                 f"{cfg.name} q8": glm_q8["launches"]["K1"],
                 f"{mcfg.name} q8": ds_q8["launches"]["K1"]}
+    serve_launches = sum(k1_paths.values())
+    k1_paths[f"{cfg.name} train ({TRAIN_LAYERS} layers)"] = train_record["launches"]
     record = {
         "name": "opope_gemm",
         "route": "cuda",
@@ -2470,8 +2814,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/opope_gemm.py:293",
         "launches": sum(k1_paths.values()),
         "launches_by_path": k1_paths,
-        # check_routes held every path's launches to the sm90 route.
-        "launches_by_route": {"sm90": sum(k1_paths.values()), "tile": 0},
+        # check_routes held every serving path's launches to the sm90 route;
+        # phase 10(d) held training's to its exact split (the fp32 backward
+        # GEMMs on the tile route).
+        "launches_by_route": {"sm90": serve_launches + train_record["launches_by_route"]["sm90"],
+                              "tile": train_record["launches_by_route"]["tile"]},
+        "training": train_record,
         "max_abs_err": max_err,
         "ms": sums["ms"],
         "tile_ms": sums["tile_ms"],

@@ -6,6 +6,12 @@ params)``, built by the caller) and returns the port's dict: the same keys,
 with the per-period stacks of ``tree["blocks"]`` unstacked into one dict per
 layer. bf16 leaves (numpy dtype name ``bfloat16``) travel as their raw 16-bit
 patterns, so no bf16-aware numpy extension is needed here.
+
+``params_to_numpy(cfg, params)`` goes the other way, for any tree in the
+port's layout (parameters, gradients, optimizer moments): every leaf to
+numpy and the per-layer dicts restacked over periods, so that two trees can
+be compared leaf by leaf. Numpy has no bf16 of its own, so bf16 leaves come
+back widened to fp32, which is exact.
 """
 
 from __future__ import annotations
@@ -17,8 +23,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.transformer import check_supported
+from repro_torch.tree import map_leaves
 
-__all__ = ["tensor_from_numpy", "params_from_numpy"]
+__all__ = ["tensor_from_numpy", "params_from_numpy", "params_to_numpy"]
 
 
 def tensor_from_numpy(x, device) -> torch.Tensor:
@@ -29,26 +36,44 @@ def tensor_from_numpy(x, device) -> torch.Tensor:
     return torch.from_numpy(x).to(device)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn) for v in tree)
-    return fn(tree)
-
-
 def params_from_numpy(cfg: ArchConfig, tree: Dict[str, Any], device) -> Dict[str, Any]:
     """The reference's numpy parameter tree as the port's parameters."""
     check_supported(cfg)
     device = torch.device(device)
-    out = {k: _map(v, lambda x: tensor_from_numpy(x, device))
+    out = {k: map_leaves(lambda x: tensor_from_numpy(x, device), v)
            for k, v in tree.items() if k != "blocks"}
     stacks = tree["blocks"]  # one stacked dict per pattern position
     blocks: List[Dict[str, Any]] = []
     for period in range(cfg.n_periods):
         for pos in range(len(cfg.pattern)):
             blocks.append(
-                _map(stacks[pos], lambda x: tensor_from_numpy(np.asarray(x)[period], device))
+                map_leaves(lambda x: tensor_from_numpy(np.asarray(x)[period], device), stacks[pos])
             )
     out["blocks"] = blocks
     return out
+
+
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    x = x.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+
+def params_to_numpy(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:
+    """A tree in the port's layout as the reference's numpy tree: the
+    inverse of :func:`params_from_numpy` (bf16 leaves widened to fp32)."""
+    check_supported(cfg)
+    out = {k: map_leaves(_to_numpy, v) for k, v in params.items() if k != "blocks"}
+    blocks, period = params["blocks"], len(cfg.pattern)
+    out["blocks"] = tuple(  # one stack per pattern position, as the reference's
+        _stack([blocks[i * period + pos] for i in range(cfg.n_periods)])
+        for pos in range(period)
+    )
+    return out
+
+
+def _stack(trees: List[Any]) -> Any:
+    """Leaf-wise ``np.stack`` of same-structured trees."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return np.stack([_to_numpy(t) for t in trees])

@@ -3,7 +3,8 @@
 The parts of :mod:`repro.core.roofline` that utilization attribution
 (:mod:`repro_torch.obs.attr`) needs: :class:`HardwareSpec`,
 :func:`dtype_width`, :func:`tensor_bytes`, :func:`gemm_bytes` and
-:func:`gemm_intensity`. Widths come from the operand's actual dtype — a
+:func:`gemm_intensity`, and :func:`model_flops` for the training loop's
+step events. Widths come from the operand's actual dtype — a
 torch dtype, a numpy dtype or a name (``"bfloat16"``, ``"torch.int8"``) —
 never an assumed word.
 
@@ -15,6 +16,7 @@ the same spec in both packages; :func:`spec_for_device` never returns it.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 __all__ = [
     "HardwareSpec",
@@ -25,6 +27,7 @@ __all__ = [
     "tensor_bytes",
     "gemm_bytes",
     "gemm_intensity",
+    "model_flops",
 ]
 
 
@@ -141,3 +144,21 @@ def gemm_bytes(
 def gemm_intensity(m: int, k: int, n: int, **dtype_kw) -> float:
     """Arithmetic intensity (FLOPs/byte) of the GEMM at honest widths."""
     return (2.0 * m * k * n) / gemm_bytes(m, k, n, **dtype_kw)
+
+
+def model_flops(
+    n_params: int,
+    tokens: int,
+    *,
+    kind: str = "train",
+    n_params_active: Optional[int] = None,
+) -> float:
+    """MODEL_FLOPS = 6*N*D (train) or 2*N*D (inference fwd), N = active params.
+
+    For MoE models pass ``n_params_active`` (shared + routed*top_k experts plus
+    dense layers); for decode shapes ``tokens`` is the global batch (one token
+    per sequence per step).
+    """
+    n = n_params_active if n_params_active is not None else n_params
+    mult = 6.0 if kind == "train" else 2.0
+    return mult * n * tokens

@@ -18,9 +18,12 @@ full      ``[..., N]`` matching out    (M, N)
 ========  ===========================  ============================
 
 Each op has an fp32 ``apply`` (the plain PyTorch version, used on the CPU
-and as the reference on the card) and a fixed integer code that the CUDA
-kernels (``csrc/opope_tile.cuh``) switch on. The names, kinds and fp32
-arithmetic match the JAX registry op for op.
+and as the reference on the card), optionally its own ``vjp``, and a fixed
+integer code that the CUDA kernels (``csrc/opope_tile.cuh``) switch on. The
+names, kinds and fp32 arithmetic match the JAX registry op for op.
+:func:`epilogue_vjp` composes the chain's backward for the autograd rule in
+:mod:`.ops`; an op without its own ``vjp`` differentiates through autograd
+of its ``apply``.
 """
 
 from __future__ import annotations
@@ -41,21 +44,30 @@ __all__ = [
     "normalize_epilogue",
     "canonicalize_operands",
     "apply_epilogue",
+    "epilogue_vjp",
 ]
 
 ApplyFn = Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
+# vjp(acc_in, operand, g) -> (d_acc, d_operand or None): the cotangents of
+# one op at its *input* accumulator (the replayed forward chain supplies it).
+VjpFn = Callable[
+    [torch.Tensor, Optional[torch.Tensor], torch.Tensor],
+    Tuple[torch.Tensor, Optional[torch.Tensor]],
+]
 
 KIND_CODES: Dict[str, int] = {"none": 0, "scalar": 1, "row": 2, "full": 3}
 
 
 @dataclasses.dataclass(frozen=True)
 class EpilogueOp:
-    """One registered post-op: name, operand kind, fp32 apply, kernel code."""
+    """One registered post-op: name, operand kind, fp32 apply, kernel code,
+    optional vjp."""
 
     name: str
     kind: str
     apply: ApplyFn
     code: int
+    vjp: Optional[VjpFn] = None
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -77,11 +89,22 @@ def _requant_int8(acc: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(acc / s), -127.0, 127.0)
 
 
+def _requant_int8_vjp(
+    acc: torch.Tensor, s: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    # Straight-through: the grid is invisible to the gradient, out ~ acc / s
+    # where unclipped and 0 where clipped. d/dacc = 1/s, d/ds = -acc/s^2,
+    # both masked to the pass-through region.
+    x = acc / s
+    gm = g * (torch.abs(x) <= 127.0)
+    return gm / s, torch.sum(gm * (-x / s)).reshape(s.shape)
+
+
 _REGISTRY: Dict[str, EpilogueOp] = {}
 
 
-def _register(name: str, kind: str, apply: ApplyFn) -> None:
-    _REGISTRY[name] = EpilogueOp(name, kind, apply, code=len(_REGISTRY))
+def _register(name: str, kind: str, apply: ApplyFn, vjp: Optional[VjpFn] = None) -> None:
+    _REGISTRY[name] = EpilogueOp(name, kind, apply, code=len(_REGISTRY), vjp=vjp)
 
 
 for _name, _fn in ACTIVATIONS.items():
@@ -90,7 +113,7 @@ _register("bias", "row", lambda acc, o: acc + o)
 _register("residual", "full", lambda acc, o: acc + o)
 _register("mul", "full", lambda acc, o: acc * o)
 _register("scale", "row", lambda acc, o: acc * o)
-_register("requant_int8", "scalar", _requant_int8)
+_register("requant_int8", "scalar", _requant_int8, vjp=_requant_int8_vjp)
 
 # gelu 0, silu 1, swish 2, relu 3, bias 4, residual 5, mul 6, scale 7,
 # requant_int8 8 — the enum in csrc/opope_tile.cuh.
@@ -240,3 +263,45 @@ def apply_epilogue(
         operand = None if op.kind == "none" else next(it).to(torch.float32)
         x = op.apply(x, operand)
     return x
+
+
+def epilogue_vjp(
+    steps: Tuple[str, ...],
+    operands: Tuple[torch.Tensor, ...],
+    acc: torch.Tensor,
+    g: torch.Tensor,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Backward through the op pipeline at input accumulator ``acc``.
+
+    Returns ``(d_acc, d_operands)`` in fp32, ``d_operands`` aligned to
+    ``operands`` and reduced over their broadcast dimensions. The forward
+    chain is replayed op by op (the fused writeback never keeps the
+    intermediates); each op uses its registered ``vjp`` or differentiates
+    through autograd of its ``apply``.
+    """
+    ops_f = tuple(o.detach().to(torch.float32) for o in operands)
+    inputs: List[torch.Tensor] = []
+    per_step: List[Tuple[EpilogueOp, Optional[torch.Tensor]]] = []
+    it = iter(ops_f)
+    x = acc.detach().to(torch.float32)
+    for name in steps:
+        op = op_def(name)
+        operand = None if op.kind == "none" else next(it)
+        inputs.append(x)
+        per_step.append((op, operand))
+        x = op.apply(x, operand)
+    d_ops: List[Optional[torch.Tensor]] = [None] * len(per_step)
+    gx = g.to(torch.float32)
+    for i in range(len(per_step) - 1, -1, -1):
+        op, operand = per_step[i]
+        if op.vjp is not None:
+            gx, d_ops[i] = op.vjp(inputs[i], operand, gx)
+            continue
+        with torch.enable_grad():
+            xin = inputs[i].detach().requires_grad_()
+            if operand is None:
+                (gx,) = torch.autograd.grad(op.apply(xin, None), (xin,), gx)
+            else:
+                o = operand.detach().requires_grad_()
+                gx, d_ops[i] = torch.autograd.grad(op.apply(xin, o), (xin, o), gx)
+    return gx, tuple(d for d in d_ops if d is not None)

@@ -23,6 +23,17 @@ A backend that cannot take the tensors it is given raises: there are no
 fallback chains. Each backend keeps plain integer counts of the GEMMs it
 ran: ``calls`` for 2-D ones, ``grouped_calls`` for grouped ones.
 
+Gradients: when an input of :func:`matmul` requires grad, the call runs
+through :class:`_Matmul`, an autograd ``Function`` holding the reference's
+four ``custom_vjp`` rules (plain product, ``[N]`` bias, full C, epilogue'd
+product). Its backward GEMMs run on the backend's ``grad_backend`` through
+the backend's ``fn``, so on the card they are K1 launches too, and they
+count neither into ``calls`` nor into ``gemm.calls`` (the reference's
+backward calls its backends directly as well). When no input requires
+grad, the backend is called as it always was. The q8 family, pre-quantized
+activations and :func:`grouped_matmul` have no backward in the port yet:
+under autograd they raise ``NotImplementedError`` (ROADMAP A.6b).
+
 Telemetry (:mod:`repro_torch.obs`, host-side only): every entry-point call
 counts into ``gemm.calls`` (labels ``backend``, ``family``, ``shape``
 dense/grouped, ``tile`` and ``fusion``) and, under
@@ -43,6 +54,7 @@ import math
 from typing import Callable, Dict, List, Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch import obs as _obs
 from repro_torch.obs import attr as _attr
@@ -59,6 +71,7 @@ __all__ = [
     "backend",
     "resolve_backend",
     "family_of",
+    "grad_backend_of",
     "reset_counts",
     "matmul",
     "linear",
@@ -142,6 +155,80 @@ def family_of(name: str) -> str:
             f"unknown matmul backend {name!r}; registered: {registered_backends()}"
         )
     return be.family
+
+
+def grad_backend_of(name: str) -> str:
+    """Backend the backward GEMMs of ``name`` run on (itself by default)."""
+    be = _REGISTRY.get(name)
+    return be.grad_backend if be is not None and be.grad_backend else name
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _no_backward(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} has no backward in the port yet (ROADMAP A.6b); call it under "
+        f"torch.no_grad() or on inputs that do not require grad"
+    )
+
+
+def _bwd_gemm(be: Backend, x: torch.Tensor, y: torch.Tensor, out_dtype) -> torch.Tensor:
+    """One backward GEMM ``x @ y`` on ``be.fn``. Operands of two dtypes (the
+    fp32 cotangent of an epilogue'd product against a bf16 operand) are
+    both cast to the wider one, exactly, as the reference's ``jnp.dot``
+    promotes them: the kernels take one input dtype."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return be.fn(x.to(dt).contiguous(), y.to(dt).contiguous(), None, out_dtype=out_dtype)
+
+
+class _Matmul(torch.autograd.Function):
+    """``epilogue(a @ b (+ c))`` on one backend, differentiable, with the
+    reference's rules (``_matmul_nc_bwd``, ``_matmul_bias_bwd``,
+    ``_matmul_bwd`` and ``_matmul_ep_bwd`` of :mod:`repro.kernels.ops`):
+
+    * ``dA = g @ B^T`` and ``dB = A^T @ g``, cast to A's and B's dtypes;
+    * an ``[N]`` bias: ``dbias = g.sum(0)``; a full C: ``dC = g``;
+    * with an epilogue (C is then its first step): the fp32 accumulator is
+      recomputed (one more GEMM), :func:`.epilogue.epilogue_vjp` gives its
+      fp32 cotangent ``g_acc`` and each operand's, and the two GEMMs above
+      run on ``g_acc``.
+
+    Every GEMM of the backward runs on the ``grad_backend`` of the forward's
+    backend. A and B^T are made contiguous for it (the kernels take
+    contiguous operands)."""
+
+    @staticmethod
+    def forward(ctx, name, out_dtype, steps, a, b, c, *ep_ops):
+        ctx.name, ctx.steps = name, steps
+        ctx.c_meta = None if c is None else (c.dtype, c.shape)
+        ctx.save_for_backward(a, b, *ep_ops)
+        return _REGISTRY[name].fn(a, b, c, out_dtype=out_dtype, epilogue=steps,
+                                  epilogue_operands=ep_ops)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, b, *ep_ops = ctx.saved_tensors
+        need_a, need_b, need_c = ctx.needs_input_grad[3:6]
+        need_ops = ctx.needs_input_grad[6:]
+        be = _REGISTRY[grad_backend_of(ctx.name)]
+        g = g.contiguous()
+        d_ops = [None] * len(ep_ops)
+        if ctx.steps:
+            acc = be.fn(a, b, None, out_dtype=torch.float32)
+            g, d = _epi.epilogue_vjp(ctx.steps, tuple(ep_ops), acc, g)
+            d_ops = [x.to(o.dtype).reshape(o.shape) if need else None
+                     for x, o, need in zip(d, ep_ops, need_ops)]
+        da = _bwd_gemm(be, g, b.t(), a.dtype) if need_a else None
+        db = _bwd_gemm(be, a.t(), g, b.dtype) if need_b else None
+        dc = None
+        if need_c:
+            c_dtype, c_shape = ctx.c_meta
+            dc = (g.float().sum(0) if len(c_shape) == 1 else g).to(c_dtype).reshape(c_shape)
+        return (None, None, None, da, db, dc, *d_ops)
 
 
 def _note_gemm_call(
@@ -248,14 +335,21 @@ def matmul(
             a2, scale.reshape(m, 1) if scale.numel() == m else scale.reshape(1, 1))
     be.calls += 1
     b2 = b.contiguous()
-    out = be.fn(a2, b2, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ep_ops)
+    if _needs_grad(a2, getattr(a, "scale", None), b2, c, *ep_ops):
+        if pre_q or be.family != "fp":
+            raise _no_backward(
+                f"a {'pre-quantized activation' if pre_q else be.family + '-family backend'} "
+                f"({name!r})")
+        out = _Matmul.apply(name, out_dtype, steps, a2, b2, c, *ep_ops)
+    else:
+        out = be.fn(a2, b2, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ep_ops)
     if not pre_q:  # a pre-quantized A has no fp twin to audit against
         _maybe_audit_gemm(
             "dense", name, out,
             lambda: _REGISTRY[be.grad_backend].fn(
                 a2, b2, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ep_ops),
             m, a2.shape[1], n)
-    return out.reshape(*batch_shape, n)
+    return out if len(batch_shape) == 1 else out.reshape(*batch_shape, n)
 
 
 def linear(
@@ -312,6 +406,8 @@ def grouped_matmul(
             steps, raw_ops, n=n, m=m, groups=g, device=a.device)
     )
     be = _REGISTRY[name]
+    if _needs_grad(a, b, c, *ep_ops):
+        raise _no_backward("grouped_matmul")
     be.grouped_calls += 1
     a2, b2, c2 = a.contiguous(), b.contiguous(), None if c is None else c.contiguous()
     out = be.grouped_fn(a2, b2, c2, out_dtype=out_dtype, epilogue=steps,

@@ -8,9 +8,9 @@ has two modes of access:
   (``REPRO_METRICS_DUMP=snap.json`` makes any instrumented process dump one
   at exit), the JSONL event log (``REPRO_EVENTS=events.jsonl``) or a raw
   trace dump (``REPRO_TRACE_DUMP=raw.json``).
-* **in-process** — run the serving driver inside this process and report
-  its registry when it finishes, optionally under ``torch.profiler`` with
-  its Chrome trace exported.
+* **in-process** — run the serving or the training launcher inside this
+  process and report its registry when it finishes, optionally under
+  ``torch.profiler`` with its Chrome trace exported.
 
 Examples::
 
@@ -30,11 +30,14 @@ Examples::
     python -m repro_torch.launch.stats serve --profile /tmp/prof -- \\
         --arch chatglm3-6b --reduced --device cpu
 
+    # run the training launcher here, then report
+    python -m repro_torch.launch.stats train -- \\
+        --arch chatglm3-6b --reduced --device cpu --steps 20
+
     # rank GEMM shape buckets by attributed host wall time and utilization gap
     python -m repro_torch.launch.stats top --file snap.json -n 10
 
-``train`` raises ``NotImplementedError`` until the port has a training
-loop; the reference's ``bench`` (its history gate) waits for the port's
+The reference's ``bench`` (its history gate) waits for the port's
 benchmark.
 """
 
@@ -288,9 +291,9 @@ def _cmd_serve(args) -> None:
 
 
 def _cmd_train(args) -> None:
-    raise NotImplementedError(
-        "the port has no training loop yet: `stats train` comes with it"
-    )
+    from repro_torch.launch.train import main as train_main
+
+    _run_driver(args, train_main)
 
 
 def _split_driver_args(argv: List[str]) -> (List[str], List[str]):

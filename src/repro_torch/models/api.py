@@ -7,16 +7,18 @@ state is a list of per-layer :class:`KVCache` (or, in a quantized slot pool,
 the other entry points run where their tensors are. Their ``backend=`` is a
 backend name of :mod:`repro_torch.kernels.ops` or a precision policy
 (:class:`repro_torch.quant.PrecisionPolicy`), resolved per layer role.
+:func:`loss_fn` is the training loss of the LM family.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.tree import leaves
 from . import transformer as tf_mod
 from .attention import KVCache
 
@@ -24,6 +26,7 @@ __all__ = [
     "resolve_device",
     "init_params",
     "init_state",
+    "loss_fn",
     "prefill",
     "decode",
     "prefill_bucketed",
@@ -62,6 +65,15 @@ def init_state(
 ) -> List[KVCache]:
     """Decode caches sized for ``max_len`` positions."""
     return tf_mod.init_caches(cfg, batch, max_len, dtype, resolve_device(device))
+
+
+def loss_fn(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *, backend=None
+            ) -> torch.Tensor:
+    """Training loss of ``batch`` (``tokens`` and ``labels``, [B, S]) as a
+    0-d fp32 tensor. The audio and vlm families are not ported and raise."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported")
+    return tf_mod.lm_loss(params, batch["tokens"], batch["labels"], cfg, backend=backend)
 
 
 def prefill(
@@ -159,22 +171,11 @@ def _with_slot_lengths(caches, pos: torch.Tensor):
     return [dataclasses.replace(c, length=pos) for c in caches]
 
 
-def _leaves(tree) -> Iterator[torch.Tensor]:
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def param_count(cfg: ArchConfig) -> int:
     """Parameters of ``cfg``, counted from shapes alone (on the meta
     device, nothing is allocated)."""
     params = tf_mod.init_lm_params(cfg, None, torch.device("meta"))
-    return sum(x.numel() for x in _leaves(params))
+    return sum(x.numel() for x in leaves(params))
 
 
 def active_param_count(cfg: ArchConfig) -> int:

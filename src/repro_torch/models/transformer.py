@@ -7,12 +7,17 @@ Parameters are a dict; ``params["blocks"]`` is a list with one dict per
 layer, in place of the reference's per-period stacks under ``lax.scan``.
 Caches are a list of one :class:`KVCache` per layer.
 
-Modes: ``prefill`` (full sequence, fills the caches), ``chunk`` (a chunk of
+Modes: ``train`` (full sequence, no caches, positions ``0..S-1``; each
+block under ``torch.utils.checkpoint`` when ``cfg.remat`` asks for the
+``"full"`` policy, as the reference's ``jax.checkpoint`` of its layer-scan
+body), ``prefill`` (full sequence, fills the caches), ``chunk`` (a chunk of
 prompt tokens written at per-row ``positions`` of the caches and attending
 over each row's history) and ``decode`` (one token against the caches);
 without caches a prefill returns hidden states only. ``lm_forward`` also
 returns the MoE router's load-balancing loss, summed over layers, as the
-reference does. Other block patterns raise ``NotImplementedError``.
+reference does. :func:`lm_loss` is the training loss: the chunked
+cross-entropy of :func:`_chunked_ce` plus ``0.01`` times that loss. Other
+block patterns raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig, BlockDef
 from repro_torch.kernels.opope_gemm import full_fp32
@@ -45,6 +51,7 @@ __all__ = [
     "init_caches",
     "lm_forward",
     "lm_logits",
+    "lm_loss",
 ]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -177,8 +184,16 @@ def lm_forward(
     0-d fp32 tensor, zero without MoE layers). ``backend`` is a backend name
     or a precision policy; each GEMM site resolves its own role."""
     check_supported(cfg)
-    if mode not in ("prefill", "chunk", "decode"):
-        raise NotImplementedError(f"lm_forward mode {mode!r} is not ported yet")
+    if mode not in ("train", "prefill", "chunk", "decode"):
+        raise ValueError(f"unknown lm_forward mode {mode!r}")
+    if mode == "train" and caches is not None:
+        raise ValueError("lm_forward mode 'train' takes no caches")
+    remat = mode == "train" and cfg.remat and cfg.remat_policy != "none"
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported (no config uses it); "
+            f"'full' and 'none' are"
+        )
     chunk = mode == "chunk"  # chunked prefill: scatter-append at `positions`
     x = params["embed"]["table"][tokens]
     b, s, _ = x.shape
@@ -188,8 +203,15 @@ def lm_forward(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, p in enumerate(params["blocks"]):
         cache = caches[layer] if caches is not None else None
-        x, nc, a = _block_apply(cfg, p, x, positions=positions, cache=cache,
-                                backend=backend, chunk=chunk)
+        if remat:
+            # Full remat: keep the block's input, recompute the rest in the
+            # backward (its GEMMs run twice a step).
+            x, nc, a = torch.utils.checkpoint.checkpoint(
+                _block_apply, cfg, p, x, positions=positions, cache=None,
+                backend=backend, use_reentrant=False)
+        else:
+            x, nc, a = _block_apply(cfg, p, x, positions=positions, cache=cache,
+                                    backend=backend, chunk=chunk)
         if a is not None:
             aux = aux + a
         if new_caches is not None:
@@ -204,3 +226,44 @@ def lm_logits(params, hidden: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     with full_fp32():
         logits = hidden.float() @ table.float().t()
     return softcap(logits, cfg.final_softcap)
+
+
+def _chunked_ce(
+    params, hidden: torch.Tensor, labels: torch.Tensor, cfg: ArchConfig,
+    loss_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean softmax cross-entropy over the (masked) tokens, computed
+    ``cfg.loss_chunk`` positions at a time (the largest divisor of S not
+    above it), so no [B, S, V] logits tensor is built at once. Logits are
+    fp32 from fp32 products (TF32 off), as :func:`lm_logits` computes them."""
+    b, s, _ = hidden.shape
+    table = params["embed"]["table"] if cfg.tie_embeddings else params["lm_head"]
+    ck = min(cfg.loss_chunk, s)
+    while s % ck:
+        ck -= 1
+    labels = labels.to(torch.int64)
+    mask = (torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+            if loss_mask is None else loss_mask.to(torch.float32))
+    table_f = table.float()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, ck):
+        with full_fp32():
+            logits = hidden[:, i:i + ck].float() @ table_f.t()
+        logits = softcap(logits, cfg.final_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, i:i + ck, None])[..., 0]
+        m = mask[:, i:i + ck]
+        total = total + ((lse - gold) * m).sum()
+        count = count + m.sum()
+    return total / torch.clamp(count, min=1.0)
+
+
+def lm_loss(
+    params, tokens: torch.Tensor, labels: torch.Tensor, cfg: ArchConfig, *,
+    loss_mask: Optional[torch.Tensor] = None, backend=None,
+) -> torch.Tensor:
+    """Training loss: the train-mode forward, the chunked cross-entropy and
+    ``0.01`` times the MoE load-balancing loss (zero for dense models)."""
+    hidden, _, aux = lm_forward(params, tokens, cfg, mode="train", backend=backend)
+    return _chunked_ce(params, hidden, labels, cfg, loss_mask) + 0.01 * aux

@@ -1,0 +1,293 @@
+"""Gradients of the port's GEMM entry points and of its training loss,
+against the JAX reference's ``custom_vjp`` rules, on the CPU.
+
+* ``ops.matmul``/``ops.linear``: every C form and every registered epilogue
+  op (fused into ``matmul``; on the JAX side through both its post-hoc
+  ``xla`` lane and its ``pallas_interpret`` kernel) give the same ``dA``,
+  ``dB``, ``dC`` and operand cotangents as ``jax.vjp`` of
+  ``repro.kernels.ops.matmul``, and the output's ``grad_fn`` is the port's
+  autograd ``Function`` on both fp backends (``cuda`` runs here with its
+  device type cleared, so its wrapper takes the plain version on CPU
+  tensors).
+* ``epilogue_vjp`` op by op against the reference's.
+* ``lm_loss`` and its whole gradient tree on a 2-layer reduced chatglm3-6b,
+  remat ``"full"`` and ``"none"``, against ``jax.value_and_grad`` of the
+  reference's ``loss_fn``.
+* What has no backward yet raises.
+
+Tolerance, unless a test says otherwise: fp32 operands, ``1e-4 *
+max(1, max|want|)`` (only the order of fp32 sums differs).
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.kernels import epilogue as jep
+from repro.kernels import ops as jops
+from repro.models import api as japi
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.kernels import epilogue as tep
+from repro_torch.kernels import ops as tops
+from repro_torch.models import api as tapi
+from repro_torch.quant.quantize import QuantizedTensor
+from repro_torch.tree import leaves, map_leaves
+
+M, K, N = 6, 8, 12
+
+
+def _close(got, want, scale=1e-4):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want, dtype=np.float32)
+    tol = scale * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+
+
+def _rand(rng, *shape, scale=1.0):
+    return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+def _operand(rng, name):
+    """An operand for op ``name`` as the user passes it (row [N], full
+    [M, N], scalar), or None."""
+    kind = tep.op_kind(name)
+    if kind == "row":
+        return _rand(rng, N)
+    if kind == "full":
+        return _rand(rng, M, N)
+    if kind == "scalar":
+        return np.float32(0.02)  # |acc| / s passes 127 for some entries: both STE regions
+    return None
+
+
+def _t(x):
+    return torch.tensor(x, requires_grad=True)
+
+
+def _find_fn(out):
+    """The port's Function node of ``out``'s graph (through the reshape of
+    batched inputs)."""
+    node = out.grad_fn
+    while node is not None and not isinstance(node, tops._Matmul._backward_cls):
+        node = node.next_functions[0][0] if node.next_functions else None
+    return node
+
+
+@pytest.fixture(params=["torch", "cuda"])
+def backend(request, monkeypatch):
+    """The two fp backends; ``cuda`` with its device type cleared, so its
+    wrapper runs K1's plain version on these CPU tensors."""
+    if request.param == "cuda":
+        monkeypatch.setattr(tops._REGISTRY["cuda"], "device_type", None)
+    return request.param
+
+
+C_FORMS = ["none", "bias", "full"]
+
+
+@pytest.mark.parametrize("c_form", C_FORMS)
+def test_matmul_vjp_matches_jax_for_every_c_form(c_form, backend):
+    rng = np.random.default_rng(C_FORMS.index(c_form))
+    a, b, g = _rand(rng, 2, 3, K), _rand(rng, K, N), _rand(rng, 2, 3, N)
+    c = {"none": None, "bias": _rand(rng, N), "full": _rand(rng, 2, 3, N)}[c_form]
+    args = (a, b) if c is None else (a, b, c)
+
+    want_out, pull = jax.vjp(lambda *x: jops.matmul(*x, backend="xla"), *map(jnp.asarray, args))
+    want = pull(jnp.asarray(g))
+    targs = [_t(x) for x in args]
+    fn = tops.linear if c_form == "bias" else tops.matmul
+    out = fn(*targs, backend=backend)
+    assert _find_fn(out) is not None
+    got = torch.autograd.grad(out, targs, torch.from_numpy(g))
+    _close(out, want_out)
+    for x, y in zip(got, want):
+        _close(x, y)
+
+
+def test_two_dimensional_output_is_the_functions_own(backend):
+    rng = np.random.default_rng(5)
+    a, b = _t(_rand(rng, M, K)), _t(_rand(rng, K, N))
+    out = tops.matmul(a, b, backend=backend, epilogue="silu")
+    assert isinstance(out.grad_fn, tops._Matmul._backward_cls)
+    # Without an input that requires grad the backend is called as before.
+    with torch.no_grad():
+        assert tops.matmul(a, b, backend=backend).grad_fn is None
+    assert tops.matmul(a.detach(), b.detach(), backend=backend).grad_fn is None
+
+
+@pytest.mark.parametrize("jax_backend", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("op", tep.epilogue_ops())
+def test_matmul_vjp_matches_jax_for_every_epilogue_op(op, jax_backend):
+    rng = np.random.default_rng(tep.epilogue_ops().index(op))
+    a, b, g = _rand(rng, M, K), _rand(rng, K, N), _rand(rng, M, N)
+    o = _operand(rng, op)
+    if o is None:
+        fn_j = lambda a, b: jops.matmul(a, b, backend=jax_backend, epilogue=op)  # noqa: E731
+        args = (a, b)
+    else:
+        fn_j = lambda a, b, o: jops.matmul(  # noqa: E731
+            a, b, backend=jax_backend, epilogue=[(op, o)], out_dtype=jnp.float32)
+        args = (a, b, o)
+    want_out, pull = jax.vjp(fn_j, *map(jnp.asarray, args))
+    want = pull(jnp.asarray(g))
+
+    targs = [_t(x) for x in args]
+    step = op if o is None else [(op, targs[2])]
+    out = tops.matmul(targs[0], targs[1], epilogue=step, out_dtype=torch.float32)
+    assert isinstance(out.grad_fn, tops._Matmul._backward_cls)
+    got = torch.autograd.grad(out, targs, torch.from_numpy(g))
+    _close(out, want_out)
+    for x, y in zip(got, want):
+        assert tuple(x.shape) == tuple(np.shape(y))
+        _close(x, y)
+
+
+def test_matmul_vjp_of_a_chain_with_a_folded_bias_matches_jax(backend):
+    """A C operand with an epilogue folds in as the chain's first step; the
+    SwiGLU gate's ``silu, mul(up)`` and a ``scale`` row follow."""
+    rng = np.random.default_rng(11)
+    a, b, g = _rand(rng, 2, 3, K), _rand(rng, K, N), _rand(rng, 2, 3, N)
+    bias, up, sc = _rand(rng, N), _rand(rng, 2, 3, N), _rand(rng, N)
+
+    def fn_j(a, b, bias, up, sc):
+        return jops.matmul(a, b, bias, backend="xla", epilogue=["silu", ("mul", up), ("scale", sc)])
+
+    args = (a, b, bias, up, sc)
+    want_out, pull = jax.vjp(fn_j, *map(jnp.asarray, args))
+    want = pull(jnp.asarray(g))
+    ta = [_t(x) for x in args]
+    out = tops.matmul(ta[0], ta[1], ta[2], backend=backend,
+                      epilogue=["silu", ("mul", ta[3]), ("scale", ta[4])])
+    got = torch.autograd.grad(out, ta, torch.from_numpy(g))
+    _close(out, want_out)
+    for x, y in zip(got, want):
+        _close(x, y)
+
+
+@pytest.mark.parametrize("op", tep.epilogue_ops())
+def test_epilogue_vjp_matches_jax_op_by_op(op):
+    rng = np.random.default_rng(20 + tep.epilogue_ops().index(op))
+    acc, g = _rand(rng, M, N, scale=3.0), _rand(rng, M, N)
+    o = _operand(rng, op)
+    raw = () if o is None else (o,)
+    j_ops = jep.canonicalize_operands((op,), tuple(map(jnp.asarray, raw)), n=N, m=M)
+    t_ops = tep.canonicalize_operands((op,), tuple(torch.tensor(x) for x in raw), n=N, m=M)
+    want_acc, want_ops = jep.epilogue_vjp((op,), j_ops, jnp.asarray(acc), jnp.asarray(g))
+    got_acc, got_ops = tep.epilogue_vjp((op,), t_ops, torch.from_numpy(acc), torch.from_numpy(g))
+    assert got_acc.dtype == torch.float32 and len(got_ops) == len(want_ops)
+    _close(got_acc, want_acc)
+    for x, y in zip(got_ops, want_ops):
+        assert tuple(x.shape) == tuple(y.shape)
+        _close(x, y)
+
+
+def test_requant_int8_has_the_references_straight_through_vjp():
+    assert tep.op_def("requant_int8").vjp is not None
+    assert all(tep.op_def(n).vjp is None for n in tep.epilogue_ops() if n != "requant_int8")
+
+
+# --- the training loss of a 2-layer reduced chatglm3-6b ----------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _model(remat_policy):
+    jcfg = dataclasses.replace(j_get_config("chatglm3-6b").reduced(), n_layers=2,
+                               remat_policy=remat_policy)
+    tcfg = dataclasses.replace(t_get_config("chatglm3-6b").reduced(), n_layers=2,
+                               remat_policy=remat_policy)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    jparams = jax.jit(functools.partial(japi.init_params, jcfg))(jax.random.key(0))
+    tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams), "cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+def _batch(seed, b=2, s=48, vocab=256):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, vocab, (b, s)), rng.integers(0, vocab, (b, s))
+
+
+@pytest.mark.parametrize("remat_policy", ["full", "none"])
+def test_lm_loss_and_its_gradient_tree_match_jax(remat_policy):
+    """S = 48 with loss_chunk 32: two 24-token CE chunks."""
+    jcfg, tcfg, jparams, tparams = _model(remat_policy)
+    toks, labels = _batch(1)
+    jbatch = {"tokens": jnp.asarray(toks, jnp.int32), "labels": jnp.asarray(labels, jnp.int32)}
+    want_loss, want_grads = jax.jit(jax.value_and_grad(
+        lambda p: japi.loss_fn(jcfg, p, jbatch, backend="xla")))(jparams)
+
+    live = map_leaves(lambda p: p.detach().clone().requires_grad_(), tparams)
+    loss = tapi.loss_fn(tcfg, live, {"tokens": torch.from_numpy(toks),
+                                     "labels": torch.from_numpy(labels)})
+    grads = torch.autograd.grad(loss, list(leaves(live)))
+    it = iter(grads)
+    got = params_to_numpy(tcfg, map_leaves(lambda _p: next(it), live))
+    _close(loss, want_loss)
+    want = jax.tree.map(np.asarray, want_grads)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for x, y in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert x.shape == y.shape
+        _close(x, y)
+
+
+def test_params_to_numpy_inverts_params_from_numpy():
+    jcfg, tcfg, jparams, tparams = _model("full")
+    back = params_to_numpy(tcfg, tparams)
+    want = jax.tree.map(np.asarray, jparams)
+    assert jax.tree.structure(back) == jax.tree.structure(want)
+    for x, y in zip(jax.tree.leaves(back), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_remat_full_relaunches_the_forward_gemms():
+    """Under remat "full" each block's 7 GEMMs run again in the backward;
+    with "none" they run once. Backward GEMMs never count into ``calls``."""
+    toks, labels = _batch(2, s=16)
+    batch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+    counts = {}
+    for policy in ("full", "none"):
+        _, tcfg, _, tparams = _model(policy)
+        live = map_leaves(lambda p: p.detach().clone().requires_grad_(), tparams)
+        tops.reset_counts()
+        torch.autograd.grad(tapi.loss_fn(tcfg, live, batch), list(leaves(live)))
+        counts[policy] = tops.backend("torch").calls
+    assert counts == {"full": 2 * 7 * 2, "none": 7 * 2}
+
+
+def test_remat_dots_is_not_ported():
+    _, tcfg, _, tparams = _model("full")
+    tcfg = dataclasses.replace(tcfg, remat_policy="dots")
+    toks, labels = _batch(3, s=8)
+    with pytest.raises(NotImplementedError, match="dots"):
+        tapi.loss_fn(tcfg, tparams, {"tokens": torch.from_numpy(toks),
+                                     "labels": torch.from_numpy(labels)})
+
+
+# --- what has no backward yet raises -------------------------------------------
+
+
+def test_q8_and_pre_quantized_matmul_under_grad_raise():
+    rng = np.random.default_rng(30)
+    a, b = _t(_rand(rng, M, K)), _t(_rand(rng, K, N))
+    with pytest.raises(NotImplementedError, match="A.6b"):
+        tops.matmul(a, b, backend="q8")
+    q = QuantizedTensor(torch.ones((M, K), dtype=torch.int8), torch.tensor(0.5))
+    with pytest.raises(NotImplementedError, match="A.6b"):
+        tops.matmul(q, b, backend="q8")
+    with torch.no_grad():  # serving: unchanged
+        assert tops.matmul(a, b, backend="q8").shape == (M, N)
+
+
+def test_grouped_matmul_under_grad_raises():
+    rng = np.random.default_rng(31)
+    a, b = _t(_rand(rng, 3, M, K)), _t(_rand(rng, 3, K, N))
+    with pytest.raises(NotImplementedError, match="A.6b"):
+        tops.grouped_matmul(a, b)
+    with torch.no_grad():
+        assert tops.grouped_matmul(a, b).shape == (3, M, N)

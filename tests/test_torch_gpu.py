@@ -1085,3 +1085,106 @@ def test_scan_kernel_rejects_what_it_does_not_take(cuda_device):
         tscan.opope_chunked_scan(x.half(), x)
     with pytest.raises(ValueError, match="cuda"):
         tscan.opope_chunked_scan(x, x.cpu())
+
+
+# Autograd through K1 (`ops._Matmul`): the vjp on the kernels against the
+# vjp on the plain backend, the same inputs and cotangent. fp32 gradients
+# within rtol 1e-4 / atol 1e-3 of the plain ones; bf16 within 2e-2 of the
+# largest magnitude (each backward GEMM rounds to bf16, and an epilogue'd
+# product's fp32 cotangent comes from a recomputed accumulator whose sums
+# run in another order than the plain version's).
+VJP_SHAPES = [(64, 256, 128), (5, 40, 24), (130, 136, 264)]
+
+
+def _vjp(a, b, operands, spec, g, c, backend):
+    inputs = [a, b] + ([c] if c is not None else []) + operands
+    out = ops.matmul(a, b, c, backend=backend, epilogue=spec)
+    return out, torch.autograd.grad(out, inputs, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", VJP_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k1_vjp_matches_the_plain_backend(cuda_device, shape, dtype):
+    m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(m * k + n)
+
+    def rand(*s, scale=1.0):
+        return (torch.randn(s, generator=gen, device=cuda_device) * scale).to(dtype)
+
+    a, b = rand(m, k).requires_grad_(), rand(k, n, scale=k ** -0.5).requires_grad_()
+    g = rand(m, n)
+    cases = [(None, [], None), (rand(n).requires_grad_(), [], None),
+             (rand(m, n).requires_grad_(), [], None)]
+    for op in tep.epilogue_ops():
+        kind = tep.op_kind(op)
+        o = {"none": None, "row": rand(n), "full": rand(m, n),
+             "scalar": torch.tensor(0.05, device=cuda_device)}[kind]
+        if o is None:
+            cases.append((None, [], [op]))
+        else:
+            o.requires_grad_()
+            cases.append((None, [o], [(op, o)]))
+    up = rand(m, n).requires_grad_()  # a bias folded into the SwiGLU gate's chain
+    cases.append((rand(n).requires_grad_(), [up], ["silu", ("mul", up)]))
+    for c, operands, spec in cases:
+        out, got = _vjp(a, b, operands, spec, g, c, "cuda")
+        assert isinstance(out.grad_fn, ops._Matmul._backward_cls)
+        _, want = _vjp(a, b, operands, spec, g, c, "torch")
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            if dtype == torch.float32:
+                torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-3)
+            else:
+                assert (x.float() - y.float()).abs().max() <= 2e-2 * y.float().abs().max()
+
+
+def test_k1_backward_launches_by_route(cuda_device):
+    """bf16 at M = 64: a plain product's backward is 2 sm90 launches; an
+    epilogue'd one recomputes its fp32 accumulator on sm90 and runs dA, dB
+    on the fp32 cotangent on the tile route. Neither counts into calls."""
+    k1 = _k1_module()
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    a = torch.randn((64, 256), generator=gen, device=cuda_device).to(torch.bfloat16)
+    b = torch.randn((256, 128), generator=gen, device=cuda_device).to(torch.bfloat16)
+    r = torch.randn((64, 128), generator=gen, device=cuda_device).to(torch.bfloat16)
+    for spec, want in ((None, {"sm90": 2, "tile": 0}),
+                       ([("residual", r)], {"sm90": 1, "tile": 2})):
+        a_, b_ = a.clone().requires_grad_(), b.clone().requires_grad_()
+        out = ops.matmul(a_, b_, epilogue=spec)
+        calls = ops.backend("cuda").calls
+        k1.opope_gemm.launches_by_route.update(sm90=0, tile=0)
+        torch.autograd.grad(out, [a_, b_], torch.ones_like(out))
+        torch.cuda.synchronize()
+        assert k1.opope_gemm.launches_by_route == want
+        assert ops.backend("cuda").calls == calls
+
+
+def test_reduced_model_loss_and_gradients_on_the_kernels_match_the_plain_backend(cuda_device):
+    """fp32 reduced chatglm3-6b (the tile route throughout): the loss within
+    1e-5 relative and every gradient leaf within rtol 1e-3 / atol 1e-5 of
+    the plain backend's; then three train steps on the kernels."""
+    from repro_torch.data import MarkovLMDataset, make_batch_fn
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves, map_leaves
+
+    cfg = get_config("chatglm3-6b").reduced()
+    params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    batch = make_batch_fn(MarkovLMDataset(cfg.vocab, 32, 4), cuda_device)(0)
+
+    def loss_grads(backend):
+        live = map_leaves(lambda p: p.detach().requires_grad_(), params)
+        loss = api.loss_fn(cfg, live, batch, backend=backend)
+        return loss, torch.autograd.grad(loss, list(leaves(live)))
+
+    loss_k, g_k = loss_grads("cuda")
+    loss_p, g_p = loss_grads("torch")
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-5 * abs(loss_p.item())
+    for x, y in zip(g_k, g_p):
+        torch.testing.assert_close(x, y, rtol=1e-3, atol=1e-5)
+    opt = AdamWConfig(peak_lr=1e-2, warmup_steps=1, total_steps=3)
+    step, state = make_train_step(cfg, opt), init_opt_state(params, opt)
+    before = opope_gemm.launches
+    losses = [float(step(params, state, batch)[2]["loss"]) for _ in range(3)]
+    assert opope_gemm.launches - before == 3 * (7 + 7 + 8 + 9) * cfg.n_layers
+    assert losses[-1] < losses[0]

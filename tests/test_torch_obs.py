@@ -651,8 +651,11 @@ def test_stats_serve_runs_the_driver_in_process(tmp_path, capsys):
     assert '"engine": "continuous"' in capsys.readouterr().out
 
 
-def test_stats_train_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="training loop"):
+def test_stats_train_is_not_ported_yet(monkeypatch):
+    # The training loop is ported now: `stats train` runs the port's train
+    # launcher, which defaults to the card and, without one, raises.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
         t_stats.main(["train", "--", "--arch", "chatglm3-6b"])
 
 

@@ -1,0 +1,302 @@
+"""The port's dense training path against the JAX reference, on the CPU:
+AdamW and its schedule, the Markov data pipeline, the train step, the loop
+(its telemetry and watchdog) and its two command lines.
+
+Tolerances: the optimizer gets identical numpy parameters, gradients and
+state on both sides, so its fp32 results must agree to ``1e-6 *
+max(1, max|want|)`` (the reference's elementwise arithmetic, op for op; only
+the global norm's sum order over leaves differs) and its bf16 results to
+one bf16 ulp of the value (a 1-ulp fp32 difference may round the other
+way). Train-step losses: ``1e-4 * max(1, |want|)``, as the model tests
+(fp32 sums in other orders; AdamW's first step moves each weight by about
+``lr * sign(g)``, so a near-zero gradient of the other sign changes a
+weight by ``2 * lr``, but it changes the loss only to second order).
+"""
+
+import dataclasses
+import functools
+import json
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import obs as jobs
+from repro.configs import get_config as j_get_config
+from repro.data import MarkovLMDataset as JMarkov
+from repro.models import api as japi
+from repro.optim import adamw as jadamw
+from repro.train import loop as jloop
+from repro_torch import obs as tobs
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.convert import params_from_numpy, tensor_from_numpy
+from repro_torch.data import MarkovLMDataset, Prefetcher, make_batch_fn
+from repro_torch.launch import stats as t_stats
+from repro_torch.launch import train as t_launch
+from repro_torch.optim import adamw as tadamw
+from repro_torch.quant import PrecisionPolicy, mlp_q8_policy
+from repro_torch.train import loop as tloop
+
+
+@pytest.fixture(autouse=True)
+def _port_telemetry():
+    tobs.reset()
+    tobs.clear_events()
+    yield
+    tobs.reset()
+    tobs.clear_events()
+
+
+def _close(got, want, scale=1e-4):
+    got = np.asarray(got, dtype=np.float32)
+    want = np.asarray(want, dtype=np.float32)
+    np.testing.assert_allclose(got, want, rtol=0, atol=scale * max(1.0, float(np.abs(want).max())))
+
+
+# --- AdamW ---------------------------------------------------------------------
+
+
+def _tree(rng, dtype):
+    """A parameter-like tree (matrices, vectors, a list of blocks) of numpy
+    arrays; the same keys in sorted order, so both packages walk one order."""
+    def r(*shape):
+        return rng.standard_normal(shape).astype(dtype)
+    return {"a_mat": r(6, 5), "b_vec": r(5), "blocks": [{"w": r(4, 3), "z_scale": r(3)},
+                                                        {"w": r(4, 3), "z_scale": r(3)}]}
+
+
+def _to_torch(tree):
+    return jax.tree.map(lambda x: tensor_from_numpy(x, "cpu"), tree)
+
+
+def _to_jax(tree):
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+def _bf16_close(got, want):
+    want = np.asarray(want, np.float32)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert np.all(np.abs(np.asarray(got, np.float32) - want) <= ulp + 1e-30)
+
+
+@pytest.mark.parametrize("param_dtype,moment_dtype", [
+    ("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "float32")])
+@pytest.mark.parametrize("clip_norm", [0.5, None])
+def test_apply_updates_matches_jax_on_identical_inputs(param_dtype, moment_dtype, clip_norm):
+    rng = np.random.default_rng(0)
+    pdt = jnp.bfloat16 if param_dtype == "bfloat16" else np.float32
+    params = jax.tree.map(lambda x: np.asarray(jnp.asarray(x, pdt)), _tree(rng, np.float32))
+    cfg = dict(peak_lr=1e-2, warmup_steps=2, total_steps=6, weight_decay=0.1,
+               clip_norm=clip_norm, moment_dtype=moment_dtype)
+    jcfg, tcfg = jadamw.AdamWConfig(**cfg), tadamw.AdamWConfig(**cfg)
+    jp, tp = _to_jax(params), _to_torch(params)
+    js, ts = jadamw.init_opt_state(jp, jcfg), tadamw.init_opt_state(tp, tcfg)
+    for step in range(3):
+        grads = jax.tree.map(lambda x: np.asarray(jnp.asarray(x * (step + 1), pdt)),
+                             _tree(rng, np.float32))
+        jp, js, jm = jadamw.apply_updates(jp, _to_jax(grads), js, jcfg)
+        tp, ts, tm = tadamw.apply_updates(tp, _to_torch(grads), ts, tcfg)
+        assert int(ts.step) == int(js.step) == step + 1
+        _close(tm["lr"], jm["lr"], 1e-6)
+        _close(tm["grad_norm"], jm["grad_norm"], 1e-6)
+        for trees in ((tp, jp, param_dtype), (ts.mu, js.mu, moment_dtype),
+                      (ts.nu, js.nu, moment_dtype)):
+            for got, want in zip(jax.tree.leaves(trees[0]), jax.tree.leaves(trees[1])):
+                assert got.dtype == {"float32": torch.float32,
+                                     "bfloat16": torch.bfloat16}[trees[2]]
+                if trees[2] == "bfloat16":
+                    _bf16_close(_np(got), _np(want))
+                else:
+                    _close(_np(got), _np(want), 1e-6)
+
+
+def test_decay_applies_to_matrices_only():
+    params = {"m": torch.ones(3, 3), "v": torch.ones(3)}
+    grads = {"m": torch.zeros(3, 3), "v": torch.zeros(3)}
+    cfg = tadamw.AdamWConfig(peak_lr=1.0, warmup_steps=0, total_steps=10, weight_decay=0.5,
+                             clip_norm=None)
+    tadamw.apply_updates(params, grads, tadamw.init_opt_state(params, cfg), cfg)
+    assert torch.all(params["m"] < 1.0) and torch.equal(params["v"], torch.ones(3))
+
+
+def test_cosine_lr_matches_jax():
+    for cfg in (dict(peak_lr=3e-3, warmup_steps=10, total_steps=200),
+                dict(peak_lr=1.0, warmup_steps=0, total_steps=1, min_lr_frac=0.0)):
+        jcfg, tcfg = jadamw.AdamWConfig(**cfg), tadamw.AdamWConfig(**cfg)
+        for s in (0, 1, 5, 10, 11, 100, 199, 200, 250):
+            _close(tadamw.cosine_lr(tcfg, torch.tensor(s, dtype=torch.int32)),
+                   jadamw.cosine_lr(jcfg, jnp.int32(s)), 1e-6)
+
+
+# --- data ------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_markov_batches_are_bitwise_the_references(seed):
+    ours, ref = MarkovLMDataset(256, 24, 3, seed=seed), JMarkov(256, 24, 3, seed=seed)
+    for step in (0, 1, 5, 1000):
+        got, want = ours.batch_at(step), ref.batch_at(step)
+        for k in ("tokens", "labels"):
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(got[k], want[k])
+    batch = make_batch_fn(ours, "cpu")(5)
+    assert batch["tokens"].dtype == torch.int64
+    np.testing.assert_array_equal(batch["labels"].numpy(), ref.batch_at(5)["labels"])
+
+
+def test_prefetcher_yields_steps_in_order():
+    ds = MarkovLMDataset(64, 8, 2, seed=3)
+    fn = make_batch_fn(ds, "cpu")
+    pf = Prefetcher(fn, start_step=4, depth=2)
+    try:
+        for want in range(4, 10):
+            step, batch = pf.get()
+            assert step == want
+            assert torch.equal(batch["tokens"], fn(want)["tokens"])
+    finally:
+        pf.close()
+    assert not pf._thread.is_alive()
+
+
+# --- the train step and the loop ---------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _model():
+    jcfg = j_get_config("chatglm3-6b").reduced()
+    tcfg = t_get_config("chatglm3-6b").reduced()
+    jparams = jax.jit(functools.partial(japi.init_params, jcfg))(jax.random.key(0))
+    return jcfg, tcfg, jax.tree.map(np.asarray, jparams)
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_train_step_losses_match_jax_over_3_steps(grad_accum):
+    jcfg, tcfg, params = _model()
+    jcfg = dataclasses.replace(jcfg, grad_accum=grad_accum)
+    tcfg = dataclasses.replace(tcfg, grad_accum=grad_accum)
+    opt = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    jstep = jloop.make_train_step(jcfg, jadamw.AdamWConfig(**opt), donate=False)
+    tstep = tloop.make_train_step(tcfg, tadamw.AdamWConfig(**opt))
+    jp = jax.tree.map(jnp.asarray, params)
+    tp = params_from_numpy(tcfg, params, "cpu")
+    js = jadamw.init_opt_state(jp, jadamw.AdamWConfig(**opt))
+    ts = tadamw.init_opt_state(tp, tadamw.AdamWConfig(**opt))
+    ds = JMarkov(tcfg.vocab, 16, 4, seed=2)
+    for step in range(3):
+        host = ds.batch_at(step)
+        jp, js, jm = jstep(jp, js, {k: jnp.asarray(v) for k, v in host.items()})
+        tp, ts, tm = tstep(tp, ts, {k: torch.from_numpy(v.astype(np.int64))
+                                    for k, v in host.items()})
+        _close(tm["loss"], jm["loss"])
+        _close(tm["grad_norm"], jm["grad_norm"])
+
+
+def _run_port(steps, batch_fn=None, **loop_kw):
+    _, tcfg, _ = _model()
+    ds = MarkovLMDataset(tcfg.vocab, 32, 8, seed=0)
+    opt = tadamw.AdamWConfig(peak_lr=1e-2, warmup_steps=3, total_steps=steps)
+    loop = tloop.TrainLoopConfig(total_steps=steps, log_every=0, **loop_kw)
+    return tloop.train(tcfg, opt, loop, batch_fn or make_batch_fn(ds, "cpu"), device="cpu",
+                       log=lambda *_: None)
+
+
+def test_train_loss_falls_and_step_events_match_the_references():
+    res = _run_port(24)
+    assert len(res.losses) == 24 and res.final_step == 24 and res.resumed_from is None
+    assert np.mean(res.losses[-3:]) < res.losses[0] - 0.5  # ln(256) = 5.55 at the start
+    ours = tobs.recent_events(100, kind="train_step")
+    assert [e["step"] for e in ours] == list(range(24))
+    snap = tobs.snapshot()
+    assert snap["histograms"]["train.step_seconds"][""]["count"] == 24
+
+    # The reference's loop on the same config for 2 steps: the same event
+    # fields; equal values where they do not derive from wall time.
+    jcfg, tcfg, params = _model()
+    jobs.clear_events()
+    jds = JMarkov(jcfg.vocab, 32, 8, seed=0)
+    jloop.train(jcfg, jadamw.AdamWConfig(peak_lr=1e-2, warmup_steps=3, total_steps=2),
+                jloop.TrainLoopConfig(total_steps=2, log_every=0),
+                lambda s: {k: jnp.asarray(v) for k, v in jds.batch_at(s).items()},
+                params=jax.tree.map(jnp.asarray, params), log=lambda *_: None)
+    theirs = jobs.recent_events(10, kind="train_step")
+    tobs.clear_events()
+    tloop.train(tcfg, tadamw.AdamWConfig(peak_lr=1e-2, warmup_steps=3, total_steps=2),
+                tloop.TrainLoopConfig(total_steps=2, log_every=0),
+                make_batch_fn(MarkovLMDataset(tcfg.vocab, 32, 8, seed=0), "cpu"),
+                params=params_from_numpy(tcfg, params, "cpu"), log=lambda *_: None)
+    ours = tobs.recent_events(10, kind="train_step")
+    assert len(ours) == len(theirs) == 2
+    for a, b in zip(ours, theirs):
+        assert set(a) == set(b)
+        assert (a["step"], a["tokens"]) == (b["step"], b["tokens"])
+        _close(a["loss"], b["loss"])
+        assert a["roofline_frac"] > 0 and a["gflops_per_sec"] > 0
+
+
+def test_watchdog_flags_an_injected_stall():
+    _, tcfg, _ = _model()
+    base = make_batch_fn(MarkovLMDataset(tcfg.vocab, 8, 2, seed=0), "cpu")
+
+    def slow_batch(step):
+        if step == 9:
+            time.sleep(1.0)  # synthetic stall
+        return base(step)
+
+    res = _run_port(10, batch_fn=slow_batch, watchdog_factor=3.0)
+    assert res.straggler_steps >= 1
+    assert any(e["step"] == 9 for e in tobs.recent_events(50, kind="straggler"))
+
+
+def test_watchdog_needs_five_steps_and_a_factor():
+    wd = tloop._Watchdog(3.0)
+    assert not any(wd.observe(1.0) for _ in range(5))
+    assert not wd.observe(2.9) and wd.observe(10.0) and wd.flagged == 1
+
+
+def test_launch_train_and_stats_train_run_on_the_cpu(tmp_path, capsys):
+    res = t_launch.main(["--arch", "chatglm3-6b", "--reduced", "--device", "cpu",
+                         "--steps", "6", "--batch", "2", "--seq", "16"])
+    assert len(res.losses) == 6 and all(np.isfinite(res.losses))
+    out = tmp_path / "snap.json"
+    tobs.reset()
+    t_stats.main(["train", "--out", str(out), "--", "--arch", "chatglm3-6b", "--reduced",
+                  "--device", "cpu", "--steps", "3", "--batch", "2", "--seq", "16"])
+    snap = json.loads(out.read_text())
+    assert snap["histograms"]["train.step_seconds"][""]["count"] == 3
+    assert snap["histograms"]["span.seconds"]["name=stats.train"]["count"] == 1
+
+
+# --- what is not ported raises ----------------------------------------------------------
+
+
+def test_unported_training_paths_raise(tmp_path, monkeypatch):
+    _, tcfg, _ = _model()
+    opt = tadamw.AdamWConfig(total_steps=2)
+    fn = make_batch_fn(MarkovLMDataset(tcfg.vocab, 8, 2), "cpu")
+    with pytest.raises(NotImplementedError, match="A.6b"):
+        tloop.train(tcfg, opt, tloop.TrainLoopConfig(total_steps=2, ckpt_dir=str(tmp_path)),
+                    fn, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.6b"):
+        t_launch.main(["--arch", "chatglm3-6b", "--reduced", "--device", "cpu",
+                       "--steps", "2", "--ckpt-dir", str(tmp_path)])
+    for policy in ("q8", "torch_q8", mlp_q8_policy(),
+                   PrecisionPolicy(rules={"attn_qkv": "torch_q8"})):
+        with pytest.raises(NotImplementedError, match="q8"):
+            tloop.make_train_step(tcfg, opt, policy=policy)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tloop.make_train_step(t_get_config("deepseek-moe-16b").reduced(), opt)
+    # An fp-family policy is fine.
+    tloop.make_train_step(tcfg, opt, policy=PrecisionPolicy(rules={"mlp": "torch"}))
+    # The default device is the card; without one the entry points raise.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_launch.main(["--arch", "chatglm3-6b", "--reduced", "--steps", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tloop.train(tcfg, opt, tloop.TrainLoopConfig(total_steps=2), fn)
