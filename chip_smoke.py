@@ -105,7 +105,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     step; (c) ``python -m repro_torch.launch.train --arch chatglm3-6b
     --reduced --steps 40`` (loss must fall); (d) K1 launched in the backward
     of (a) and (b), and (b)'s launches exactly 25 sm90 and 6 tile (the fp32
-    backward GEMMs) a layer and a step.
+    backward GEMMs) a layer and a step;
+11. MoE training on K4 and K1 (after phase 10): (a) one full-width
+    deepseek-moe-16b layer's 3 expert GEMMs at their training shapes (64
+    experts x 240 rows), teacher-forced on fixed routing, their vjp
+    through ``ops.grouped_matmul`` on the kernels against the plain
+    backend under phase 10's floor gate, K4's backward launches by route,
+    each backward GEMM timed by device time beside ``torch.bmm`` on the
+    same operands, the operand copies and the bound; (b) full-width
+    deepseek-moe-16b cut to 4 layers (bf16, remat "full", onehot dispatch,
+    random weights from seed 0) on the Markov stream at 4 x 512 tokens:
+    one step with every K1 and K4 launch counted by role (forward, remat
+    recompute, backward, fp32 recompute, fp32 backward) and route, and
+    each layer's remat recompute routing bitwise equal to its forward's,
+    then 8 steps through ``repro_torch.train.train`` with finite losses,
+    exact launch counts, step time, tokens/s, peak memory and a profiled
+    step; (c) ``python -m repro_torch.launch.train --arch deepseek-moe-16b
+    --reduced --steps 40`` (finite losses).
 
 The last lines are a JSON ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
@@ -172,6 +188,24 @@ TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 2, 1e-3
 # dA and dB (8, bf16), and for wo, w_gate and w_down (epilogue'd) the fp32
 # accumulator's recompute and dA, dB on the fp32 cotangent (3 + 6).
 K1_TRAIN_SM90_PER_LAYER, K1_TRAIN_TILE_PER_LAYER = 14 + 8 + 3, 6
+# MoE training (phase 11): full-width deepseek-moe-16b cut to 4 of its 28
+# layers (2.56 B parameters: 30.7 GB with bf16 gradients and fp32 AdamW
+# moments; all 28 would need about 200 GB), bf16, remat "full", onehot
+# dispatch, the same 4 x 512 tokens and 8 steps: 4 routing groups of 512 at
+# capacity 60, so each expert GEMM has M = 240.
+MOE_TRAIN_LAYERS = 4
+# Launches a layer and a step by role (phase 11(b), all on sm90 but the fp32
+# backward on tile). K1: 8 GEMMs (wq, wk, wv, wo, the router, the shared
+# MLP's w_up, w_gate, w_down) in the forward and again in the remat
+# recompute; dA and dB of wq, wk, wv, the router and the shared w_up; for
+# wo and the shared w_gate and w_down (epilogue'd) the fp32 accumulator's
+# recompute and dA, dB on its fp32 cotangent. K4: the 3 expert GEMMs twice;
+# w_up's dA, dB; w_gate's fp32 recompute and its dA, dB on g_acc; w_down's
+# dA, dB on the cotangent of its fp32 output.
+K1_MOE_TRAIN = {"forward": 8, "remat recompute": 8, "backward": 10, "fp32 recompute": 3,
+                "fp32 backward": 6}
+K4_MOE_TRAIN = {"forward": 3, "remat recompute": 3, "backward": 2, "fp32 recompute": 1,
+                "fp32 backward": 4}
 
 
 def log(msg: str) -> None:
@@ -2629,6 +2663,416 @@ def train_phase(torch, np, cfg, ops, ep, dev, *, layers=TRAIN_LAYERS, batch=TRAI
     }
 
 
+def _role_counter(torch, ops, kernels):
+    """Count each launch of ``kernels`` (name -> wrapper with
+    ``launches_by_route``) made through the ``cuda`` backend by role and
+    route. A product the entry points run (``ops._run``: the forward, and
+    the remat recompute, which autograd may start from inside a Function's
+    backward when it unpacks the saved inputs) takes the role
+    ``state["phase"]`` (``"forward"`` or ``"remat recompute"``); a GEMM of
+    the backward rules takes ``"fp32 backward"`` for fp32 operands,
+    ``"fp32 recompute"`` for the accumulator (fp32 out) and ``"backward"``
+    for the rest. Returns (the Counter of (kernel, role, route), the state,
+    a context manager that installs the wrappers)."""
+    import collections
+
+    counts = collections.Counter()
+    state = {"phase": "forward", "in_run": 0}
+    be = ops.backend("cuda")
+    real_run = ops._run
+
+    def entry(*args, **kw):
+        state["in_run"] += 1
+        try:
+            return real_run(*args, **kw)
+        finally:
+            state["in_run"] -= 1
+
+    def wrap(fn, kname):
+        kern = kernels[kname]
+
+        def run(a, b, c=None, **kw):
+            before = dict(kern.launches_by_route)
+            out = fn(a, b, c, **kw)
+            if state["in_run"]:
+                role = state["phase"]
+            elif a.dtype == torch.float32:
+                role = "fp32 backward"
+            elif kw.get("out_dtype") == torch.float32:
+                role = "fp32 recompute"
+            else:
+                role = "backward"
+            for route, n in kern.launches_by_route.items():
+                if n - before[route]:
+                    counts[(kname, role, route)] += n - before[route]
+            return out
+        return run
+
+    @contextlib.contextmanager
+    def installed():
+        with _patched(ops, "_run", entry), \
+                _patched(be, "fn", wrap(be.fn, "K1")), \
+                _patched(be, "grouped_fn", wrap(be.grouped_fn, "K4")):
+            yield
+
+    return counts, state, installed
+
+
+def moe_train_phase(torch, np, cfg, ops, ep, k4mod, dev, *, layers=MOE_TRAIN_LAYERS,
+                    batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS):
+    """Phase 11: MoE training, K4 in the backward. (a) one MoE layer's
+    expert GEMMs at their training shapes, teacher-forced on fixed routing
+    (the dispatched expert inputs drawn directly), vjp on the kernels
+    against the plain backend under the same-run floor, each backward GEMM
+    timed; (b) the model cut to ``layers`` layers: one step counted by role
+    and route with the remat recompute's routing checked against the
+    forward's, then ``steps`` steps through ``repro_torch.train.train``;
+    (c) the training CLI at its reduced config. Returns K4's training
+    record and the K1 launches of (b)."""
+    import dataclasses
+    import os
+
+    from repro_torch import obs
+    from repro_torch.data import MarkovLMDataset, make_batch_fn
+    from repro_torch.kernels.opope_gemm import full_fp32, opope_gemm
+    from repro_torch.models import api
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import TrainLoopConfig, make_train_step, train
+    from repro_torch.tree import leaves, map_leaves
+    k4 = k4mod.opope_gemm_grouped
+
+    t_phase = time.perf_counter()
+    fp64, plain = _fp64_plain(torch, ep), ops.backend("torch")
+    bf16, f32 = torch.bfloat16, torch.float32
+    moe = cfg.moe
+    if not (moe.dispatch == "onehot" and not moe.dropless and moe.group_size <= seq):
+        raise AssertionError(f"11 wants onehot dispatch with capacity, got {moe}")
+    group = moe.group_size
+    capacity = max(int(math.ceil(moe.capacity_factor * group * moe.top_k / moe.n_experts)), 1)
+    m = batch * seq // group * capacity  # rows of each expert GEMM
+    e, d, f = moe.n_experts, cfg.d_model, moe.d_ff_expert
+
+    try:  # bf16 in, fp32 out in one library call, on builds that have it
+        torch.bmm(torch.ones((1, 8, 8), dtype=bf16, device=dev),
+                  torch.ones((1, 8, 8), dtype=bf16, device=dev), out_dtype=f32)
+        bmm_out_dtype = True
+    except (TypeError, RuntimeError, NotImplementedError) as exc:
+        bmm_out_dtype = False
+        log(f"11(a) torch.bmm(out_dtype=float32) unavailable ({type(exc).__name__}): the "
+            f"recompute has no library lane")
+
+    # (a) the 3 expert GEMMs as the layer runs them: w_up (bf16 out), w_gate
+    # (silu, mul(up), bf16 out), w_down (fp32 out for the fp32 combine, so
+    # its cotangent is fp32).
+    gen = torch.Generator(device=dev).manual_seed(11)
+    layer = [("w_up", d, f, (), bf16), ("w_gate", d, f, ("silu", "mul"), bf16),
+             ("w_down", f, d, (), f32)]
+    want_routes = {"w_up": {"sm90": 2, "tile": 0}, "w_gate": {"sm90": 1, "tile": 2},
+                   "w_down": {"sm90": 0, "tile": 2}}
+    rows, worst, gaps_all = [], 0.0, {}
+    for name, k, n, steps_, out_dtype in layer:
+        a = torch.randn((e, m, k), generator=gen, device=dev).to(bf16).requires_grad_()
+        b = (torch.randn((e, k, n), generator=gen, device=dev) * k ** -0.5).to(bf16)
+        b.requires_grad_()
+        operands = [torch.randn((e, m, n), generator=gen, device=dev).to(bf16).requires_grad_()
+                    for s_ in steps_ if ep.op_kind(s_) != "none"]
+        it = iter(operands)
+        spec = [s_ if ep.op_kind(s_) == "none" else (s_, next(it)) for s_ in steps_] or None
+        g = torch.randn((e, m, n), generator=gen, device=dev).to(out_dtype)
+        inputs = [a, b, *operands]
+
+        def vjp(backend):
+            out = ops.grouped_matmul(a, b, backend=backend, epilogue=spec, out_dtype=out_dtype)
+            return torch.autograd.grad(out, inputs, g)
+
+        k4.launches_by_route.update(sm90=0, tile=0)
+        out = ops.grouped_matmul(a, b, backend="cuda", epilogue=spec, out_dtype=out_dtype)
+        sync(torch, dev)
+        check_routes(k4, 1, f"11(a) {name} forward", "K4")
+        k4.launches_by_route.update(sm90=0, tile=0)
+        got = torch.autograd.grad(out, inputs, g)
+        sync(torch, dev)
+        if k4.launches_by_route != want_routes[name]:
+            raise AssertionError(f"11(a) {name} backward: K4 launches by route "
+                                 f"{k4.launches_by_route} != {want_routes[name]}")
+        ref = vjp("torch")
+        with _patched(plain, "grouped_fn", fp64):
+            ref64 = vjp("torch")
+        gaps = {}
+        for what, x, y, z in zip(["dA", "dB"] + [f"d_{s_}" for s_ in steps_
+                                                  if ep.op_kind(s_) != "none"], got, ref, ref64):
+            gaps[what] = _floor_gate(torch, x, y, z, f"11(a) {name} {what}")
+            worst = max(worst, gaps[what][0] / max(gaps[what][1], 1e-30))
+        gaps_all[name] = {w: {"rms": dk, "floor": df} for w, (dk, df) in gaps.items()}
+
+        # The backward's grouped GEMMs as it runs them: the operand copies
+        # (transposes, and casts to fp32 beside an fp32 cotangent), K4 on
+        # its planned route, torch.bmm on the same operands.
+        with torch.no_grad():
+            a0, b0 = a.detach(), b.detach()
+            g_acc = g
+            gemms = []
+            if steps_:
+                acc = k4(a0, b0, out_dtype=f32)
+                g_acc, _ = ep.epilogue_vjp(steps_, tuple(o.detach() for o in operands), acc, g)
+                gemms.append(("fp32 recompute", a0, b0, f32))
+            gemms += [("dA", g_acc, b0.transpose(1, 2), bf16),
+                      ("dB", a0.transpose(1, 2), g_acc, bf16)]
+            for role, x, y, o_dtype in gemms:
+                dt = torch.promote_types(x.dtype, y.dtype)
+                copy_ms = queued_ms(torch, lambda i: (x.to(dt).contiguous(),
+                                                      y.to(dt).contiguous()), 5)
+                xc, yc = x.to(dt).contiguous(), y.to(dt).contiguous()
+                mm, kk, nn = xc.shape[1], xc.shape[2], yc.shape[2]
+                plan = k4mod._plan(mm, nn, kk, dt, xc.data_ptr(), yc.data_ptr())
+                iters = 5 if dt == f32 else 10
+                ms = queued_ms(torch, lambda i: k4(xc, yc, out_dtype=o_dtype), iters)
+                if dt == bf16 and o_dtype == f32:
+                    lib = ((lambda i: torch.bmm(xc, yc, out_dtype=f32)) if bmm_out_dtype
+                           else None)
+                else:  # bf16 -> bf16, or fp32 in full fp32
+                    lib = lambda i: torch.bmm(xc, yc)  # noqa: E731
+                with full_fp32():
+                    lib_ms = None if lib is None else queued_ms(torch, lib, iters)
+                t_bytes = e * (mm * kk * x.element_size() + kk * nn * y.element_size()
+                               + mm * nn * torch.empty((), dtype=o_dtype).element_size()
+                               ) / HBM_BYTES_PER_S
+                t_ops = 2 * e * mm * nn * kk / (FP32_FLOPS if dt == f32 else BF16_FLOPS)
+                row = {"gemm": name, "role": role, "g": e, "m": mm, "k": kk, "n": nn,
+                       "in_dtype": str(dt).removeprefix("torch."),
+                       "out_dtype": str(o_dtype).removeprefix("torch."), "route": plan.route,
+                       "ms": ms, "library_ms": lib_ms, "copy_ms": copy_ms,
+                       "bound_ms": 1e3 * max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                rows.append(row)
+                log(f"11(a) {name} {role} {e}x[{mm}x{kk}]@[{kk}x{nn}] {row['in_dtype']} -> "
+                    f"{row['out_dtype']}: K4 {plan.route} {ms:.4f} ms "
+                    f"({2 * e * mm * nn * kk / ms / 1e9:.1f} TFLOP/s), torch.bmm "
+                    f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ms, operand copies "
+                    f"{copy_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        log(f"11(a) {name} vjp: " + ", ".join(
+            f"{w} RMS {dk:.3g} (floor {df:.3g})" for w, (dk, df) in gaps.items()))
+        del a, b, operands, inputs, got, ref, ref64, out
+    sums = {key: sum(r[key] or 0.0 for r in rows)
+            for key in ("ms", "library_ms", "copy_ms", "bound_ms")}
+    fp32_rows = [r for r in rows if r["in_dtype"] == "float32"]
+    fp32_sums = {key: sum(r[key] for r in fp32_rows) for key in ("ms", "library_ms", "bound_ms")}
+    log(f"11(a) one MoE layer's expert backward GEMMs at M={m} (G {e}): K4 {sums['ms']:.3f} ms "
+        f"(fp32 tile route {fp32_sums['ms']:.3f} ms of it), torch.bmm {sums['library_ms']:.3f} "
+        f"ms, operand copies {sums['copy_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms; worst "
+        f"kernels/floor RMS ratio {worst:.3g} (gate {TRAIN_GRAD_FLOOR_FACTOR})")
+
+    # (b) the model at full width, cut to `layers` layers, bf16, remat
+    # "full", onehot dispatch.
+    tcfg = dataclasses.replace(cfg, n_layers=layers)
+    if not (tcfg.remat and tcfg.remat_policy == "full"):
+        raise AssertionError(f"11(b) wants remat 'full', config has {tcfg.remat_policy}")
+    params = api.init_params(tcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    n_active = api.active_param_count(tcfg)
+    batch_fn = make_batch_fn(MarkovLMDataset(tcfg.vocab, seq, batch, seed=0), dev)
+    first = batch_fn(0)
+
+    # One step by hand: every K1 and K4 launch by role and route, and each
+    # layer's routing in the forward and in its remat recompute.
+    kernels = {"K1": opope_gemm, "K4": k4}
+    counts, state, installed = _role_counter(torch, ops, kernels)
+    routed, real_route = {"forward": [], "remat recompute": []}, moe_mod._route
+    forced = {}  # router leaf's storage -> the forward's top_idx
+
+    def recording(p, xf, top_k, backend=None):
+        out = real_route(p, xf, top_k, backend)
+        routed[state["phase"]].append(out[2].clone())
+        if state["phase"] == "forward":
+            forced[p["router"].data_ptr()] = out[2].clone()
+        return out
+
+    with installed(), _patched(moe_mod, "_route", recording):
+        live = map_leaves(lambda p: p.detach().requires_grad_(), params)
+        state["phase"] = "forward"
+        loss0 = api.loss_fn(tcfg, live, first)
+        sync(torch, dev)
+        state["phase"] = "remat recompute"
+        g_k = torch.autograd.grad(loss0, list(leaves(live)))
+        sync(torch, dev)
+    if not torch.isfinite(loss0) or not all(torch.isfinite(x.float()).all() for x in g_k):
+        raise AssertionError(f"11(b) first step: loss {loss0.item()} or a gradient not finite")
+    del live
+    if len(forced) != layers:
+        raise AssertionError(f"11(b) routing recorded for {len(forced)} router leaves, want {layers}")
+
+    # The same step on the plain backend (fp32 and fp64 sums), teacher-forced
+    # on the kernels' routing: each layer's gates come from its own router
+    # GEMM, its top-k indices are the forward's above (in the forward and in
+    # the remat recompute). The kernels' gradients above are that same
+    # function at their own routing (a gather of the gates at the sorted
+    # indices is the sort's values, and their vjp is the same scatter).
+    def replay(p, xf, top_k, backend=None):
+        gates, _, _ = real_route(p, xf, top_k, backend)
+        top_idx = forced[p["router"].data_ptr()]
+        top_vals = torch.gather(gates, 1, top_idx)
+        return gates, top_vals / torch.clamp_min(top_vals.sum(-1, keepdim=True), 1e-9), top_idx
+
+    def loss_grads(backend):
+        live = map_leaves(lambda p: p.detach().requires_grad_(), params)
+        loss = api.loss_fn(tcfg, live, first, backend=backend)
+        return loss.detach().float(), torch.autograd.grad(loss, list(leaves(live)))
+
+    with _patched(moe_mod, "_route", replay):
+        loss_p, g_p = loss_grads("torch")
+        with _patched(plain, "fn", fp64), _patched(plain, "grouped_fn", fp64):
+            loss_64, g_64 = loss_grads("torch")
+    loss_k = loss0.detach().float()
+    if not all(torch.isfinite(x) for x in (loss_p, loss_64)):
+        raise AssertionError(f"11(b) first-step plain losses {loss_p}, {loss_64}")
+    loss_gap = abs(loss_k.item() - loss_p.item())
+    if loss_gap > TRAIN_LOSS_RTOL * abs(loss_p.item()):
+        raise AssertionError(f"11(b) first-step loss: kernels {loss_k.item()} vs plain "
+                             f"{loss_p.item()}: gap {loss_gap} > {TRAIN_LOSS_RTOL} x loss")
+    leaf_gaps = {}
+    for (path, _), x, y, z in zip(_leaf_paths(params), g_k, g_p, g_64):
+        leaf_gaps[path] = _floor_gate(torch, x, y, z, f"11(b) first-step d{path}")
+    worst_leaf = max(leaf_gaps, key=lambda p: leaf_gaps[p][0] / max(leaf_gaps[p][1], 1e-30))
+    log(f"11(b) first step teacher-forced on the kernels' routing: loss kernels "
+        f"{loss_k.item():.6f}, plain {loss_p.item():.6f}, plain fp64 sums {loss_64.item():.6f}; "
+        f"{len(leaf_gaps)} gradient leaves within {TRAIN_GRAD_FLOOR_FACTOR} x floor (worst "
+        f"{worst_leaf}: RMS {leaf_gaps[worst_leaf][0]:.3g}, floor {leaf_gaps[worst_leaf][1]:.3g})")
+    del g_k, g_p, g_64
+    by_role = {}
+    for kname, table in (("K1", K1_MOE_TRAIN), ("K4", K4_MOE_TRAIN)):
+        for role, per_layer in table.items():
+            route = "tile" if role == "fp32 backward" else "sm90"
+            got_n = {r: counts[(kname, role, r)] for r in ("sm90", "tile")}
+            if got_n != {route: per_layer * layers, ("sm90" if route == "tile" else "tile"): 0}:
+                raise AssertionError(f"11(b) {kname} {role}: launches by route {got_n}, want "
+                                     f"{per_layer * layers} on {route}")
+            by_role[f"{kname} {role} ({route})"] = per_layer * layers
+    if sum(counts.values()) != sum(by_role.values()):
+        raise AssertionError(f"11(b) launches outside the counted roles: {dict(counts)}")
+    fwd, rec = routed["forward"], routed["remat recompute"]
+    if len(fwd) != layers or len(rec) != layers:
+        raise AssertionError(f"11(b) routing recorded {len(fwd)} forward, {len(rec)} recompute "
+                             f"calls, want {layers} each")
+    same = [torch.equal(x, y) for x, y in zip(fwd, reversed(rec))]
+    if not all(same):
+        raise AssertionError(f"11(b) the remat recompute's top_idx differs from the forward's "
+                             f"in layers {[i for i, s_ in enumerate(same) if not s_]}")
+    log(f"11(b) {tcfg.name} at {layers} layers ({n_params / 1e9:.3f} B params, "
+        f"{n_active / 1e9:.3f} B active), first step {batch}x{seq}: loss {loss0.item():.6f}; "
+        f"launches by role {by_role}; every layer's remat top_idx equal to its forward's")
+    del routed, fwd, rec
+
+    # Then `steps` steps through train(), every K1 and K4 launch counted.
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    obs.clear_events()
+    _reset_k1(ops, opope_gemm)
+    k4.launches_by_route.update(sm90=0, tile=0)
+    t0 = time.perf_counter()
+    res = train(tcfg, opt, TrainLoopConfig(total_steps=steps, log_every=1), batch_fn,
+                params=params, log=lambda msg: log(f"11(b) {msg}"))
+    sync(torch, dev)
+    train_s = time.perf_counter() - t0
+    k1_routes, k4_routes = dict(opope_gemm.launches_by_route), dict(k4.launches_by_route)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    events = obs.recent_events(steps, kind="train_step")
+    losses = res.losses
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"11(b) losses {losses}")
+    for kname, table, routes in (("K1", K1_MOE_TRAIN, k1_routes), ("K4", K4_MOE_TRAIN, k4_routes)):
+        tile = table["fp32 backward"]
+        want = {"sm90": (sum(table.values()) - tile) * layers * steps,
+                "tile": tile * layers * steps}
+        if routes != want:
+            raise AssertionError(f"11(b) {kname} launches by route {routes} != {want}")
+    walls = [ev["wall_s"] for ev in events]
+    step_s = sum(walls[1:]) / max(1, len(walls) - 1)
+    tokens = batch * seq
+    log(f"11(b) {steps} steps in {train_s:.2f} s: losses {[round(x, 4) for x in losses]}; step "
+        f"wall {step_s * 1e3:.1f} ms (steps 2..{steps}; the first {walls[0] * 1e3:.1f} ms), "
+        f"{tokens / step_s:.1f} tokens/s; peak device memory {peak_gb:.2f} GB; launches K1 "
+        f"{k1_routes}, K4 {k4_routes}")
+
+    step_fn = make_train_step(tcfg, opt)
+    opt_state = init_opt_state(params, opt)
+    prof = None
+    if dev.type == "cuda":
+        prof = decode_profile(torch, lambda i: step_fn(params, opt_state, first), step_s * 1e3,
+                              n_steps=1, tag="11(b)", what="train step")
+    busy_ms = k4_ms = k1_ms = None
+    if prof is not None:
+        busy_ms = sum(ms for _, ms, _ in prof)
+        k4_ms = sum(ms for key, ms, _ in prof if "opope_grouped" in key)
+        k1_ms = sum(ms for key, ms, _ in prof if "opope_gemm" in key)
+    del opt_state, step_fn, params
+
+    # The same `steps` steps on the plain backend from the same initial
+    # parameters: the loss curve that the kernels' is read against.
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = api.init_params(tcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    obs.clear_events()
+    t0 = time.perf_counter()
+    res_p = train(tcfg, opt, TrainLoopConfig(total_steps=steps, log_every=steps), batch_fn,
+                  params=params, policy="torch", log=lambda msg: None)
+    sync(torch, dev)
+    walls_p = [ev["wall_s"] for ev in obs.recent_events(steps, kind="train_step")]
+    plain_step_ms = 1e3 * sum(walls_p[1:]) / max(1, len(walls_p) - 1)
+    losses_p = res_p.losses
+    if len(losses_p) != steps or not all(math.isfinite(x) for x in losses_p):
+        raise AssertionError(f"11(b) plain-backend losses {losses_p}")
+    log(f"11(b) the same {steps} steps on the plain backend in {time.perf_counter() - t0:.2f} s: "
+        f"losses {[round(x, 4) for x in losses_p]}; step wall {plain_step_ms:.1f} ms "
+        f"(steps 2..{steps})")
+    del params, res_p
+
+    # (c) the training CLI at its reduced config.
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_LOG="json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", cfg.name, "--reduced",
+         "--steps", "40"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"11(c) train CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    done = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{") and '"event": "done"' in line]
+    if len(done) != 1 or not all(math.isfinite(done[0][k_]) for k_ in ("loss_first", "loss_last")):
+        raise AssertionError(f"11(c) train CLI: {done or proc.stdout[-2000:]}")
+    cli_res = {"loss_first": done[0]["loss_first"], "loss_last": done[0]["loss_last"],
+               "seconds": time.perf_counter() - t0}
+    phase_s = time.perf_counter() - t_phase
+    log(f"11(c) python -m repro_torch.launch.train --arch {cfg.name} --reduced --steps 40: "
+        f"loss {cli_res['loss_first']:.4f} -> {cli_res['loss_last']:.4f} in "
+        f"{cli_res['seconds']:.1f} s; phase 11 took {phase_s:.1f} s")
+    return {
+        "launches": sum(k4_routes.values()),
+        "launches_by_route": k4_routes,
+        "k1_launches_by_route": k1_routes,
+        "launches_per_layer_step": {"K4": K4_MOE_TRAIN, "K1": K1_MOE_TRAIN},
+        "backward_gemms": rows,
+        "backward_layer": dict(sums, m=m, g=e, fp32_tile=fp32_sums),
+        "gradient_gaps": gaps_all,
+        "model": {"name": tcfg.name, "layers": layers, "params": n_params,
+                  "active_params": n_active, "batch": batch, "seq": seq, "steps": steps,
+                  "capacity": capacity, "peak_lr": TRAIN_LR, "losses": losses,
+                  "plain_losses": losses_p, "plain_step_ms": plain_step_ms,
+                  "first_step_loss": {"kernels": loss_k.item(), "plain": loss_p.item(),
+                                      "plain_fp64": loss_64.item()},
+                  "first_step_leaves": len(leaf_gaps),
+                  "first_step_worst_leaf": {"path": worst_leaf, "rms": leaf_gaps[worst_leaf][0],
+                                            "floor": leaf_gaps[worst_leaf][1]},
+                  "step_ms": step_s * 1e3,
+                  "first_step_ms": walls[0] * 1e3, "tokens_per_sec": tokens / step_s,
+                  "device_busy_ms": busy_ms, "k4_device_ms": k4_ms, "k1_device_ms": k1_ms,
+                  "peak_memory_gb": peak_gb, "remat_top_idx_equal": True},
+        "cli": cli_res,
+        "seconds": phase_s,
+    }
+
+
 def decode_profile(torch, step, step_ms, n_steps: int = 4, tag: str = "(d)",
                    what: str = "decode step"):
     """Device time by kernel over ``n_steps`` decode steps (torch.profiler),
@@ -2785,6 +3229,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_record = train_phase(torch, np, cfg, ops, ep, dev)
+    # Phase 11: MoE training, deepseek-moe-16b cut to MOE_TRAIN_LAYERS layers.
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train = moe_train_phase(torch, np, mcfg, ops, ep, k4mod, dev)
     # One MoE layer's 3 grouped GEMMs of a 4-slot decode step (capacity 1).
     g_decode = [r for r in g_rows if r["m"] == 1]
     g_sums = {key: sum(r[key] for r in g_decode)
@@ -2807,6 +3255,8 @@ def main() -> int:
                 f"{mcfg.name} q8": ds_q8["launches"]["K1"]}
     serve_launches = sum(k1_paths.values())
     k1_paths[f"{cfg.name} train ({TRAIN_LAYERS} layers)"] = train_record["launches"]
+    k1_moe_train = moe_train["k1_launches_by_route"]
+    k1_paths[f"{mcfg.name} train ({MOE_TRAIN_LAYERS} layers)"] = sum(k1_moe_train.values())
     record = {
         "name": "opope_gemm",
         "route": "cuda",
@@ -2815,10 +3265,12 @@ def main() -> int:
         "launches": sum(k1_paths.values()),
         "launches_by_path": k1_paths,
         # check_routes held every serving path's launches to the sm90 route;
-        # phase 10(d) held training's to its exact split (the fp32 backward
-        # GEMMs on the tile route).
-        "launches_by_route": {"sm90": serve_launches + train_record["launches_by_route"]["sm90"],
-                              "tile": train_record["launches_by_route"]["tile"]},
+        # phases 10(d) and 11(b) held training's to their exact split (the
+        # fp32 backward GEMMs on the tile route).
+        "launches_by_route": {"sm90": serve_launches + train_record["launches_by_route"]["sm90"]
+                              + k1_moe_train["sm90"],
+                              "tile": train_record["launches_by_route"]["tile"]
+                              + k1_moe_train["tile"]},
         "training": train_record,
         "max_abs_err": max_err,
         "ms": sums["ms"],
@@ -2845,11 +3297,18 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/opope_grouped.cu",
         "replaces": "src/repro/kernels/opope_grouped.py:228",
-        "launches": mres["launches"]["k4"],
+        "launches": mres["launches"]["k4"] + moe_train["launches"],
         "launches_by_path": {mcfg.name: mres["launches"]["k4"],
-                             f"{mcfg.name} q8": ds_q8["launches"]["K4"]},
-        # check_routes held both bf16 paths' launches to the sm90 route.
-        "launches_by_route": {"sm90": mres["launches"]["k4"], "tile": 0},
+                             f"{mcfg.name} q8": ds_q8["launches"]["K4"],
+                             f"{mcfg.name} train ({MOE_TRAIN_LAYERS} layers)":
+                                 moe_train["launches"]},
+        # check_routes held both bf16 serving paths' launches to the sm90
+        # route; phase 11(b) held training's to its exact split (the fp32
+        # backward GEMMs on the tile route).
+        "launches_by_route": {"sm90": mres["launches"]["k4"]
+                              + moe_train["launches_by_route"]["sm90"],
+                              "tile": moe_train["launches_by_route"]["tile"]},
+        "training": moe_train,
         "coverage_launches_by_route": g_cov,
         "max_abs_err": g_err,
         "ms": g_sums["ms"],

@@ -18,12 +18,16 @@ full      ``[..., N]`` matching out    (M, N)
 ========  ===========================  ============================
 
 Each op has an fp32 ``apply`` (the plain PyTorch version, used on the CPU
-and as the reference on the card), optionally its own ``vjp``, and a fixed
-integer code that the CUDA kernels (``csrc/opope_tile.cuh``) switch on. The
-names, kinds and fp32 arithmetic match the JAX registry op for op.
-:func:`epilogue_vjp` composes the chain's backward for the autograd rule in
-:mod:`.ops`; an op without its own ``vjp`` differentiates through autograd
-of its ``apply``.
+and as the reference on the card), optionally its own ``vjp``, and, for the
+nine built-ins, a fixed integer code that the CUDA kernels
+(``csrc/opope_tile.cuh``) switch on. The names, kinds and fp32 arithmetic
+match the JAX registry op for op. :func:`register_epilogue_op` adds or
+replaces an op at run time; such an op has no kernel code, so a chain that
+holds it never reaches a kernel's epilogue: :mod:`.ops` runs it post-hoc
+(an fp32 product, :func:`apply_epilogue`, one cast), as the reference runs
+every chain on a backend that does not fuse. :func:`epilogue_vjp` composes
+the chain's backward for the autograd rules in :mod:`.ops`; an op without
+its own ``vjp`` differentiates through autograd of its ``apply``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ import torch
 
 __all__ = [
     "EpilogueOp",
+    "register_epilogue_op",
+    "fusable",
     "ACTIVATIONS",
     "OP_CODES",
     "KIND_CODES",
@@ -60,13 +66,13 @@ KIND_CODES: Dict[str, int] = {"none": 0, "scalar": 1, "row": 2, "full": 3}
 
 @dataclasses.dataclass(frozen=True)
 class EpilogueOp:
-    """One registered post-op: name, operand kind, fp32 apply, kernel code,
-    optional vjp."""
+    """One registered post-op: name, operand kind, fp32 apply, kernel code
+    (None for an op registered at run time), optional vjp."""
 
     name: str
     kind: str
     apply: ApplyFn
-    code: int
+    code: Optional[int]
     vjp: Optional[VjpFn] = None
 
 
@@ -103,21 +109,47 @@ def _requant_int8_vjp(
 _REGISTRY: Dict[str, EpilogueOp] = {}
 
 
-def _register(name: str, kind: str, apply: ApplyFn, vjp: Optional[VjpFn] = None) -> None:
+def _builtin(name: str, kind: str, apply: ApplyFn, vjp: Optional[VjpFn] = None) -> None:
     _REGISTRY[name] = EpilogueOp(name, kind, apply, code=len(_REGISTRY), vjp=vjp)
 
 
 for _name, _fn in ACTIVATIONS.items():
-    _register(_name, "none", lambda acc, _o, _f=_fn: _f(acc))
-_register("bias", "row", lambda acc, o: acc + o)
-_register("residual", "full", lambda acc, o: acc + o)
-_register("mul", "full", lambda acc, o: acc * o)
-_register("scale", "row", lambda acc, o: acc * o)
-_register("requant_int8", "scalar", _requant_int8, vjp=_requant_int8_vjp)
+    _builtin(_name, "none", lambda acc, _o, _f=_fn: _f(acc))
+_builtin("bias", "row", lambda acc, o: acc + o)
+_builtin("residual", "full", lambda acc, o: acc + o)
+_builtin("mul", "full", lambda acc, o: acc * o)
+_builtin("scale", "row", lambda acc, o: acc * o)
+_builtin("requant_int8", "scalar", _requant_int8, vjp=_requant_int8_vjp)
 
 # gelu 0, silu 1, swish 2, relu 3, bias 4, residual 5, mul 6, scale 7,
-# requant_int8 8 — the enum in csrc/opope_tile.cuh.
+# requant_int8 8 — the enum in csrc/opope_tile.cuh. Fixed here: ops
+# registered later never enter it.
 OP_CODES: Dict[str, int] = {name: op.code for name, op in _REGISTRY.items()}
+
+
+def register_epilogue_op(
+    name: str, kind: str, apply: ApplyFn, *, vjp: Optional[VjpFn] = None
+) -> None:
+    """Register (or replace) an epilogue op, as the reference's
+    ``register_epilogue_op``.
+
+    ``apply(acc_f32, operand)`` takes the fp32 accumulator and the operand
+    broadcast-ready against it (module docstring) and must keep fp32: the
+    single final cast belongs to the GEMM. ``vjp(acc_in, operand, g) ->
+    (d_acc, d_operand)`` overrides autograd of ``apply``. The op gets no
+    kernel code, and neither does a built-in it replaces: every chain that
+    holds it runs post-hoc (:func:`fusable` is false for it)."""
+    if kind not in KIND_CODES:
+        raise ValueError(f"bad epilogue operand kind {kind!r}; one of {tuple(KIND_CODES)}")
+    if not callable(apply):
+        raise TypeError(f"epilogue apply for {name!r} is not callable")
+    _REGISTRY[name] = EpilogueOp(name, kind, apply, code=None, vjp=vjp)
+
+
+def fusable(steps: Sequence[str]) -> bool:
+    """Whether every op of a chain has a kernel code, so a fusing backend
+    can run it at its writeback."""
+    return all(op_def(name).code is not None for name in steps)
 
 
 def epilogue_ops() -> List[str]:

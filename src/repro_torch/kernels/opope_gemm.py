@@ -241,12 +241,18 @@ def _check_launch_operands(fn, a, b, c, out_dtype, epilogue, epilogue_operands):
 
 def _epilogue_struct(epilogue, epilogue_operands, shapes) -> _Epilogue:
     """The chain as the kernels' by-value struct; ``shapes`` maps each
-    operand kind to the canonical shape its operand must have."""
+    operand kind to the canonical shape its operand must have. An op with
+    no kernel code (registered at run time) raises: the kernels' enum does
+    not know it, and :mod:`.ops` runs such a chain post-hoc."""
     ep = _Epilogue()
     ep.n_steps = len(epilogue)
     it = iter(epilogue_operands)
     for s, name in enumerate(epilogue):
         op = _ep.op_def(name)
+        if op.code is None:
+            raise ValueError(
+                f"epilogue op {name!r} has no kernel code (registered at run time); "
+                f"run its chain post-hoc: an fp32 product, apply_epilogue, one cast")
         ep.op[s] = op.code
         ep.kind[s] = _ep.KIND_CODES[op.kind]
         if op.kind != "none":

@@ -22,17 +22,29 @@ The port of the ``matmul``/``linear``/``grouped_matmul`` core of
 A backend that cannot take the tensors it is given raises: there are no
 fallback chains. Each backend keeps plain integer counts of the GEMMs it
 ran: ``calls`` for 2-D ones, ``grouped_calls`` for grouped ones.
+:func:`register_backend` adds or replaces a backend, as the reference's
+does; ``None``/``"auto"``/``"q8"`` still resolve among the four built-ins.
+
+Epilogues: a backend registered with ``epilogue_fused=True`` (the four
+built-ins) takes the chain into its call and runs it at its writeback. A
+backend without it, and any chain holding an op with no kernel code (one
+registered at run time, :func:`.epilogue.register_epilogue_op`), take the
+**post-hoc lane**: the backend's product with ``out_dtype=float32`` and no
+epilogue, :func:`.epilogue.apply_epilogue`, one cast. That is the
+reference's ``_matmul_impl``/``_grouped_impl`` for its non-fused backends;
+on the card the product is still K1 or K4.
 
 Gradients: when an input of :func:`matmul` requires grad, the call runs
 through :class:`_Matmul`, an autograd ``Function`` holding the reference's
 four ``custom_vjp`` rules (plain product, ``[N]`` bias, full C, epilogue'd
-product). Its backward GEMMs run on the backend's ``grad_backend`` through
-the backend's ``fn``, so on the card they are K1 launches too, and they
-count neither into ``calls`` nor into ``gemm.calls`` (the reference's
-backward calls its backends directly as well). When no input requires
-grad, the backend is called as it always was. The q8 family, pre-quantized
-activations and :func:`grouped_matmul` have no backward in the port yet:
-under autograd they raise ``NotImplementedError`` (ROADMAP A.6b).
+product); :func:`grouped_matmul` runs through :class:`_GroupedMatmul`, the
+reference's four grouped rules. Their backward GEMMs run on the backend's
+``grad_backend`` through its ``fn`` or ``grouped_fn``, so on the card they
+are K1 and K4 launches too, and they count neither into ``calls`` nor into
+``gemm.calls`` (the reference's backward calls its backends directly as
+well). When no input requires grad, the backend is called as it always
+was. The q8 family and pre-quantized activations have no backward in the
+port yet: under autograd they raise ``NotImplementedError`` (ROADMAP A.6b).
 
 Telemetry (:mod:`repro_torch.obs`, host-side only): every entry-point call
 counts into ``gemm.calls`` (labels ``backend``, ``family``, ``shape``
@@ -67,6 +79,7 @@ from repro_torch.quant.quantize import QuantizedTensor
 
 __all__ = [
     "Backend",
+    "register_backend",
     "registered_backends",
     "backend",
     "resolve_backend",
@@ -81,31 +94,67 @@ __all__ = [
 
 @dataclasses.dataclass
 class Backend:
-    """One GEMM backend: ``fn(a, b, c, out_dtype=, epilogue=,
-    epilogue_operands=)`` on 2-D operands, ``grouped_fn`` (the same
-    signature) on [G, M, K] @ [G, K, N], the device type it runs on (None for
-    any), its numerics family (``"fp"``/``"q8"``), the full-precision
-    backend its gradients will run on (``grad_backend``, for quantized
-    members), and its call counts."""
+    """One GEMM backend: ``fn(a, b, c, out_dtype=)`` on 2-D operands and
+    ``grouped_fn`` (the same signature, None for a backend without one) on
+    [G, M, K] @ [G, K, N], each taking ``epilogue=`` and
+    ``epilogue_operands=`` too where ``epilogue_fused``; the device type it
+    runs on (None for any), its numerics family (``"fp"``/``"q8"``), the
+    full-precision backend its gradients will run on (``grad_backend``, for
+    quantized members), and its call counts."""
 
     name: str
     fn: Callable[..., torch.Tensor]
-    grouped_fn: Callable[..., torch.Tensor]
+    grouped_fn: Optional[Callable[..., torch.Tensor]]
     device_type: Optional[str]
     family: str = "fp"
     grad_backend: Optional[str] = None
+    epilogue_fused: bool = False
     calls: int = 0
     grouped_calls: int = 0
 
 
 _REGISTRY: Dict[str, Backend] = {
-    "cuda": Backend("cuda", opope_gemm, opope_gemm_grouped, "cuda"),
-    "torch": Backend("torch", opope_gemm_plain, opope_gemm_grouped_plain, None),
+    "cuda": Backend("cuda", opope_gemm, opope_gemm_grouped, "cuda", epilogue_fused=True),
+    "torch": Backend("torch", opope_gemm_plain, opope_gemm_grouped_plain, None,
+                     epilogue_fused=True),
     "cuda_q8": Backend("cuda_q8", _q8.cuda_q8, _q8.cuda_q8_grouped, "cuda",
-                       family="q8", grad_backend="cuda"),
+                       family="q8", grad_backend="cuda", epilogue_fused=True),
     "torch_q8": Backend("torch_q8", _q8.torch_q8, _q8.torch_q8_grouped, None,
-                        family="q8", grad_backend="torch"),
+                        family="q8", grad_backend="torch", epilogue_fused=True),
 }
+
+
+def register_backend(
+    name: str,
+    fn: Callable[..., torch.Tensor],
+    *,
+    grouped: Optional[Callable[..., torch.Tensor]] = None,
+    device_type: Optional[str] = None,
+    family: str = "fp",
+    grad_backend: Optional[str] = None,
+    epilogue_fused: bool = False,
+) -> None:
+    """Register (or replace) a GEMM backend, as the reference's
+    ``register_backend``.
+
+    ``fn(a, b, c, out_dtype=)`` computes ``a @ b (+ c)`` with an fp32
+    accumulator and one cast (``c`` None, an ``[N]`` row or a full
+    ``[M, N]``); ``grouped`` is its [G, M, K] @ [G, K, N] member (``c`` None,
+    ``[G, N]`` or ``[G, M, N]``), without which :func:`grouped_matmul` on
+    this backend raises. ``device_type`` is the one device type it takes
+    tensors on (None: any). ``family`` names its numerics; ``grad_backend``
+    the backend its backward GEMMs run on (itself when None).
+    ``epilogue_fused=True`` declares that both take ``epilogue=`` and
+    ``epilogue_operands=`` and run the chain at their writeback; every
+    other backend gets the post-hoc lane. The reference's ``available``,
+    ``fallback`` and ``tile_fn`` have no counterpart: there are no chains,
+    and no tuned tiles."""
+    if not callable(fn):
+        raise TypeError(f"backend fn for {name!r} is not callable")
+    if grouped is not None and not callable(grouped):
+        raise TypeError(f"grouped member for {name!r} is not callable")
+    _REGISTRY[name] = Backend(name, fn, grouped, device_type, family=family,
+                              grad_backend=grad_backend, epilogue_fused=epilogue_fused)
 
 
 def registered_backends() -> List[str]:
@@ -127,8 +176,9 @@ def reset_counts() -> None:
 def resolve_backend(name: Optional[str], device: torch.device) -> str:
     """Resolve a backend request for tensors on ``device``: ``None``/``"auto"``
     pick ``"cuda"`` on the card and ``"torch"`` on the CPU, ``"q8"`` picks
-    ``"cuda_q8"`` or ``"torch_q8"`` the same way; a named backend that cannot
-    take tensors on ``device`` raises (there is no fallback)."""
+    ``"cuda_q8"`` or ``"torch_q8"`` the same way (registered backends never
+    enter these picks); a named backend that cannot take tensors on
+    ``device`` raises (there is no fallback)."""
     device = torch.device(device)
     if name in (None, "auto"):
         return "cuda" if device.type == "cuda" else "torch"
@@ -175,13 +225,71 @@ def _no_backward(what: str) -> NotImplementedError:
     )
 
 
-def _bwd_gemm(be: Backend, x: torch.Tensor, y: torch.Tensor, out_dtype) -> torch.Tensor:
-    """One backward GEMM ``x @ y`` on ``be.fn``. Operands of two dtypes (the
+def _member(be: Backend, grouped: bool) -> Callable[..., torch.Tensor]:
+    """The backend's 2-D or grouped function; a backend registered without
+    a grouped member raises (there is no fallback)."""
+    if not grouped:
+        return be.fn
+    if be.grouped_fn is None:
+        raise ValueError(f"matmul backend {be.name!r} has no grouped member")
+    return be.grouped_fn
+
+
+def _run(be: Backend, a, b, c, out_dtype, steps, ep_ops, grouped: bool = False):
+    """``epilogue(a @ b (+ c))`` on ``be``: the chain at the backend's
+    writeback where it fuses and every op has a kernel code, else the
+    post-hoc lane (an fp32 product, the chain, one cast). ``c`` is None
+    whenever ``steps`` is not empty (the entry points fold it in)."""
+    fn = _member(be, grouped)
+    if not steps:
+        return fn(a, b, c, out_dtype=out_dtype)
+    if be.epilogue_fused and _epi.fusable(steps):
+        return fn(a, b, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ep_ops)
+    acc = fn(a, b, c, out_dtype=torch.float32)
+    return _epi.apply_epilogue(acc, steps, ep_ops).to(out_dtype)
+
+
+def _bwd_gemm(fn, x: torch.Tensor, y: torch.Tensor, out_dtype) -> torch.Tensor:
+    """One backward GEMM ``x @ y`` on ``fn``. Operands of two dtypes (the
     fp32 cotangent of an epilogue'd product against a bf16 operand) are
     both cast to the wider one, exactly, as the reference's ``jnp.dot``
-    promotes them: the kernels take one input dtype."""
+    promotes them: the kernels take one input dtype. Transposed operands
+    are copied contiguous (the kernels take contiguous operands)."""
     dt = torch.promote_types(x.dtype, y.dtype)
-    return be.fn(x.to(dt).contiguous(), y.to(dt).contiguous(), None, out_dtype=out_dtype)
+    return fn(x.to(dt).contiguous(), y.to(dt).contiguous(), None, out_dtype=out_dtype)
+
+
+def _forward(ctx, grouped, name, out_dtype, steps, a, b, c, ep_ops):
+    ctx.name, ctx.steps = name, steps
+    ctx.c_meta = None if c is None else (c.dtype, c.shape)
+    ctx.save_for_backward(a, b, *ep_ops)
+    return _run(_REGISTRY[name], a, b, c, out_dtype, steps, ep_ops, grouped)
+
+
+def _backward(ctx, g, grouped):
+    """The reference's rules for a product of :func:`_forward`; the GEMMs
+    on the grad backend's 2-D or grouped member."""
+    a, b, *ep_ops = ctx.saved_tensors
+    need_a, need_b, need_c = ctx.needs_input_grad[3:6]
+    need_ops = ctx.needs_input_grad[6:]
+    fn = _member(_REGISTRY[grad_backend_of(ctx.name)], grouped)
+    g = g.contiguous()
+    d_ops = [None] * len(ep_ops)
+    if ctx.steps:
+        acc = fn(a, b, None, out_dtype=torch.float32)
+        g, d = _epi.epilogue_vjp(ctx.steps, tuple(ep_ops), acc, g)
+        d_ops = [x.to(o.dtype).reshape(o.shape) if need else None
+                 for x, o, need in zip(d, ep_ops, need_ops)]
+    da = _bwd_gemm(fn, g, b.transpose(-1, -2), a.dtype) if need_a else None
+    db = _bwd_gemm(fn, a.transpose(-1, -2), g, b.dtype) if need_b else None
+    dc = None
+    if need_c:
+        c_dtype, c_shape = ctx.c_meta
+        # A bias row ([N], or [G, N] for a grouped product) enters every
+        # accumulator row once; a full C enters linearly.
+        bias = len(c_shape) == a.ndim - 1
+        dc = (g.float().sum(-2) if bias else g).to(c_dtype).reshape(c_shape)
+    return (None, None, None, da, db, dc, *d_ops)
 
 
 class _Matmul(torch.autograd.Function):
@@ -202,33 +310,33 @@ class _Matmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, name, out_dtype, steps, a, b, c, *ep_ops):
-        ctx.name, ctx.steps = name, steps
-        ctx.c_meta = None if c is None else (c.dtype, c.shape)
-        ctx.save_for_backward(a, b, *ep_ops)
-        return _REGISTRY[name].fn(a, b, c, out_dtype=out_dtype, epilogue=steps,
-                                  epilogue_operands=ep_ops)
+        return _forward(ctx, False, name, out_dtype, steps, a, b, c, ep_ops)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        a, b, *ep_ops = ctx.saved_tensors
-        need_a, need_b, need_c = ctx.needs_input_grad[3:6]
-        need_ops = ctx.needs_input_grad[6:]
-        be = _REGISTRY[grad_backend_of(ctx.name)]
-        g = g.contiguous()
-        d_ops = [None] * len(ep_ops)
-        if ctx.steps:
-            acc = be.fn(a, b, None, out_dtype=torch.float32)
-            g, d = _epi.epilogue_vjp(ctx.steps, tuple(ep_ops), acc, g)
-            d_ops = [x.to(o.dtype).reshape(o.shape) if need else None
-                     for x, o, need in zip(d, ep_ops, need_ops)]
-        da = _bwd_gemm(be, g, b.t(), a.dtype) if need_a else None
-        db = _bwd_gemm(be, a.t(), g, b.dtype) if need_b else None
-        dc = None
-        if need_c:
-            c_dtype, c_shape = ctx.c_meta
-            dc = (g.float().sum(0) if len(c_shape) == 1 else g).to(c_dtype).reshape(c_shape)
-        return (None, None, None, da, db, dc, *d_ops)
+        return _backward(ctx, g, False)
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """``O[g] = epilogue(A[g] @ B[g] (+ C[g]))``, differentiable, with the
+    reference's grouped rules (``_grouped_nc``, ``_grouped_bias``,
+    ``_grouped_c`` and ``_grouped_ep`` of :mod:`repro.kernels.ops`):
+    ``dA[g] = dO[g] @ B[g]^T`` and ``dB[g] = A[g]^T @ dO[g]``, a ``[G, N]``
+    bias gets ``g.sum(1)``, a full C gets ``g``, and an epilogue'd product
+    recomputes its fp32 accumulator as one more grouped GEMM and runs the
+    two GEMMs on ``g_acc``. Every backward GEMM runs on the grad backend's
+    ``grouped_fn`` (on the card: K4, on ``[G, N, K]`` and ``[G, K, M]``
+    copies of the transposed operands)."""
+
+    @staticmethod
+    def forward(ctx, name, out_dtype, steps, a, b, c, *ep_ops):
+        return _forward(ctx, True, name, out_dtype, steps, a, b, c, ep_ops)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _backward(ctx, g, True)
 
 
 def _note_gemm_call(
@@ -342,12 +450,11 @@ def matmul(
                 f"({name!r})")
         out = _Matmul.apply(name, out_dtype, steps, a2, b2, c, *ep_ops)
     else:
-        out = be.fn(a2, b2, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ep_ops)
+        out = _run(be, a2, b2, c, out_dtype, steps, ep_ops)
     if not pre_q:  # a pre-quantized A has no fp twin to audit against
         _maybe_audit_gemm(
             "dense", name, out,
-            lambda: _REGISTRY[be.grad_backend].fn(
-                a2, b2, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ep_ops),
+            lambda: _run(_REGISTRY[grad_backend_of(name)], a2, b2, c, out_dtype, steps, ep_ops),
             m, a2.shape[1], n)
     return out if len(batch_shape) == 1 else out.reshape(*batch_shape, n)
 
@@ -384,7 +491,8 @@ def grouped_matmul(
     ``[G, M, N]``. A ``c`` passed with an epilogue is folded in as its first
     step (``bias`` for a row, ``residual`` for a full operand). Backends
     resolve as in :func:`matmul`; a q8-family backend quantizes per group
-    (A per (group, row), B per (group, column)).
+    (A per (group, row), B per (group, column)). Under autograd the call
+    runs through :class:`_GroupedMatmul` (fp family only).
     """
     if a.ndim != 3 or b.ndim != 3:
         raise ValueError(
@@ -406,15 +514,17 @@ def grouped_matmul(
             steps, raw_ops, n=n, m=m, groups=g, device=a.device)
     )
     be = _REGISTRY[name]
-    if _needs_grad(a, b, c, *ep_ops):
-        raise _no_backward("grouped_matmul")
     be.grouped_calls += 1
     a2, b2, c2 = a.contiguous(), b.contiguous(), None if c is None else c.contiguous()
-    out = be.grouped_fn(a2, b2, c2, out_dtype=out_dtype, epilogue=steps,
-                        epilogue_operands=ep_ops)
+    if _needs_grad(a2, b2, c2, *ep_ops):
+        if be.family != "fp":
+            raise _no_backward(f"grouped_matmul on a {be.family}-family backend ({name!r})")
+        out = _GroupedMatmul.apply(name, out_dtype, steps, a2, b2, c2, *ep_ops)
+    else:
+        out = _run(be, a2, b2, c2, out_dtype, steps, ep_ops, grouped=True)
     _maybe_audit_gemm(
         "grouped", name, out,
-        lambda: _REGISTRY[be.grad_backend].grouped_fn(
-            a2, b2, c2, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ep_ops),
+        lambda: _run(_REGISTRY[grad_backend_of(name)], a2, b2, c2, out_dtype, steps, ep_ops,
+                     grouped=True),
         m, a.shape[2], n, g=g)
     return out

@@ -1,16 +1,17 @@
 """Training loop: the train step (loss, gradients, AdamW) and the loop
 around it with its straggler watchdog and step telemetry.
 
-The port of :mod:`repro.train.loop` for the dense LM family. The step runs
-eagerly: the reference's ``jit=`` and ``donate=`` have no counterpart here
-(:func:`repro_torch.optim.apply_updates` updates in place, which is what
-donation buys the reference). Gradients come from autograd through
-:class:`repro_torch.kernels.ops._Matmul`, so on the card every GEMM of the
-forward and the backward is a K1 launch.
+The port of :mod:`repro.train.loop` for the dense and MoE decoders. The
+step runs eagerly: the reference's ``jit=`` and ``donate=`` have no
+counterpart here (:func:`repro_torch.optim.apply_updates` updates in place,
+which is what donation buys the reference). Gradients come from autograd
+through :class:`repro_torch.kernels.ops._Matmul` and ``_GroupedMatmul``, so
+on the card every GEMM of the forward and the backward is a K1 launch, and
+every expert GEMM a K4 launch.
 
 Not ported yet, and refused with ``NotImplementedError`` (ROADMAP A.6b):
-checkpoints and resume (``ckpt_dir``), MoE training (the grouped GEMM's
-backward), and training under a q8-family ``policy``.
+checkpoints and resume (``ckpt_dir``) and training under a q8-family
+``policy``.
 
 Telemetry: each step observes ``train.step_seconds``, sets
 ``train.tokens_per_sec`` and emits a ``train_step`` event with the
@@ -61,12 +62,9 @@ class TrainResult:
     final_step: int
 
 
-def _check_trainable(cfg: ArchConfig, policy) -> None:
-    """Refuse what has no backward in the port yet: MoE layers and a
-    policy that puts any role on a q8-family backend."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training (the grouped GEMM's backward) is not ported ({_A6B})")
+def _check_trainable(policy) -> None:
+    """Refuse what has no backward in the port yet: a policy that puts any
+    role on a q8-family backend."""
     names = ({policy.backend_for(r) for r in ROLES} if hasattr(policy, "backend_for")
              else {policy})
     for name in names - {None, "auto"}:
@@ -85,7 +83,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, policy=None) -> Ca
     the backward runs on each backend's ``grad_backend``. Parameters and
     moments are updated in place, the block leaves seen by AdamW as the
     reference's stacks (:func:`_stacked`)."""
-    _check_trainable(cfg, policy)
+    _check_trainable(policy)
 
     def value_and_grad(params, batch):
         # Leaves that require grad, sharing storage with the caller's.

@@ -10,10 +10,15 @@ against the JAX reference's ``custom_vjp`` rules, on the CPU.
   device type cleared, so its wrapper takes the plain version on CPU
   tensors).
 * ``epilogue_vjp`` op by op against the reference's.
-* ``lm_loss`` and its whole gradient tree on a 2-layer reduced chatglm3-6b,
-  remat ``"full"`` and ``"none"``, against ``jax.value_and_grad`` of the
-  reference's ``loss_fn``.
-* What has no backward yet raises.
+* ``lm_loss`` and its whole gradient tree on a 2-layer reduced chatglm3-6b
+  and a 2-layer reduced deepseek-moe-16b (both dispatches, with and without
+  capacity drops), remat ``"full"`` and ``"none"``, against
+  ``jax.value_and_grad`` of the reference's ``loss_fn``.
+* ``ops.grouped_matmul`` (:class:`repro_torch.kernels.ops._GroupedMatmul`):
+  every C form and every epilogue op against ``jax.vjp`` of
+  ``repro.kernels.ops.grouped_matmul`` on ``xla`` and ``pallas_interpret``,
+  the backward's GEMMs on the grouped member.
+* What has no backward yet (the q8 family) raises.
 
 Tolerance, unless a test says otherwise: fp32 operands, ``1e-4 *
 max(1, max|want|)`` (only the order of fp32 sums differs).
@@ -78,6 +83,17 @@ def _find_fn(out):
     while node is not None and not isinstance(node, tops._Matmul._backward_cls):
         node = node.next_functions[0][0] if node.next_functions else None
     return node
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    # Two torch threads for every case: keeps this file's CPU share small
+    # beside the suite's wall-clock tests (the reduced models' steps are
+    # mostly thread synchronisation at 8).
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(params=["torch", "cuda"])
@@ -269,6 +285,110 @@ def test_remat_dots_is_not_ported():
                                      "labels": torch.from_numpy(labels)})
 
 
+# --- the training loss of a 2-layer reduced deepseek-moe-16b ------------------
+
+MOE_ARCH = "deepseek-moe-16b"
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_model(dispatch, remat_policy, dropless):
+    """2 layers; with ``dropless=False`` routing groups of 16 tokens whose
+    capacity (10 of 16 x 2 assignments over 4 experts) drops some."""
+    def cfg(base):
+        moe = dataclasses.replace(base.moe, dispatch=dispatch, dropless=dropless,
+                                  group_size=16)
+        return dataclasses.replace(base, n_layers=2, remat_policy=remat_policy, moe=moe)
+    jcfg, tcfg = cfg(j_get_config(MOE_ARCH).reduced()), cfg(t_get_config(MOE_ARCH).reduced())
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    jparams = jax.jit(functools.partial(japi.init_params, jcfg))(jax.random.key(0))
+    tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams), "cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+def _record_routing(monkeypatch, module, sink):
+    """Record each dispatch's (top_idx, capacity) by value."""
+    for fname in ("_dispatch_onehot", "_dispatch_sort"):
+        orig = getattr(module, fname)
+
+        def rec(params, xg, vg, ig, n_experts, capacity, backend=None, _orig=orig):
+            sink.append((np.asarray(ig), capacity))
+            return _orig(params, xg, vg, ig, n_experts, capacity, backend)
+
+        monkeypatch.setattr(module, fname, rec)
+
+
+@pytest.mark.parametrize("remat_policy", ["full", "none"])
+@pytest.mark.parametrize("dispatch,dropless", [("onehot", False), ("sort", False),
+                                               ("sort", True)],
+                         ids=["onehot-capacity", "sort-capacity", "sort-dropless"])
+def test_moe_loss_and_its_gradient_tree_match_jax(monkeypatch, dispatch, dropless,
+                                                  remat_policy):
+    """deepseek-moe-16b's loss (the chunked CE plus 0.01 x the router's
+    load-balancing loss) and every gradient leaf, router, expert stacks and
+    shared MLP included, against ``jax.value_and_grad`` of the reference's
+    ``loss_fn``. Every layer's routing is compared first: the JAX side's
+    recorded from an eager forward (``jax.disable_jit``, without remat,
+    whose trace would hide the values), the port's from its own forward,
+    top_idx and capacity equal."""
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe as tmoe
+
+    jcfg, tcfg, jparams, tparams = _moe_model(dispatch, remat_policy, dropless)
+    toks, labels = _batch(7, s=32)
+    jbatch = {"tokens": jnp.asarray(toks, jnp.int32), "labels": jnp.asarray(labels, jnp.int32)}
+    tbatch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+
+    j_route, t_route = [], []
+    with monkeypatch.context() as mp:
+        _record_routing(mp, jmoe, j_route)
+        _record_routing(mp, tmoe, t_route)
+        with jax.disable_jit():  # the forward's values are remat's too; checkpoint traces
+            japi.loss_fn(dataclasses.replace(jcfg, remat=False), jparams, jbatch, backend="xla")
+        with torch.no_grad():
+            tapi.loss_fn(tcfg, tparams, tbatch)
+    assert len(t_route) == len(j_route) == tcfg.n_layers
+    for (ti, tc), (ji, jc) in zip(t_route, j_route):
+        assert tc == jc
+        np.testing.assert_array_equal(ti, ji)
+    if not dropless:  # the capacity cases do drop
+        pos = [tmoe._positions_in_expert(torch.from_numpy(i), tcfg.moe.n_experts) for i, _ in t_route]
+        assert any(bool((p >= c).any()) for p, (_, c) in zip(pos, t_route))
+
+    want_loss, want_grads = jax.jit(jax.value_and_grad(
+        lambda p: japi.loss_fn(jcfg, p, jbatch, backend="xla")))(jparams)
+    live = map_leaves(lambda p: p.detach().clone().requires_grad_(), tparams)
+    loss = tapi.loss_fn(tcfg, live, tbatch)
+    grads = torch.autograd.grad(loss, list(leaves(live)))
+    it = iter(grads)
+    got = params_to_numpy(tcfg, map_leaves(lambda _p: next(it), live))
+    _close(loss, want_loss)
+    want = jax.tree.map(np.asarray, want_grads)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for x, y in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert x.shape == y.shape
+        _close(x, y)
+    # The router's gradient reaches it through the gates (the combine
+    # weights and the load-balancing loss): it is not zero.
+    assert np.abs(got["blocks"][0]["moe"]["router"]).max() > 0
+
+
+def test_moe_remat_full_relaunches_the_expert_gemms():
+    """Under remat "full" each MoE layer's 3 expert GEMMs run again in the
+    backward; with "none" they run once. Backward GEMMs never count into
+    ``grouped_calls``."""
+    toks, labels = _batch(8, s=16)
+    batch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+    counts = {}
+    for policy in ("full", "none"):
+        _, tcfg, _, tparams = _moe_model("onehot", policy, False)
+        live = map_leaves(lambda p: p.detach().clone().requires_grad_(), tparams)
+        tops.reset_counts()
+        torch.autograd.grad(tapi.loss_fn(tcfg, live, batch), list(leaves(live)))
+        counts[policy] = (tops.backend("torch").grouped_calls, tops.backend("torch").calls)
+    # 8 dense GEMMs a layer: wq, wk, wv, wo, the router, the shared MLP's 3
+    assert counts == {"full": (2 * 3 * 2, 2 * 8 * 2), "none": (3 * 2, 8 * 2)}
+
+
 # --- what has no backward yet raises -------------------------------------------
 
 
@@ -284,10 +404,135 @@ def test_q8_and_pre_quantized_matmul_under_grad_raise():
         assert tops.matmul(a, b, backend="q8").shape == (M, N)
 
 
-def test_grouped_matmul_under_grad_raises():
+def test_q8_grouped_matmul_under_grad_raises():
     rng = np.random.default_rng(31)
     a, b = _t(_rand(rng, 3, M, K)), _t(_rand(rng, 3, K, N))
     with pytest.raises(NotImplementedError, match="A.6b"):
-        tops.grouped_matmul(a, b)
+        tops.grouped_matmul(a, b, backend="q8")
     with torch.no_grad():
-        assert tops.grouped_matmul(a, b).shape == (3, M, N)
+        assert tops.grouped_matmul(a, b, backend="q8").shape == (3, M, N)
+
+
+# --- the grouped GEMM's vjp ----------------------------------------------------
+
+G = 3
+
+
+def _find_grouped_fn(out):
+    return out.grad_fn if isinstance(out.grad_fn, tops._GroupedMatmul._backward_cls) else None
+
+
+def _grouped_operand(rng, name, row_shape=(G, N)):
+    kind = tep.op_kind(name)
+    if kind == "row":
+        return _rand(rng, *row_shape)
+    if kind == "full":
+        return _rand(rng, G, M, N)
+    if kind == "scalar":
+        return np.float32(0.02)
+    return None
+
+
+GROUPED_C_FORMS = ["none", "bias", "full"]
+
+
+@pytest.mark.parametrize("c_form", GROUPED_C_FORMS)
+def test_grouped_vjp_matches_jax_for_every_c_form(c_form, backend):
+    """dA[g] = dO[g] B[g]^T, dB[g] = A[g]^T dO[g]; a [G, N] bias gets the
+    sum over rows, a full C the cotangent itself."""
+    rng = np.random.default_rng(40 + GROUPED_C_FORMS.index(c_form))
+    a, b, g = _rand(rng, G, M, K), _rand(rng, G, K, N), _rand(rng, G, M, N)
+    c = {"none": None, "bias": _rand(rng, G, N), "full": _rand(rng, G, M, N)}[c_form]
+    args = (a, b) if c is None else (a, b, c)
+    want_out, pull = jax.vjp(lambda *x: jops.grouped_matmul(*x, backend="xla"),
+                             *map(jnp.asarray, args))
+    want = pull(jnp.asarray(g))
+    targs = [_t(x) for x in args]
+    out = tops.grouped_matmul(*targs, backend=backend)
+    assert _find_grouped_fn(out) is not None
+    got = torch.autograd.grad(out, targs, torch.from_numpy(g))
+    _close(out, want_out)
+    for x, y in zip(got, want):
+        assert tuple(x.shape) == tuple(np.shape(y))
+        _close(x, y)
+
+
+@pytest.mark.parametrize("jax_backend", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("op", tep.epilogue_ops())
+def test_grouped_vjp_matches_jax_for_every_epilogue_op(op, jax_backend):
+    rng = np.random.default_rng(50 + tep.epilogue_ops().index(op))
+    a, b, g = _rand(rng, G, M, K), _rand(rng, G, K, N), _rand(rng, G, M, N)
+    o = _grouped_operand(rng, op)
+    if o is None:
+        fn_j = lambda a, b: jops.grouped_matmul(a, b, backend=jax_backend, epilogue=op)  # noqa: E731
+        args = (a, b)
+    else:
+        fn_j = lambda a, b, o: jops.grouped_matmul(  # noqa: E731
+            a, b, backend=jax_backend, epilogue=[(op, o)], out_dtype=jnp.float32)
+        args = (a, b, o)
+    want_out, pull = jax.vjp(fn_j, *map(jnp.asarray, args))
+    want = pull(jnp.asarray(g))
+
+    targs = [_t(x) for x in args]
+    step = op if o is None else [(op, targs[2])]
+    out = tops.grouped_matmul(targs[0], targs[1], epilogue=step, out_dtype=torch.float32)
+    assert _find_grouped_fn(out) is not None
+    got = torch.autograd.grad(out, targs, torch.from_numpy(g))
+    _close(out, want_out)
+    for x, y in zip(got, want):
+        assert tuple(x.shape) == tuple(np.shape(y))
+        _close(x, y)
+
+
+@pytest.mark.parametrize("row", ["[N]", "[G, N]"])
+def test_grouped_vjp_of_the_expert_chain_matches_jax(row, backend):
+    """The experts' gate chain (``silu, mul(up)``) behind a folded ``[G, N]``
+    bias and a ``scale`` row given as ``[N]`` (broadcast over groups) or
+    ``[G, N]``: each operand's gradient in its own shape."""
+    rng = np.random.default_rng(60)
+    a, b, g = _rand(rng, G, M, K), _rand(rng, G, K, N), _rand(rng, G, M, N)
+    bias, up = _rand(rng, G, N), _rand(rng, G, M, N)
+    sc = _rand(rng, N) if row == "[N]" else _rand(rng, G, N)
+
+    def fn_j(a, b, bias, up, sc):
+        return jops.grouped_matmul(a, b, bias, backend="xla",
+                                   epilogue=["silu", ("mul", up), ("scale", sc)])
+
+    args = (a, b, bias, up, sc)
+    want_out, pull = jax.vjp(fn_j, *map(jnp.asarray, args))
+    want = pull(jnp.asarray(g))
+    ta = [_t(x) for x in args]
+    out = tops.grouped_matmul(ta[0], ta[1], ta[2], backend=backend,
+                              epilogue=["silu", ("mul", ta[3]), ("scale", ta[4])])
+    got = torch.autograd.grad(out, ta, torch.from_numpy(g))
+    _close(out, want_out)
+    for x, y in zip(got, want):
+        assert tuple(x.shape) == tuple(np.shape(y))
+        _close(x, y)
+
+
+def test_grouped_backward_runs_on_the_grouped_member(backend):
+    """Backward GEMMs go to the grad backend's ``grouped_fn`` (K4 on the
+    card) and count neither into ``grouped_calls`` nor into ``calls``; an
+    epilogue'd product recomputes its fp32 accumulator first."""
+    rng = np.random.default_rng(61)
+    a, b = _t(_rand(rng, G, M, K)), _t(_rand(rng, G, K, N))
+    up = _t(_rand(rng, G, M, N))
+    seen = []
+    be = tops.backend(backend)
+    real = be.grouped_fn
+
+    def spy(x, y, c=None, **kw):
+        seen.append((tuple(x.shape), tuple(y.shape), kw.get("out_dtype"), bool(kw.get("epilogue"))))
+        return real(x, y, c, **kw)
+
+    tops.reset_counts()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(be, "grouped_fn", spy)
+        out = tops.grouped_matmul(a, b, backend=backend, epilogue=["silu", ("mul", up)])
+        torch.autograd.grad(out.sum(), (a, b, up))
+    assert seen == [((G, M, K), (G, K, N), torch.float32, True),
+                    ((G, M, K), (G, K, N), torch.float32, False),
+                    ((G, M, N), (G, N, K), torch.float32, False),
+                    ((G, K, M), (G, M, N), torch.float32, False)]
+    assert (be.grouped_calls, be.calls) == (1, 0)

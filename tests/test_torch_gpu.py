@@ -1188,3 +1188,240 @@ def test_reduced_model_loss_and_gradients_on_the_kernels_match_the_plain_backend
     losses = [float(step(params, state, batch)[2]["loss"]) for _ in range(3)]
     assert opope_gemm.launches - before == 3 * (7 + 7 + 8 + 9) * cfg.n_layers
     assert losses[-1] < losses[0]
+
+
+# The registry contract on the card: the `cuda` and `cuda_q8` members on
+# CUDA tensors against their plain twins (`torch`, `torch_q8`) on the same
+# tensors, with the conformance suite's tolerances (fp: 1e-4 x max|want| +
+# 1e-5 at fp32 in; q8: bitwise where the chain has no transcendental op).
+CARD_MEMBERS = {"cuda": "torch", "cuda_q8": "torch_q8"}
+
+
+def _card_tol(name, want):
+    if ops.family_of(name) == "q8":
+        return 0.03 * float(want.abs().max())
+    return 1e-4 * float(want.abs().max()) + 1e-5
+
+
+def _runtime_op(monkeypatch, name="_test_softsign"):
+    """Register a run-time op (no kernel code); undone at teardown."""
+    monkeypatch.setitem(tep._REGISTRY, name, tep._REGISTRY.get(name))
+    tep.register_epilogue_op(name, "none", lambda acc, _o: acc / (1.0 + acc.abs()))
+    return name
+
+
+@pytest.mark.parametrize("lane", ["fused", "post-hoc"])
+@pytest.mark.parametrize("name", sorted(CARD_MEMBERS))
+def test_card_members_keep_the_registry_contract(cuda_device, name, lane, monkeypatch):
+    plain = CARD_MEMBERS[name]
+    if lane == "post-hoc":
+        monkeypatch.setattr(ops.backend(name), "epilogue_fused", False)
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    a = torch.randn((48, 96), generator=gen, device=cuda_device)
+    b = torch.randn((96, 72), generator=gen, device=cuda_device)
+    ga = torch.randn((3, 24, 64), generator=gen, device=cuda_device)
+    gb = torch.randn((3, 64, 40), generator=gen, device=cuda_device)
+    bias = torch.randn((72,), generator=gen, device=cuda_device)
+    gbias = torch.randn((3, 40), generator=gen, device=cuda_device)
+    gate = torch.randn((48, 72), generator=gen, device=cuda_device)
+
+    def close(got, want):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert (got.float() - want.float()).abs().max() <= _card_tol(name, want.float())
+
+    close(ops.matmul(a, b, backend=name), ops.matmul(a, b, backend=plain))
+    wide = ops.matmul(a, b, backend=name, out_dtype=torch.float32)
+    assert torch.equal(ops.matmul(a, b, backend=name, out_dtype=torch.bfloat16),
+                       wide.to(torch.bfloat16))
+    close(ops.matmul(a, b, bias, backend=name), ops.matmul(a, b, bias, backend=plain))
+    close(ops.grouped_matmul(ga, gb, gbias, backend=name),
+          ops.grouped_matmul(ga, gb, gbias, backend=plain))
+    for spec in ("gelu", "relu", [("bias", bias), "gelu"], ["silu", ("mul", gate)],
+                 [("residual", gate)], [("scale", bias)],
+                 [("requant_int8", torch.tensor(0.05, device=cuda_device))]):
+        got = ops.matmul(a, b, backend=name, epilogue=spec, out_dtype=torch.float32)
+        want = ops.matmul(a, b, backend=plain, epilogue=spec, out_dtype=torch.float32)
+        extra = 1.0 if isinstance(spec, list) and spec[0][0] == "requant_int8" else 0.0
+        assert (got - want).abs().max() <= _card_tol(name, want) + extra
+        narrow = ops.matmul(a, b, backend=name, epilogue=spec, out_dtype=torch.bfloat16)
+        assert torch.equal(narrow, got.to(torch.bfloat16))
+    stacked = torch.stack([ops.matmul(ga[i], gb[i], backend=name, epilogue=[
+        ("bias", gbias[i]), "silu"]) for i in range(3)])
+    got = ops.grouped_matmul(ga, gb, backend=name, epilogue=[("bias", gbias), "silu"])
+    assert (got - stacked).abs().max() <= 1e-4 * float(stacked.abs().max()) + 1e-5
+    x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+    if ops.family_of(name) == "q8":
+        with pytest.raises(NotImplementedError, match="A.6b"):
+            ops.matmul(x, y, backend=name)
+        with pytest.raises(NotImplementedError, match="A.6b"):
+            ops.grouped_matmul(ga.clone().requires_grad_(), gb, backend=name)
+    else:
+        got = torch.autograd.grad(ops.matmul(x, y, backend=name, epilogue="silu").sum(), (x, y))
+        want = torch.autograd.grad(ops.matmul(x, y, backend=plain, epilogue="silu").sum(), (x, y))
+        for u, v in zip(got, want):
+            torch.testing.assert_close(u, v, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_runtime_op_runs_post_hoc_on_k1_and_k4(cuda_device, dtype, monkeypatch):
+    """A run-time op on the `cuda` member: one fp32-output launch of K1 (K4
+    for the grouped call), then the chain and one cast, equal to the plain
+    member's post-hoc result within the contract's tolerance."""
+    op = _runtime_op(monkeypatch)
+    gen = torch.Generator(device=cuda_device).manual_seed(18)
+    a = torch.randn((64, 256), generator=gen, device=cuda_device).to(dtype)
+    b = (torch.randn((256, 128), generator=gen, device=cuda_device) / 16).to(dtype)
+    ga = torch.randn((4, 60, 256), generator=gen, device=cuda_device).to(dtype)
+    gb = (torch.randn((4, 256, 128), generator=gen, device=cuda_device) / 16).to(dtype)
+    for fn, x, y, kern in ((ops.matmul, a, b, opope_gemm),
+                           (ops.grouped_matmul, ga, gb, tg.opope_gemm_grouped)):
+        before = kern.launches
+        got = fn(x, y, backend="cuda", epilogue=[op, "relu"])
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1 and got.dtype == dtype
+        acc = fn(x, y, backend="cuda", out_dtype=torch.float32)
+        assert torch.equal(got, tep.apply_epilogue(acc, (op, "relu"), ()).to(dtype))
+        want = fn(x, y, backend="torch", epilogue=[op, "relu"], out_dtype=torch.float32)
+        assert (got.float() - want).abs().max() <= 1e-2 * float(want.abs().max()) + 1e-5
+
+
+def test_kernel_wrappers_refuse_an_op_without_a_kernel_code(cuda_device, monkeypatch):
+    """K1, K2, K4 and K5 on CUDA tensors raise on a code-less op, and on a
+    built-in replaced at run time, before any launch."""
+    op = _runtime_op(monkeypatch)
+    dev = cuda_device
+    a, b = torch.ones((8, 32), device=dev), torch.ones((32, 16), device=dev)
+    ga, gb = torch.ones((2, 8, 32), device=dev), torch.ones((2, 32, 16), device=dev)
+    qa, qb = torch.ones((8, 32), device=dev, dtype=torch.int8), torch.ones((32, 16), device=dev,
+                                                                            dtype=torch.int8)
+    sa, sb = torch.ones((8, 1), device=dev), torch.ones((1, 16), device=dev)
+    for chain in ((op,), ("relu", op)):
+        launches = (opope_gemm.launches, tg.opope_gemm_grouped.launches,
+                    tq8.opope_gemm_q8.launches, tq8.opope_gemm_q8_grouped.launches)
+        with pytest.raises(ValueError, match="no kernel code"):
+            tg.opope_gemm_grouped(ga, gb, epilogue=chain)
+        with pytest.raises(ValueError, match="no kernel code"):
+            opope_gemm(a, b, epilogue=chain)
+        with pytest.raises(ValueError, match="no kernel code"):
+            tq8.opope_gemm_q8(qa, sa, qb, sb, epilogue=chain)
+        with pytest.raises(ValueError, match="no kernel code"):
+            tq8.opope_gemm_q8_grouped(qa.expand(2, 8, 32).contiguous(), sa.expand(2, 8, 1).contiguous(),
+                                      qb.expand(2, 32, 16).contiguous(),
+                                      sb.expand(2, 1, 16).contiguous(), epilogue=chain)
+        assert launches == (opope_gemm.launches, tg.opope_gemm_grouped.launches,
+                            tq8.opope_gemm_q8.launches, tq8.opope_gemm_q8_grouped.launches)
+    monkeypatch.setitem(tep._REGISTRY, "silu", tep._REGISTRY["silu"])
+    tep.register_epilogue_op("silu", "none", lambda acc, _o: acc * torch.sigmoid(acc))
+    with pytest.raises(ValueError, match="no kernel code"):
+        tg.opope_gemm_grouped(ga, gb, epilogue=("silu",))
+    # ...while the entry point runs that chain post-hoc on K4.
+    before = tg.opope_gemm_grouped.launches
+    got = ops.grouped_matmul(ga, gb, backend="cuda", epilogue="silu")
+    assert tg.opope_gemm_grouped.launches == before + 1
+    torch.testing.assert_close(got, torch.nn.functional.silu(torch.full_like(got, 32.0)))
+
+
+# Autograd through K4 (`ops._GroupedMatmul`): the vjp on the kernels against
+# the vjp on the plain backend, the tolerances of the K1 vjp test above.
+GROUPED_VJP_SHAPES = [(3, 64, 256, 128), (3, 5, 40, 24), (64, 60, 256, 136)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", GROUPED_VJP_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k4_vjp_matches_the_plain_backend(cuda_device, shape, dtype):
+    g_, m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(g_ + m * k + n)
+
+    def rand(*s, scale=1.0):
+        return (torch.randn(s, generator=gen, device=cuda_device) * scale).to(dtype)
+
+    a = rand(g_, m, k).requires_grad_()
+    b = rand(g_, k, n, scale=k ** -0.5).requires_grad_()
+    g = rand(g_, m, n)
+    cases = [(None, [], None), (rand(g_, n).requires_grad_(), [], None),
+             (rand(g_, m, n).requires_grad_(), [], None)]
+    for op in tep.epilogue_ops():
+        o = {"none": None, "row": rand(g_, n), "full": rand(g_, m, n),
+             "scalar": torch.tensor(0.05, device=cuda_device)}[tep.op_kind(op)]
+        if o is None:
+            cases.append((None, [], [op]))
+        else:
+            cases.append((None, [o.requires_grad_()], [(op, o)]))
+    up = rand(g_, m, n).requires_grad_()  # the experts' gate chain
+    cases.append((None, [up], ["silu", ("mul", up)]))
+    for c, operands, spec in cases:
+        inputs = [a, b] + ([c] if c is not None else []) + operands
+        out = ops.grouped_matmul(a, b, c, backend="cuda", epilogue=spec)
+        assert isinstance(out.grad_fn, ops._GroupedMatmul._backward_cls)
+        got = torch.autograd.grad(out, inputs, g)
+        out_p = ops.grouped_matmul(a, b, c, backend="torch", epilogue=spec)
+        want = torch.autograd.grad(out_p, inputs, g)
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            if dtype == torch.float32:
+                torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-3)
+            else:
+                assert (x.float() - y.float()).abs().max() <= 2e-2 * y.float().abs().max()
+
+
+def test_k4_backward_launches_by_route(cuda_device):
+    """bf16 experts at deepseek's training shapes (4 routing groups at
+    capacity 60: 240 rows): a plain product's backward is 2 sm90 launches of
+    K4; the gate chain's recomputes its fp32 accumulator on sm90 and runs
+    dA, dB on the fp32 cotangent on the tile route; w_down's fp32 output
+    takes an fp32 cotangent, 2 tile launches. None counts into
+    grouped_calls. (At 60 rows dB's K of 60 gives 120-byte rows, which only
+    the tile route takes.)"""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    xs = torch.randn((64, 240, 2048), generator=gen, device=cuda_device).bfloat16()
+    w = (torch.randn((64, 2048, 1408), generator=gen, device=cuda_device) / 45).bfloat16()
+    w_down = (torch.randn((64, 1408, 2048), generator=gen, device=cuda_device) / 38).bfloat16()
+    up = torch.randn((64, 240, 1408), generator=gen, device=cuda_device).bfloat16()
+    for x, y, spec, out_dtype, want in (
+            (xs, w, None, None, {"sm90": 2, "tile": 0}),
+            (xs, w, ["silu", ("mul", up)], None, {"sm90": 1, "tile": 2}),
+            (up, w_down, None, torch.float32, {"sm90": 0, "tile": 2})):
+        x_, y_ = x.clone().requires_grad_(), y.clone().requires_grad_()
+        out = ops.grouped_matmul(x_, y_, backend="cuda", epilogue=spec, out_dtype=out_dtype)
+        calls = ops.backend("cuda").grouped_calls
+        tg.opope_gemm_grouped.launches_by_route.update(sm90=0, tile=0)
+        torch.autograd.grad(out, [x_, y_], torch.ones_like(out))
+        torch.cuda.synchronize()
+        assert tg.opope_gemm_grouped.launches_by_route == want
+        assert ops.backend("cuda").grouped_calls == calls
+
+
+def test_reduced_deepseek_loss_and_gradients_on_the_kernels_match_the_plain_backend(
+        cuda_device):
+    """fp32 reduced deepseek-moe-16b (the tile routes throughout): the loss
+    within 1e-5 relative and every gradient leaf within rtol 1e-3 / atol
+    1e-5 of the plain backend's; then three train steps on the kernels, K1
+    and K4 launched exactly as counted a layer and a step."""
+    from repro_torch.data import MarkovLMDataset, make_batch_fn
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves, map_leaves
+
+    cfg = get_config("deepseek-moe-16b").reduced()
+    params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    batch = make_batch_fn(MarkovLMDataset(cfg.vocab, 32, 4), cuda_device)(0)
+
+    def loss_grads(backend):
+        live = map_leaves(lambda p: p.detach().requires_grad_(), params)
+        loss = api.loss_fn(cfg, live, batch, backend=backend)
+        return loss, torch.autograd.grad(loss, list(leaves(live)))
+
+    loss_k, g_k = loss_grads("cuda")
+    loss_p, g_p = loss_grads("torch")
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-5 * abs(loss_p.item())
+    for x, y in zip(g_k, g_p):
+        torch.testing.assert_close(x, y, rtol=1e-3, atol=1e-5)
+    opt = AdamWConfig(peak_lr=1e-2, warmup_steps=1, total_steps=3)
+    step, state = make_train_step(cfg, opt), init_opt_state(params, opt)
+    k1, k4 = opope_gemm.launches, tg.opope_gemm_grouped.launches
+    losses = [float(step(params, state, batch)[2]["loss"]) for _ in range(3)]
+    # K1 a layer: 8 forward + 8 remat + 10 plain backward + 3 recomputes +
+    # 6 on the fp32 cotangent; K4: 3 + 3 + 2 + 1 + 4.
+    assert opope_gemm.launches - k1 == 3 * (8 + 8 + 10 + 3 + 6) * cfg.n_layers
+    assert tg.opope_gemm_grouped.launches - k4 == 3 * (3 + 3 + 2 + 1 + 4) * cfg.n_layers
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

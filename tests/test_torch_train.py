@@ -1,6 +1,7 @@
-"""The port's dense training path against the JAX reference, on the CPU:
-AdamW and its schedule, the Markov data pipeline, the train step, the loop
-(its telemetry and watchdog) and its two command lines.
+"""The port's training path against the JAX reference, on the CPU: AdamW and
+its schedule, the Markov data pipeline, the train step of a dense and of an
+MoE decoder (deepseek-moe-16b, both dispatches), the loop (its telemetry and
+watchdog), the MoE parameter layout and the two command lines.
 
 Tolerances: the optimizer gets identical numpy parameters, gradients and
 state on both sides, so its fp32 results must agree to ``1e-6 *
@@ -32,7 +33,7 @@ from repro.optim import adamw as jadamw
 from repro.train import loop as jloop
 from repro_torch import obs as tobs
 from repro_torch.configs import get_config as t_get_config
-from repro_torch.convert import params_from_numpy, tensor_from_numpy
+from repro_torch.convert import params_from_numpy, params_to_numpy, tensor_from_numpy
 from repro_torch.data import MarkovLMDataset, Prefetcher, make_batch_fn
 from repro_torch.launch import stats as t_stats
 from repro_torch.launch import train as t_launch
@@ -48,6 +49,18 @@ def _port_telemetry():
     yield
     tobs.reset()
     tobs.clear_events()
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    # Two torch threads for every case here. The tiny models' steps are
+    # mostly thread synchronisation: on a shared 8-core CPU a step of the
+    # watchdog case took 100-550 ms at 8 threads and 18-65 ms at 2, and at
+    # 8 the steps' own spread reaches the injected stall's size.
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _close(got, want, scale=1e-4):
@@ -273,6 +286,97 @@ def test_launch_train_and_stats_train_run_on_the_cpu(tmp_path, capsys):
     assert snap["histograms"]["span.seconds"]["name=stats.train"]["count"] == 1
 
 
+# --- MoE training (deepseek-moe-16b, reduced) ---------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_model():
+    jcfg = j_get_config("deepseek-moe-16b").reduced()
+    tcfg = t_get_config("deepseek-moe-16b").reduced()
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    jparams = jax.jit(functools.partial(japi.init_params, jcfg))(jax.random.key(0))
+    return jcfg, tcfg, jax.tree.map(np.asarray, jparams)
+
+
+@pytest.mark.parametrize("dispatch", ["onehot", "sort"])
+def test_moe_train_step_losses_match_jax_over_3_steps(dispatch):
+    jcfg, tcfg, params = _moe_model()
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, dispatch=dispatch))
+    tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe, dispatch=dispatch))
+    opt = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    jstep = jloop.make_train_step(jcfg, jadamw.AdamWConfig(**opt), donate=False)
+    tstep = tloop.make_train_step(tcfg, tadamw.AdamWConfig(**opt))
+    jp = jax.tree.map(jnp.asarray, params)
+    tp = params_from_numpy(tcfg, params, "cpu")
+    js = jadamw.init_opt_state(jp, jadamw.AdamWConfig(**opt))
+    ts = tadamw.init_opt_state(tp, tadamw.AdamWConfig(**opt))
+    ds = JMarkov(tcfg.vocab, 16, 4, seed=3)
+    for step in range(3):
+        host = ds.batch_at(step)
+        jp, js, jm = jstep(jp, js, {k: jnp.asarray(v) for k, v in host.items()})
+        tp, ts, tm = tstep(tp, ts, {k: torch.from_numpy(v.astype(np.int64))
+                                    for k, v in host.items()})
+        _close(tm["loss"], jm["loss"])
+        _close(tm["grad_norm"], jm["grad_norm"])
+    # The parameters after 3 updates, router and experts included.
+    got = params_to_numpy(tcfg, tp)
+    for x, y in zip(jax.tree.leaves(got), jax.tree.leaves(jax.tree.map(np.asarray, jp))):
+        _close(x, y)
+
+
+def test_moe_params_to_numpy_round_trips_the_reference_layout():
+    """Router, expert stacks and shared MLP in the reference's
+    period-stacked layout, bitwise both ways."""
+    _, tcfg, params = _moe_model()
+    tcfg = dataclasses.replace(tcfg, n_layers=3)
+    jcfg = dataclasses.replace(j_get_config("deepseek-moe-16b").reduced(), n_layers=3)
+    params = jax.tree.map(np.asarray, jax.jit(functools.partial(japi.init_params, jcfg))(
+        jax.random.key(1)))
+    tp = params_from_numpy(tcfg, params, "cpu")
+    assert len(tp["blocks"]) == 3
+    assert tuple(tp["blocks"][2]["moe"]["w_gate"].shape) == (4, 64, 32)
+    back = params_to_numpy(tcfg, tp)
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    assert set(back["blocks"][0]["moe"]) == {"router", "w_gate", "w_up", "w_down", "shared"}
+    for x, y in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+        assert x.shape == y.shape
+        np.testing.assert_array_equal(x, y)
+
+
+def test_launch_train_runs_deepseek_on_the_cpu():
+    res = t_launch.main(["--arch", "deepseek-moe-16b", "--reduced", "--device", "cpu",
+                         "--steps", "8", "--batch", "2", "--seq", "16"])
+    assert len(res.losses) == 8 and all(np.isfinite(res.losses))
+    events = tobs.recent_events(20, kind="train_step")
+    assert [e["step"] for e in events] == list(range(8))
+
+
+def test_moe_step_events_count_every_parameter_like_the_reference():
+    """``model_flops`` over all parameters, as the reference's loop: the
+    same event fields and equal non-wall values over 2 steps."""
+    jcfg, tcfg, params = _moe_model()
+    jobs.clear_events()
+    jds = JMarkov(jcfg.vocab, 16, 4, seed=0)
+    opt = dict(peak_lr=1e-2, warmup_steps=1, total_steps=2)
+    jloop.train(jcfg, jadamw.AdamWConfig(**opt), jloop.TrainLoopConfig(total_steps=2, log_every=0),
+                lambda s: {k: jnp.asarray(v) for k, v in jds.batch_at(s).items()},
+                params=jax.tree.map(jnp.asarray, params), log=lambda *_: None)
+    theirs = jobs.recent_events(10, kind="train_step")
+    tobs.clear_events()
+    tloop.train(tcfg, tadamw.AdamWConfig(**opt), tloop.TrainLoopConfig(total_steps=2, log_every=0),
+                make_batch_fn(MarkovLMDataset(tcfg.vocab, 16, 4, seed=0), "cpu"),
+                params=params_from_numpy(tcfg, params, "cpu"), log=lambda *_: None)
+    ours = tobs.recent_events(10, kind="train_step")
+    assert len(ours) == len(theirs) == 2
+    for a, b in zip(ours, theirs):
+        assert set(a) == set(b)
+        assert (a["step"], a["tokens"]) == (b["step"], b["tokens"])
+        _close(a["loss"], b["loss"])
+        # The same FLOP count (all parameters): the rates' ratio is the
+        # walls' inverse ratio.
+        _close(a["gflops_per_sec"] * a["wall_s"], b["gflops_per_sec"] * b["wall_s"], 1e-6)
+
+
 # --- what is not ported raises ----------------------------------------------------------
 
 
@@ -290,8 +394,9 @@ def test_unported_training_paths_raise(tmp_path, monkeypatch):
                    PrecisionPolicy(rules={"attn_qkv": "torch_q8"})):
         with pytest.raises(NotImplementedError, match="q8"):
             tloop.make_train_step(tcfg, opt, policy=policy)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tloop.make_train_step(t_get_config("deepseek-moe-16b").reduced(), opt)
+    with pytest.raises(NotImplementedError, match="q8"):
+        tloop.make_train_step(t_get_config("deepseek-moe-16b").reduced(), opt,
+                              policy=PrecisionPolicy(rules={"moe": "q8"}))
     # An fp-family policy is fine.
     tloop.make_train_step(tcfg, opt, policy=PrecisionPolicy(rules={"mlp": "torch"}))
     # The default device is the card; without one the entry points raise.
