@@ -103,7 +103,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     the same floor, then 8 steps through ``repro_torch.train.train`` whose
     loss must fall, with step time, tokens/s, peak memory and a profiled
     step; (c) ``python -m repro_torch.launch.train --arch chatglm3-6b
-    --reduced --steps 40`` (loss must fall); (d) K1 launched in the backward
+    --reduced --steps 40`` (loss must fall; run as 12(e)'s first run, with
+    ``--ckpt-dir``); (d) K1 launched in the backward
     of (a) and (b), and (b)'s launches exactly 25 sm90 and 6 tile (the fp32
     backward GEMMs) a layer and a step;
 11. MoE training on K4 and K1 (after phase 10): (a) one full-width
@@ -121,7 +122,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     then 8 steps through ``repro_torch.train.train`` with finite losses,
     exact launch counts, step time, tokens/s, peak memory and a profiled
     step; (c) ``python -m repro_torch.launch.train --arch deepseek-moe-16b
-    --reduced --steps 40`` (finite losses).
+    --reduced --steps 40`` (finite losses);
+12. q8 training and checkpoints (after phase 11): (a) full-width chatglm3-6b
+    cut to 4 layers under ``mlp_q8_policy()``: one step with every K1 and K2
+    launch counted by role and route (the MLP's forward and remat recompute
+    on K2, every backward GEMM on K1), its loss and every gradient leaf
+    against the plain q8 policy under phase 10's floor gate, 8 steps
+    through ``train`` with exact launch counts, and K2's 3 MLP GEMMs at
+    M = 2048 timed by device time beside ``torch._int_mm`` + dequant and
+    the bound; (b) deepseek-moe-16b cut to 2 layers under ``{"moe": "q8"}``:
+    the same first step, teacher-forced on the kernels' routing (K5 and K2
+    forward, K1 and K4 backward), then 3 steps; (c) chatglm3-6b cut to 2
+    layers, bf16: two uninterrupted 6-step runs, and a run that checkpoints
+    every 3 steps (9.4 GB each, under ``build/``), fails at step 5 and
+    resumes, its final parameters and moments bitwise equal to the
+    uninterrupted run's (or within the two uninterrupted runs' gap, where
+    they differ), save and restore seconds logged; (d) the final checkpoint
+    restored into the continuous engine: 4 greedy requests give the
+    in-memory parameters' tokens, every K1 launch on sm90; (e) the train
+    CLI at its reduced config with ``--ckpt-dir``, 40 steps, then 60 steps
+    resuming from 40.
 
 The last lines are a JSON ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
@@ -138,6 +158,7 @@ import itertools
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -207,6 +228,28 @@ K1_MOE_TRAIN = {"forward": 8, "remat recompute": 8, "backward": 10, "fp32 recomp
 K4_MOE_TRAIN = {"forward": 3, "remat recompute": 3, "backward": 2, "fp32 recompute": 1,
                 "fp32 backward": 4}
 
+# q8 training (phase 12(a), (b)): the quantized roles' forward and remat
+# recompute on K2 and K5, every backward GEMM on K1 and K4 (their grad
+# backend). chatglm3-6b under mlp_q8_policy(), a layer and a step: K2 the 3
+# MLP GEMMs twice; K1 wq, wk, wv, wo twice, dA and dB of wq, wk, wv and
+# w_up, the fp32 accumulator recompute of wo, w_gate and w_down, and dA, dB
+# on their fp32 cotangent (tile).
+K1_Q8_TRAIN = {"forward": 4, "remat recompute": 4, "backward": 8, "fp32 recompute": 3,
+               "fp32 backward": 6}
+K2_Q8_TRAIN = {"forward": 3, "remat recompute": 3}
+# deepseek-moe-16b under {"moe": "q8"}, cut to 2 layers: K5 the 3 expert
+# GEMMs twice and K2 the shared MLP's 3 twice; K1 the attention and router
+# GEMMs twice and the rest of phase 11's K1 table; K4 phase 11's backward.
+Q8_MOE_TRAIN_LAYERS, Q8_MOE_TRAIN_STEPS = 2, 3
+K1_Q8_MOE_TRAIN = {"forward": 5, "remat recompute": 5, "backward": 10, "fp32 recompute": 3,
+                   "fp32 backward": 6}
+K2_Q8_MOE_TRAIN = {"forward": 3, "remat recompute": 3}
+K5_Q8_MOE_TRAIN = {"forward": 3, "remat recompute": 3}
+K4_Q8_MOE_TRAIN = {"backward": 2, "fp32 recompute": 1, "fp32 backward": 4}
+# Checkpoints (phase 12(c)-(e)): chatglm3-6b cut to 2 layers (0.94 B
+# parameters: 1.9 GB of bf16 weights and 7.5 GB of fp32 moments a
+# checkpoint), 6 steps, a checkpoint every 3, a failure at step 5.
+CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT = 2, 6, 3, 5
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
@@ -2394,15 +2437,34 @@ def _floor_gate(torch, got, ref, ref64, what):
     return d_k, d_f
 
 
+def _gate_first_step(torch, params, losses, grads, tag):
+    """A first step's loss and every gradient leaf on the kernels against
+    the plain backend: ``losses`` and ``grads`` are (kernels, plain, plain
+    with fp64 sums). The loss within TRAIN_LOSS_RTOL, each leaf under
+    :func:`_floor_gate`. Returns (the gaps by leaf path, the worst leaf)."""
+    loss_k, loss_p, loss_64 = losses
+    if not all(torch.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag} first-step losses {loss_k}, {loss_p}, {loss_64}")
+    loss_gap = abs(loss_k.item() - loss_p.item())
+    if loss_gap > TRAIN_LOSS_RTOL * abs(loss_p.item()):
+        raise AssertionError(f"{tag} first-step loss: kernels {loss_k.item()} vs plain "
+                             f"{loss_p.item()}: gap {loss_gap} > {TRAIN_LOSS_RTOL} x loss")
+    leaf_gaps = {}
+    for (path, _), x, y, z in zip(_leaf_paths(params), *grads):
+        leaf_gaps[path] = _floor_gate(torch, x, y, z, f"{tag} first-step d{path}")
+    worst = max(leaf_gaps, key=lambda p: leaf_gaps[p][0] / max(leaf_gaps[p][1], 1e-30))
+    return leaf_gaps, worst
+
+
 def train_phase(torch, np, cfg, ops, ep, dev, *, layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
                 seq=TRAIN_SEQ, steps=TRAIN_STEPS):
     """Phase 10: dense training on K1. (a) the backward GEMMs of one layer
     at M = batch * seq, (b) the model cut to ``layers`` layers through
-    ``repro_torch.train.train``, (c) the training CLI at its reduced config,
-    (d) the launch gates. Returns K1's training record."""
+    ``repro_torch.train.train``, (d) the launch gates ((c), the training
+    CLI at its reduced config, runs in 12(e) with ``--ckpt-dir``). Returns
+    K1's training record."""
     import dataclasses
     import importlib
-    import os
 
     from repro_torch import obs
     from repro_torch.data import MarkovLMDataset, make_batch_fn
@@ -2553,16 +2615,8 @@ def train_phase(torch, np, cfg, ops, ep, dev, *, layers=TRAIN_LAYERS, batch=TRAI
     loss_p, g_p = loss_grads("torch")
     with _patched(plain, "fn", fp64):
         loss_64, g_64 = loss_grads("torch")
-    if not all(torch.isfinite(x) for x in (loss_k, loss_p, loss_64)):
-        raise AssertionError(f"10(b) first-step losses {loss_k}, {loss_p}, {loss_64}")
-    loss_gap = abs(loss_k.item() - loss_p.item())
-    if loss_gap > TRAIN_LOSS_RTOL * abs(loss_p.item()):
-        raise AssertionError(f"10(b) first-step loss: kernels {loss_k.item()} vs plain "
-                             f"{loss_p.item()}: gap {loss_gap} > {TRAIN_LOSS_RTOL} x loss")
-    leaf_gaps = {}
-    for (path, _), x, y, z in zip(_leaf_paths(params), g_k, g_p, g_64):
-        leaf_gaps[path] = _floor_gate(torch, x, y, z, f"10(b) first-step d{path}")
-    worst_leaf = max(leaf_gaps, key=lambda p: leaf_gaps[p][0] / max(leaf_gaps[p][1], 1e-30))
+    leaf_gaps, worst_leaf = _gate_first_step(torch, params, (loss_k, loss_p, loss_64),
+                                             (g_k, g_p, g_64), "10(b)")
     log(f"10(b) {tcfg.name} at {layers} layers ({n_params / 1e9:.3f} B params), first step "
         f"{batch}x{seq}: loss kernels {loss_k.item():.6f}, plain {loss_p.item():.6f}, plain fp64 "
         f"sums {loss_64.item():.6f}; {len(leaf_gaps)} gradient leaves within "
@@ -2612,24 +2666,6 @@ def train_phase(torch, np, cfg, ops, ep, dev, *, layers=TRAIN_LAYERS, batch=TRAI
         k1_ms = sum(ms for key, ms, _ in prof if "opope_gemm" in key)
     del state, step_fn, params
 
-    # (c) the training CLI at its reduced config.
-    t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_LOG="json")
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", cfg.name, "--reduced",
-         "--steps", "40"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise AssertionError(f"10(c) train CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
-    done = [json.loads(line) for line in proc.stdout.splitlines()
-            if line.startswith("{") and '"event": "done"' in line]
-    if len(done) != 1 or not done[0]["loss_last"] < done[0]["loss_first"]:
-        raise AssertionError(f"10(c) train CLI: {done or proc.stdout[-2000:]}")
-    cli_res = {"loss_first": done[0]["loss_first"], "loss_last": done[0]["loss_last"],
-               "seconds": time.perf_counter() - t0}
-    log(f"10(c) python -m repro_torch.launch.train --arch {cfg.name} --reduced --steps 40: "
-        f"loss {cli_res['loss_first']:.4f} -> {cli_res['loss_last']:.4f} in "
-        f"{cli_res['seconds']:.1f} s")
-
     # (d) K1 ran in the backward of (a) and (b), and every forward and
     # recompute launch of (b) on sm90: the fp32 backward GEMMs are the only
     # tile launches, so the counts are exact.
@@ -2658,16 +2694,17 @@ def train_phase(torch, np, cfg, ops, ep, dev, *, layers=TRAIN_LAYERS, batch=TRAI
                   "step_ms": step_s * 1e3, "first_step_ms": walls[0] * 1e3,
                   "tokens_per_sec": tokens / step_s, "device_busy_ms": busy_ms,
                   "k1_device_ms": k1_ms, "peak_memory_gb": peak_gb},
-        "cli": cli_res,
         "seconds": phase_s,
     }
 
 
-def _role_counter(torch, ops, kernels):
+def _role_counter(torch, ops, kernels, members=(("cuda", "fn", "K1"),
+                                                ("cuda", "grouped_fn", "K4"))):
     """Count each launch of ``kernels`` (name -> wrapper with
-    ``launches_by_route``) made through the ``cuda`` backend by role and
-    route. A product the entry points run (``ops._run``: the forward, and
-    the remat recompute, which autograd may start from inside a Function's
+    ``launches_by_route``) made through the backend members ``members``
+    ((backend, ``fn`` or ``grouped_fn``, kernel name)) by role and route.
+    A product the entry points run (``ops._run``: the forward, and the
+    remat recompute, which autograd may start from inside a Function's
     backward when it unpacks the saved inputs) takes the role
     ``state["phase"]`` (``"forward"`` or ``"remat recompute"``); a GEMM of
     the backward rules takes ``"fp32 backward"`` for fp32 operands,
@@ -2678,7 +2715,6 @@ def _role_counter(torch, ops, kernels):
 
     counts = collections.Counter()
     state = {"phase": "forward", "in_run": 0}
-    be = ops.backend("cuda")
     real_run = ops._run
 
     def entry(*args, **kw):
@@ -2710,12 +2746,125 @@ def _role_counter(torch, ops, kernels):
 
     @contextlib.contextmanager
     def installed():
-        with _patched(ops, "_run", entry), \
-                _patched(be, "fn", wrap(be.fn, "K1")), \
-                _patched(be, "grouped_fn", wrap(be.grouped_fn, "K4")):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_patched(ops, "_run", entry))
+            for name, attr, kname in members:
+                be = ops.backend(name)
+                stack.enter_context(_patched(be, attr, wrap(getattr(be, attr), kname)))
             yield
 
     return counts, state, installed
+
+
+def _check_role_counts(counts, tables, layers, tag):
+    """``counts`` (from :func:`_role_counter`) equal to ``tables`` (kernel
+    -> role -> launches a layer) times ``layers``: the fp32 backward GEMMs
+    on the tile route, every other launch on sm90, and none outside the
+    tables. Returns the launches by "kernel role (route)"."""
+    by_role = {}
+    for kname, table in tables.items():
+        for role, per_layer in table.items():
+            route = "tile" if role == "fp32 backward" else "sm90"
+            got_n = {r: counts[(kname, role, r)] for r in ("sm90", "tile")}
+            if got_n != {route: per_layer * layers, ("sm90" if route == "tile" else "tile"): 0}:
+                raise AssertionError(f"{tag} {kname} {role}: launches by route {got_n}, want "
+                                     f"{per_layer * layers} on {route}")
+            by_role[f"{kname} {role} ({route})"] = per_layer * layers
+    if sum(counts.values()) != sum(by_role.values()):
+        raise AssertionError(f"{tag} launches outside the counted roles: {dict(counts)}")
+    return by_role
+
+
+def _want_routes(table, layers, steps):
+    """A kernel's launches by route over ``steps`` steps of ``layers``
+    layers, from its role table (the fp32 backward on tile)."""
+    tile = table.get("fp32 backward", 0)
+    return {"sm90": (sum(table.values()) - tile) * layers * steps, "tile": tile * layers * steps}
+
+
+def _moe_first_step(torch, ops, ep, tcfg, params, first, kernels, members, tables, policy,
+                    plain_policy, tag):
+    """One MoE train step's loss and gradients under ``policy``, every
+    launch of ``kernels`` through ``members`` counted by role and route
+    against ``tables`` (:func:`_check_role_counts`), each layer's remat
+    recompute routing required equal to its forward's; then the same step
+    under ``plain_policy`` (fp32 and fp64 sums) teacher-forced on that
+    routing, held under :func:`_gate_first_step`. Returns the losses
+    (kernels, plain, fp64), the leaf gaps, the worst leaf and the launches
+    by role."""
+    from repro_torch.models import api
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.tree import leaves, map_leaves
+
+    dev = first["tokens"].device
+    fp64, plain = _fp64_plain(torch, ep), ops.backend("torch")
+    layers = tcfg.n_layers
+    counts, state, installed = _role_counter(torch, ops, kernels, members)
+    routed, real_route = {"forward": [], "remat recompute": []}, moe_mod._route
+    forced = {}  # router leaf's storage -> the forward's top_idx
+
+    def recording(p, xf, top_k, backend=None):
+        out = real_route(p, xf, top_k, backend)
+        routed[state["phase"]].append(out[2].clone())
+        if state["phase"] == "forward":
+            forced[p["router"].data_ptr()] = out[2].clone()
+        return out
+
+    with installed(), _patched(moe_mod, "_route", recording):
+        live = map_leaves(lambda p: p.detach().requires_grad_(), params)
+        state["phase"] = "forward"
+        loss0 = api.loss_fn(tcfg, live, first, backend=policy)
+        sync(torch, dev)
+        state["phase"] = "remat recompute"
+        g_k = torch.autograd.grad(loss0, list(leaves(live)))
+        sync(torch, dev)
+    if not torch.isfinite(loss0) or not all(torch.isfinite(x.float()).all() for x in g_k):
+        raise AssertionError(f"{tag} first step: loss {loss0.item()} or a gradient not finite")
+    del live
+    if len(forced) != layers:
+        raise AssertionError(f"{tag} routing recorded for {len(forced)} router leaves, want "
+                             f"{layers}")
+
+    # The same step on the plain backend (fp32 and fp64 sums), teacher-forced
+    # on the kernels' routing: each layer's gates come from its own router
+    # GEMM, its top-k indices are the forward's above (in the forward and in
+    # the remat recompute). The kernels' gradients above are that same
+    # function at their own routing (a gather of the gates at the sorted
+    # indices is the sort's values, and their vjp is the same scatter).
+    def replay(p, xf, top_k, backend=None):
+        gates, _, _ = real_route(p, xf, top_k, backend)
+        top_idx = forced[p["router"].data_ptr()]
+        top_vals = torch.gather(gates, 1, top_idx)
+        return gates, top_vals / torch.clamp_min(top_vals.sum(-1, keepdim=True), 1e-9), top_idx
+
+    def loss_grads(backend):
+        live = map_leaves(lambda p: p.detach().requires_grad_(), params)
+        loss = api.loss_fn(tcfg, live, first, backend=backend)
+        return loss.detach().float(), torch.autograd.grad(loss, list(leaves(live)))
+
+    with _patched(moe_mod, "_route", replay):
+        loss_p, g_p = loss_grads(plain_policy)
+        with _patched(plain, "fn", fp64), _patched(plain, "grouped_fn", fp64):
+            loss_64, g_64 = loss_grads(plain_policy)
+    losses = (loss0.detach().float(), loss_p, loss_64)
+    leaf_gaps, worst_leaf = _gate_first_step(torch, params, losses, (g_k, g_p, g_64), tag)
+    log(f"{tag} first step teacher-forced on the kernels' routing: loss kernels "
+        f"{losses[0].item():.6f}, plain {loss_p.item():.6f}, plain fp64 sums "
+        f"{loss_64.item():.6f}; {len(leaf_gaps)} gradient leaves within "
+        f"{TRAIN_GRAD_FLOOR_FACTOR} x floor (worst {worst_leaf}: RMS "
+        f"{leaf_gaps[worst_leaf][0]:.3g}, floor {leaf_gaps[worst_leaf][1]:.3g})")
+    del g_k, g_p, g_64
+    by_role = _check_role_counts(counts, tables, layers, tag)
+    fwd, rec = routed["forward"], routed["remat recompute"]
+    if len(fwd) != layers or len(rec) != layers:
+        raise AssertionError(f"{tag} routing recorded {len(fwd)} forward, {len(rec)} recompute "
+                             f"calls, want {layers} each")
+    same = [torch.equal(x, y) for x, y in zip(fwd, reversed(rec))]
+    if not all(same):
+        raise AssertionError(f"{tag} the remat recompute's top_idx differs from the forward's "
+                             f"in layers {[i for i, s_ in enumerate(same) if not s_]}")
+    return {"losses": losses, "leaf_gaps": leaf_gaps, "worst_leaf": worst_leaf,
+            "by_role": by_role}
 
 
 def moe_train_phase(torch, np, cfg, ops, ep, k4mod, dev, *, layers=MOE_TRAIN_LAYERS,
@@ -2736,10 +2885,9 @@ def moe_train_phase(torch, np, cfg, ops, ep, k4mod, dev, *, layers=MOE_TRAIN_LAY
     from repro_torch.data import MarkovLMDataset, make_batch_fn
     from repro_torch.kernels.opope_gemm import full_fp32, opope_gemm
     from repro_torch.models import api
-    from repro_torch.models import moe as moe_mod
     from repro_torch.optim import AdamWConfig, init_opt_state
     from repro_torch.train import TrainLoopConfig, make_train_step, train
-    from repro_torch.tree import leaves, map_leaves
+    from repro_torch.tree import leaves
     k4 = k4mod.opope_gemm_grouped
 
     t_phase = time.perf_counter()
@@ -2874,94 +3022,19 @@ def moe_train_phase(torch, np, cfg, ops, ep, k4mod, dev, *, layers=MOE_TRAIN_LAY
     batch_fn = make_batch_fn(MarkovLMDataset(tcfg.vocab, seq, batch, seed=0), dev)
     first = batch_fn(0)
 
-    # One step by hand: every K1 and K4 launch by role and route, and each
-    # layer's routing in the forward and in its remat recompute.
-    kernels = {"K1": opope_gemm, "K4": k4}
-    counts, state, installed = _role_counter(torch, ops, kernels)
-    routed, real_route = {"forward": [], "remat recompute": []}, moe_mod._route
-    forced = {}  # router leaf's storage -> the forward's top_idx
-
-    def recording(p, xf, top_k, backend=None):
-        out = real_route(p, xf, top_k, backend)
-        routed[state["phase"]].append(out[2].clone())
-        if state["phase"] == "forward":
-            forced[p["router"].data_ptr()] = out[2].clone()
-        return out
-
-    with installed(), _patched(moe_mod, "_route", recording):
-        live = map_leaves(lambda p: p.detach().requires_grad_(), params)
-        state["phase"] = "forward"
-        loss0 = api.loss_fn(tcfg, live, first)
-        sync(torch, dev)
-        state["phase"] = "remat recompute"
-        g_k = torch.autograd.grad(loss0, list(leaves(live)))
-        sync(torch, dev)
-    if not torch.isfinite(loss0) or not all(torch.isfinite(x.float()).all() for x in g_k):
-        raise AssertionError(f"11(b) first step: loss {loss0.item()} or a gradient not finite")
-    del live
-    if len(forced) != layers:
-        raise AssertionError(f"11(b) routing recorded for {len(forced)} router leaves, want {layers}")
-
-    # The same step on the plain backend (fp32 and fp64 sums), teacher-forced
-    # on the kernels' routing: each layer's gates come from its own router
-    # GEMM, its top-k indices are the forward's above (in the forward and in
-    # the remat recompute). The kernels' gradients above are that same
-    # function at their own routing (a gather of the gates at the sorted
-    # indices is the sort's values, and their vjp is the same scatter).
-    def replay(p, xf, top_k, backend=None):
-        gates, _, _ = real_route(p, xf, top_k, backend)
-        top_idx = forced[p["router"].data_ptr()]
-        top_vals = torch.gather(gates, 1, top_idx)
-        return gates, top_vals / torch.clamp_min(top_vals.sum(-1, keepdim=True), 1e-9), top_idx
-
-    def loss_grads(backend):
-        live = map_leaves(lambda p: p.detach().requires_grad_(), params)
-        loss = api.loss_fn(tcfg, live, first, backend=backend)
-        return loss.detach().float(), torch.autograd.grad(loss, list(leaves(live)))
-
-    with _patched(moe_mod, "_route", replay):
-        loss_p, g_p = loss_grads("torch")
-        with _patched(plain, "fn", fp64), _patched(plain, "grouped_fn", fp64):
-            loss_64, g_64 = loss_grads("torch")
-    loss_k = loss0.detach().float()
-    if not all(torch.isfinite(x) for x in (loss_p, loss_64)):
-        raise AssertionError(f"11(b) first-step plain losses {loss_p}, {loss_64}")
-    loss_gap = abs(loss_k.item() - loss_p.item())
-    if loss_gap > TRAIN_LOSS_RTOL * abs(loss_p.item()):
-        raise AssertionError(f"11(b) first-step loss: kernels {loss_k.item()} vs plain "
-                             f"{loss_p.item()}: gap {loss_gap} > {TRAIN_LOSS_RTOL} x loss")
-    leaf_gaps = {}
-    for (path, _), x, y, z in zip(_leaf_paths(params), g_k, g_p, g_64):
-        leaf_gaps[path] = _floor_gate(torch, x, y, z, f"11(b) first-step d{path}")
-    worst_leaf = max(leaf_gaps, key=lambda p: leaf_gaps[p][0] / max(leaf_gaps[p][1], 1e-30))
-    log(f"11(b) first step teacher-forced on the kernels' routing: loss kernels "
-        f"{loss_k.item():.6f}, plain {loss_p.item():.6f}, plain fp64 sums {loss_64.item():.6f}; "
-        f"{len(leaf_gaps)} gradient leaves within {TRAIN_GRAD_FLOOR_FACTOR} x floor (worst "
-        f"{worst_leaf}: RMS {leaf_gaps[worst_leaf][0]:.3g}, floor {leaf_gaps[worst_leaf][1]:.3g})")
-    del g_k, g_p, g_64
-    by_role = {}
-    for kname, table in (("K1", K1_MOE_TRAIN), ("K4", K4_MOE_TRAIN)):
-        for role, per_layer in table.items():
-            route = "tile" if role == "fp32 backward" else "sm90"
-            got_n = {r: counts[(kname, role, r)] for r in ("sm90", "tile")}
-            if got_n != {route: per_layer * layers, ("sm90" if route == "tile" else "tile"): 0}:
-                raise AssertionError(f"11(b) {kname} {role}: launches by route {got_n}, want "
-                                     f"{per_layer * layers} on {route}")
-            by_role[f"{kname} {role} ({route})"] = per_layer * layers
-    if sum(counts.values()) != sum(by_role.values()):
-        raise AssertionError(f"11(b) launches outside the counted roles: {dict(counts)}")
-    fwd, rec = routed["forward"], routed["remat recompute"]
-    if len(fwd) != layers or len(rec) != layers:
-        raise AssertionError(f"11(b) routing recorded {len(fwd)} forward, {len(rec)} recompute "
-                             f"calls, want {layers} each")
-    same = [torch.equal(x, y) for x, y in zip(fwd, reversed(rec))]
-    if not all(same):
-        raise AssertionError(f"11(b) the remat recompute's top_idx differs from the forward's "
-                             f"in layers {[i for i, s_ in enumerate(same) if not s_]}")
+    # One step by hand: every K1 and K4 launch by role and route, each
+    # layer's routing in the forward and in its remat recompute, then the
+    # loss and gradients against the plain backend on the same routing.
+    first_step = _moe_first_step(
+        torch, ops, ep, tcfg, params, first, {"K1": opope_gemm, "K4": k4},
+        (("cuda", "fn", "K1"), ("cuda", "grouped_fn", "K4")),
+        {"K1": K1_MOE_TRAIN, "K4": K4_MOE_TRAIN}, None, "torch", "11(b)")
+    loss_k, loss_p, loss_64 = first_step["losses"]
+    leaf_gaps, worst_leaf = first_step["leaf_gaps"], first_step["worst_leaf"]
     log(f"11(b) {tcfg.name} at {layers} layers ({n_params / 1e9:.3f} B params, "
-        f"{n_active / 1e9:.3f} B active), first step {batch}x{seq}: loss {loss0.item():.6f}; "
-        f"launches by role {by_role}; every layer's remat top_idx equal to its forward's")
-    del routed, fwd, rec
+        f"{n_active / 1e9:.3f} B active), first step {batch}x{seq}: loss {loss_k.item():.6f}; "
+        f"launches by role {first_step['by_role']}; every layer's remat top_idx equal to its "
+        f"forward's")
 
     # Then `steps` steps through train(), every K1 and K4 launch counted.
     opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=steps)
@@ -2983,9 +3056,7 @@ def moe_train_phase(torch, np, cfg, ops, ep, k4mod, dev, *, layers=MOE_TRAIN_LAY
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"11(b) losses {losses}")
     for kname, table, routes in (("K1", K1_MOE_TRAIN, k1_routes), ("K4", K4_MOE_TRAIN, k4_routes)):
-        tile = table["fp32 backward"]
-        want = {"sm90": (sum(table.values()) - tile) * layers * steps,
-                "tile": tile * layers * steps}
+        want = _want_routes(table, layers, steps)
         if routes != want:
             raise AssertionError(f"11(b) {kname} launches by route {routes} != {want}")
     walls = [ev["wall_s"] for ev in events]
@@ -3071,6 +3142,414 @@ def moe_train_phase(torch, np, cfg, ops, ep, k4mod, dev, *, layers=MOE_TRAIN_LAY
         "cli": cli_res,
         "seconds": phase_s,
     }
+
+
+def q8_train_phase(torch, cfg, mcfg, ops, ep, q8mod, k4mod, qz, q8b, dev, *,
+                   layers=TRAIN_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                   moe_layers=Q8_MOE_TRAIN_LAYERS, moe_steps=Q8_MOE_TRAIN_STEPS):
+    """Phase 12(a), (b): training under a q8 policy, the quantized roles'
+    forward and remat recompute on K2 and K5, their backward on K1 and K4.
+    (a) chatglm3-6b under ``mlp_q8_policy()``: one step counted by role and
+    route, its loss and gradients against the plain q8 policy under phase
+    10's floor gate, ``steps`` steps through ``train``, and K2's 3 MLP
+    GEMMs at M = batch * seq timed; (b) deepseek-moe-16b under
+    ``{"moe": "q8"}``: the same first step teacher-forced on the kernels'
+    routing, ``moe_steps`` steps. Returns the record."""
+    import dataclasses
+
+    from repro_torch import obs
+    from repro_torch.data import MarkovLMDataset, make_batch_fn
+    from repro_torch.kernels.opope_gemm import opope_gemm
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainLoopConfig, train
+    from repro_torch.tree import leaves, map_leaves
+
+    t_phase = time.perf_counter()
+    fp64, plain = _fp64_plain(torch, ep), ops.backend("torch")
+    bf16 = torch.bfloat16
+    k2, k5 = q8mod.opope_gemm_q8, q8mod.opope_gemm_q8_grouped
+    kernels = {"K1": opope_gemm, "K2": k2, "K4": k4mod.opope_gemm_grouped, "K5": k5}
+    members = (("cuda", "fn", "K1"), ("cuda", "grouped_fn", "K4"),
+               ("cuda_q8", "fn", "K2"), ("cuda_q8", "grouped_fn", "K5"))
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=steps)
+
+    def run_steps(tcfg, params, batch_fn, policy, n_steps, tables, tag):
+        """``n_steps`` steps through train(), each kernel's launches by
+        route equal to its table's; returns the losses, step wall, peak
+        memory and launches by route."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        obs.clear_events()
+        before = {k: dict(kern.launches_by_route) for k, kern in kernels.items()}
+        t0 = time.perf_counter()
+        res = train(tcfg, dataclasses.replace(opt, total_steps=n_steps),
+                    TrainLoopConfig(total_steps=n_steps, log_every=1), batch_fn, params=params,
+                    policy=policy, log=lambda msg: log(f"{tag} {msg}"))
+        sync(torch, dev)
+        train_s = time.perf_counter() - t0
+        routes = {k: {r: n - before[k][r] for r, n in kern.launches_by_route.items()}
+                  for k, kern in kernels.items()}
+        want = {k: (_want_routes(tables[k], tcfg.n_layers, n_steps) if k in tables
+                    else {"sm90": 0, "tile": 0}) for k in kernels}
+        if routes != want:
+            raise AssertionError(f"{tag} launches by route {routes} != {want}")
+        if len(res.losses) != n_steps or not all(math.isfinite(x) for x in res.losses):
+            raise AssertionError(f"{tag} losses {res.losses}")
+        walls = [e["wall_s"] for e in obs.recent_events(n_steps, kind="train_step")]
+        step_s = sum(walls[1:]) / max(1, len(walls) - 1)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"{tag} {n_steps} steps in {train_s:.2f} s: losses {[round(x, 4) for x in res.losses]}; "
+            f"step wall {step_s * 1e3:.1f} ms (steps 2..{n_steps}; the first "
+            f"{walls[0] * 1e3:.1f} ms), {batch * seq / step_s:.1f} tokens/s; peak device memory "
+            f"{peak_gb:.2f} GB; launches by route {routes}")
+        return {"losses": res.losses, "step_ms": step_s * 1e3, "first_step_ms": walls[0] * 1e3,
+                "tokens_per_sec": batch * seq / step_s, "peak_memory_gb": peak_gb,
+                "launches_by_route": routes}
+
+    # (a) chatglm3-6b at full width cut to `layers` layers, bf16, remat
+    # "full", under mlp_q8_policy(). One step by hand, every launch counted
+    # by role and route; its loss and gradients against the plain q8 policy
+    # (the MLP on torch_q8, the rest and every backward GEMM on the plain
+    # backend, fp32 and fp64 sums).
+    tcfg = dataclasses.replace(cfg, n_layers=layers)
+    policy = qz.mlp_q8_policy()
+    plain_policy = qz.PrecisionPolicy(rules={"mlp": "torch_q8"}, default="torch")
+    params = api.init_params(tcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    batch_fn = make_batch_fn(MarkovLMDataset(tcfg.vocab, seq, batch, seed=0), dev)
+    first = batch_fn(0)
+    counts, state, installed = _role_counter(torch, ops, kernels, members)
+
+    def loss_grads(backend):
+        live = map_leaves(lambda p: p.detach().requires_grad_(), params)
+        state["phase"] = "forward"
+        loss = api.loss_fn(tcfg, live, first, backend=backend)
+        state["phase"] = "remat recompute"
+        grads = torch.autograd.grad(loss, list(leaves(live)))
+        return loss.detach().float(), grads
+
+    with installed():
+        loss_k, g_k = loss_grads(policy)
+        sync(torch, dev)
+    loss_p, g_p = loss_grads(plain_policy)
+    with _patched(plain, "fn", fp64):
+        loss_64, g_64 = loss_grads(plain_policy)
+    leaf_gaps, worst = _gate_first_step(torch, params, (loss_k, loss_p, loss_64),
+                                        (g_k, g_p, g_64), "12(a)")
+    by_role = _check_role_counts(counts, {"K1": K1_Q8_TRAIN, "K2": K2_Q8_TRAIN}, layers, "12(a)")
+    del g_k, g_p, g_64
+    log(f"12(a) {tcfg.name} at {layers} layers ({n_params / 1e9:.3f} B params) under "
+        f"mlp_q8_policy(), first step {batch}x{seq}: loss kernels {loss_k.item():.6f}, plain "
+        f"q8 {loss_p.item():.6f}, plain q8 fp64 sums {loss_64.item():.6f}; {len(leaf_gaps)} "
+        f"gradient leaves within {TRAIN_GRAD_FLOOR_FACTOR} x floor (worst {worst}: RMS "
+        f"{leaf_gaps[worst][0]:.3g}, floor {leaf_gaps[worst][1]:.3g}); launches by role {by_role}")
+    dense = run_steps(tcfg, params, batch_fn, policy, steps,
+                      {"K1": K1_Q8_TRAIN, "K2": K2_Q8_TRAIN}, "12(a)")
+    dense.update(layers=layers, params=n_params, batch=batch, seq=seq, steps=steps,
+                 first_step_loss={"kernels": loss_k.item(), "plain": loss_p.item(),
+                                  "plain_fp64": loss_64.item()},
+                 first_step_leaves=len(leaf_gaps),
+                 first_step_worst_leaf={"path": worst, "rms": leaf_gaps[worst][0],
+                                        "floor": leaf_gaps[worst][1]},
+                 launches_per_layer_step={"K1": K1_Q8_TRAIN, "K2": K2_Q8_TRAIN})
+    del params, first
+
+    # K2's 3 MLP GEMMs at the step's M, as the forward runs them (int8
+    # operands quantized as the q8 backend does; the gate's silu, mul and
+    # the down projection's residual at the writeback): device time beside
+    # torch._int_mm + dequant (no epilogue) and the bound; the plain
+    # version by CUDA events.
+    m, d, dff = batch * seq, cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(12)
+    k2_rows = []
+    for name, kk, n, chain in (("w_up", d, dff, "none"), ("w_gate", d, dff, "silu+mul"),
+                               ("w_down", dff, d, "residual")):
+        a = torch.randn((m, kk), generator=gen, device=dev).to(bf16)
+        w = (torch.randn((kk, n), generator=gen, device=dev) * kk ** -0.5).to(bf16)
+        aq, bq = q8b.quantize_operands(a, w)
+        steps_ = Q8_CHAINS[chain]
+        ops_ = ((torch.randn((m, n), generator=gen, device=dev).to(bf16),) if steps_ else ())
+
+        def run(fn, i=0):
+            return fn(aq.q, aq.scale, bq.q, bq.scale, out_dtype=bf16, epilogue=steps_,
+                      epilogue_operands=ops_)
+
+        plan = q8mod._plan(m, n, kk, aq.q.data_ptr(), bq.q.data_ptr())
+        if plan.route != "sm90":
+            raise AssertionError(f"12(a) K2 {name} at M={m}: planned on {plan.route}")
+        err = q8_check(torch, run(k2), run(q8mod.opope_gemm_q8_plain), "silu" in steps_,
+                       f"12(a) K2 {name} M={m}")
+        ms = queued_ms(torch, lambda i: run(k2), 10)
+        plain_ms = time_ms(torch, lambda i: run(q8mod.opope_gemm_q8_plain), 1, iters=3)
+        b_cm = bq.q.t().contiguous().t()
+        lib_ms = queued_ms(torch, lambda i: torch._int_mm(aq.q, b_cm).float()
+                           * (aq.scale * bq.scale), 10)
+        bound_ms, bound_by = q8_bound(1, m, kk, n, 2, len(ops_))
+        row = {"gemm": name, "m": m, "k": kk, "n": n, "epilogue": chain, "route": plan.route,
+               "tile_rows": plan.bm, "splits": plan.splits, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "max_abs_err": err, "tops": 2 * m * n * kk / ms / 1e9}
+        k2_rows.append(row)
+        log(f"12(a) K2 {name} [{m}x{kk}]@[{kk}x{n}] {chain}: sm90 {ms:.4f} ms device "
+            f"({row['tops']:.1f} TOP/s; {plan.bm} rows, {plan.splits} splits), "
+            f"torch._int_mm+dequant {lib_ms:.4f} ms device, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        del a, w, aq, bq, b_cm, ops_
+    k2_layer = {key: sum(r[key] for r in k2_rows)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"12(a) K2's 3 MLP GEMMs at M={m}: {k2_layer['ms']:.4f} ms device, torch._int_mm+dequant "
+        f"{k2_layer['library_ms']:.4f} ms, plain {k2_layer['plain_ms']:.4f} ms, bound "
+        f"{k2_layer['bound_ms']:.4f} ms")
+
+    # (b) deepseek-moe-16b at full width cut to `moe_layers` layers under
+    # {"moe": "q8"}: the first step by role and route, teacher-forced
+    # against the plain q8 policy; then `moe_steps` steps.
+    gc.collect()
+    torch.cuda.empty_cache()
+    mt = dataclasses.replace(mcfg, n_layers=moe_layers)
+    params = api.init_params(mt, torch.Generator(device=dev).manual_seed(0), dev)
+    n_moe = sum(t.numel() for t in leaves(params))
+    batch_fn = make_batch_fn(MarkovLMDataset(mt.vocab, seq, batch, seed=0), dev)
+    tables = {"K1": K1_Q8_MOE_TRAIN, "K2": K2_Q8_MOE_TRAIN, "K4": K4_Q8_MOE_TRAIN,
+              "K5": K5_Q8_MOE_TRAIN}
+    moe_policy = qz.PrecisionPolicy(rules={"moe": "q8"})
+    first_step = _moe_first_step(
+        torch, ops, ep, mt, params, batch_fn(0), kernels, members, tables, moe_policy,
+        qz.PrecisionPolicy(rules={"moe": "torch_q8"}, default="torch"), "12(b)")
+    log(f"12(b) {mt.name} at {moe_layers} layers ({n_moe / 1e9:.3f} B params) under "
+        f"{{'moe': 'q8'}}: launches by role {first_step['by_role']}; every layer's remat "
+        f"top_idx equal to its forward's")
+    moe = run_steps(mt, params, batch_fn, moe_policy, moe_steps, tables, "12(b)")
+    losses, worst = first_step["losses"], first_step["worst_leaf"]
+    moe.update(layers=moe_layers, params=n_moe, batch=batch, seq=seq, steps=moe_steps,
+               first_step_loss={"kernels": losses[0].item(), "plain": losses[1].item(),
+                                "plain_fp64": losses[2].item()},
+               first_step_leaves=len(first_step["leaf_gaps"]),
+               first_step_worst_leaf={"path": worst, "rms": first_step["leaf_gaps"][worst][0],
+                                      "floor": first_step["leaf_gaps"][worst][1]},
+               launches_per_layer_step=tables)
+    del params
+    phase_s = time.perf_counter() - t_phase
+    log(f"12(a), (b) took {phase_s:.1f} s")
+    return {"dense": dense, "moe": moe, "k2_mlp_gemms": k2_rows,
+            "k2_mlp_layer": dict(k2_layer, m=m), "seconds": phase_s}
+
+
+def checkpoint_phase(torch, cfg, dev, *, layers=CKPT_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     steps=CKPT_STEPS, every=CKPT_EVERY, fail_at=CKPT_FAIL_AT):
+    """Phase 12(c)–(e): checkpoints at full width. (c) chatglm3-6b cut to
+    ``layers`` layers, bf16: ``steps`` uninterrupted steps twice (their
+    final parameters and moments compared), then a run that checkpoints
+    every ``every`` steps and fails at ``fail_at``, resumed to the end: its
+    final state against the uninterrupted run's, bitwise where the two
+    uninterrupted runs agree bitwise, else within their gap; (d) the final
+    checkpoint restored into the continuous engine, 4 greedy requests
+    against an engine on the in-memory parameters, every K1 launch on
+    sm90; (e) the training CLI at its reduced config, 40 steps then 60 on
+    the same ``--ckpt-dir``. The checkpoints live under a temporary
+    directory in ``build/``, removed at the end. Returns the record."""
+    import dataclasses
+    import importlib
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.data import MarkovLMDataset, make_batch_fn
+    from repro_torch.kernels.opope_gemm import opope_gemm
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.serve import ContinuousEngine, poisson_trace
+    from repro_torch.train import TrainLoopConfig, train
+    from repro_torch.tree import leaves
+    ckpt_mod = importlib.import_module("repro_torch.checkpoint.checkpoint")
+
+    t_phase = time.perf_counter()
+    tcfg = dataclasses.replace(cfg, n_layers=layers)
+    n_params = api.param_count(tcfg)
+    moment_bytes = {"float32": 4, "bfloat16": 2}[tcfg.moment_dtype]
+    ckpt_bytes = n_params * (2 + 2 * moment_bytes) + 4
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="ckpt_", dir=build))
+    usage = shutil.disk_usage(tmp)
+    log(f"12(c) {tcfg.name} at {layers} layers: {n_params / 1e9:.3f} B parameters, a checkpoint "
+        f"{n_params * 2 / 1e9:.2f} GB of bf16 weights + {2 * n_params * moment_bytes / 1e9:.2f} GB "
+        f"of {tcfg.moment_dtype} moments = {ckpt_bytes / 1e9:.2f} GB; {tmp}: "
+        f"{usage.free / 1e9:.1f} GB free of {usage.total / 1e9:.1f} GB")
+    if usage.free < 2.2 * ckpt_bytes:
+        raise AssertionError(f"12(c) {usage.free / 1e9:.1f} GB free: two checkpoints need "
+                             f"{2 * ckpt_bytes / 1e9:.1f} GB")
+    io_s = {"host_copy": [], "write": [], "restore": []}
+
+    def timed(key, fn):
+        depth = [0]  # _to_host recurses through the module global: time the outer call
+
+        def run(*args, **kw):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+                if not depth[0]:
+                    io_s[key].append(time.perf_counter() - t0)
+        return run
+
+    batch_fn = make_batch_fn(MarkovLMDataset(tcfg.vocab, seq, batch, seed=0), dev)
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=steps)
+    k1_before = dict(opope_gemm.launches_by_route)
+
+    def run(**kw):
+        params = api.init_params(tcfg, torch.Generator(device=dev).manual_seed(0), dev)
+        return train(tcfg, opt, TrainLoopConfig(total_steps=steps, log_every=0, **kw), batch_fn,
+                     params=params, log=lambda msg: log(f"12(c) {msg}"))
+
+    def state(res):
+        return list(leaves({"params": res.params, "opt": res.opt_state}))
+
+    def gap(x_res, y_res):
+        """RMS over every parameter and moment of two final states."""
+        sq = sum((x.double() - y.double()).pow(2).sum().item()
+                 for x, y in zip(state(x_res), state(y_res)))
+        return math.sqrt(sq / sum(x.numel() for x in state(x_res)))
+
+    try:
+        t0 = time.perf_counter()
+        whole = run()
+        sync(torch, dev)
+        whole_s = time.perf_counter() - t0
+        again = run()
+        repeat_bitwise = all(torch.equal(x, y) for x, y in zip(state(whole), state(again)))
+        repeat_gap = 0.0 if repeat_bitwise else gap(whole, again)
+        log(f"12(c) two uninterrupted {steps}-step runs ({whole_s:.2f} s each): final parameters "
+            f"and moments " + ("bitwise equal" if repeat_bitwise else
+                               f"differ: RMS gap {repeat_gap:.4g}"))
+        del again
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        ckpt_dir = str(tmp / "run")
+        with _patched(ckpt_mod, "_to_host", timed("host_copy", ckpt_mod._to_host)), \
+                _patched(ckpt_mod, "_save_host", timed("write", ckpt_mod._save_host)), \
+                _patched(ckpt, "restore", timed("restore", ckpt.restore)):
+            try:
+                run(ckpt_dir=ckpt_dir, ckpt_every=every, fail_at_step=fail_at)
+                raise AssertionError(f"12(c) the run with a failure at step {fail_at} finished")
+            except RuntimeError as exc:
+                if f"injected failure at step {fail_at}" not in str(exc):
+                    raise
+            if ckpt.latest_step(ckpt_dir) != every:
+                raise AssertionError(f"12(c) newest checkpoint {ckpt.latest_step(ckpt_dir)} "
+                                     f"after the failure, want {every}")
+            resumed = run(ckpt_dir=ckpt_dir, ckpt_every=every)
+        sync(torch, dev)
+        if resumed.resumed_from != every or len(resumed.losses) != steps - every:
+            raise AssertionError(f"12(c) resumed from {resumed.resumed_from} with "
+                                 f"{len(resumed.losses)} steps")
+        resume_bitwise = all(torch.equal(x, y) for x, y in zip(state(whole), state(resumed)))
+        resume_gap = 0.0 if resume_bitwise else gap(whole, resumed)
+        if repeat_bitwise and not resume_bitwise:
+            raise AssertionError(f"12(c) resumed final state differs from the uninterrupted "
+                                 f"run's (RMS {resume_gap:.4g}) where two uninterrupted runs "
+                                 f"agree bitwise")
+        if not repeat_bitwise and not resume_gap <= repeat_gap:
+            raise AssertionError(f"12(c) resumed vs uninterrupted RMS {resume_gap:.4g} > the "
+                                 f"repeat gap {repeat_gap:.4g}")
+        if resume_bitwise and resumed.losses != whole.losses[every:]:
+            raise AssertionError(f"12(c) losses {resumed.losses} != {whole.losses[every:]}")
+        n_saves = len(io_s["write"])
+        log(f"12(c) failure at step {fail_at}, resumed from step {resumed.resumed_from}: final "
+            f"parameters and moments " + ("bitwise equal to the uninterrupted run's" if
+                                          resume_bitwise else
+                                          f"within the repeat gap (RMS {resume_gap:.4g})")
+            + f"; {n_saves} saves: host copy {[round(x, 3) for x in io_s['host_copy']]} s, "
+            f"write {[round(x, 3) for x in io_s['write']]} s; restore "
+            f"{[round(x, 3) for x in io_s['restore']]} s")
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the final checkpoint into the continuous engine, beside an
+        # engine on the in-memory parameters: the same greedy tokens, every
+        # K1 launch on sm90.
+        t0 = time.perf_counter()
+        restored = ckpt.restore(ckpt_dir, steps, {"params": resumed.params}, dev)["params"]
+        sync(torch, dev)
+        params_restore_s = time.perf_counter() - t0
+        trace = poisson_trace(4, seed=12, vocab=tcfg.vocab, prompt_lens=(16, 24, 32),
+                              gen_lens=(8, 16), mean_interarrival=1.0)
+        outputs, serve_launches = [], 0
+        for p in (restored, resumed.params):
+            before = dict(opope_gemm.launches_by_route)
+            report = ContinuousEngine(cfg=tcfg, params=p, n_slots=4, max_len=64).serve(trace)
+            sync(torch, dev)
+            got = {r: opope_gemm.launches_by_route[r] - before[r] for r in before}
+            want = 7 * layers * (report.decode_steps + report.prefill_batches)
+            if got != {"sm90": want, "tile": 0}:
+                raise AssertionError(f"12(d) K1 launches by route {got}, want {want} on sm90")
+            _valid_outputs(report, trace, tcfg.vocab, "12(d)")
+            outputs.append({r.rid: list(report.outputs[r.rid]) for r in trace})
+            serve_launches += want
+        if outputs[0] != outputs[1]:
+            raise AssertionError(f"12(d) restored engine {outputs[0]} != in-memory {outputs[1]}")
+        log(f"12(d) the step-{steps} checkpoint's parameters restored in {params_restore_s:.2f} s; "
+            f"4 greedy requests on the restored and the in-memory parameters: the same "
+            f"{sum(len(v) for v in outputs[0].values())} tokens; K1 {serve_launches} launches, "
+            f"all sm90")
+        k1_routes = {r: opope_gemm.launches_by_route[r] - k1_before[r] for r in k1_before}
+        del restored, resumed
+
+        # (e) the training CLI: 40 steps, then 60 on the same --ckpt-dir.
+        cli_dir = str(tmp / "cli")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_LOG="json")
+        cli = []
+        for n_steps, want_resume in ((40, None), (60, 40)):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch", cfg.name,
+                 "--reduced", "--steps", str(n_steps), "--ckpt-dir", cli_dir, "--ckpt-every",
+                 "20"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"12(e) train CLI --steps {n_steps} exited "
+                                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+            done = [json.loads(line) for line in proc.stdout.splitlines()
+                    if line.startswith("{") and '"event": "done"' in line]
+            # The first run is phase 10(c) as well: its loss must fall.
+            if (len(done) != 1 or done[0]["resumed_from"] != want_resume
+                    or ckpt.latest_step(cli_dir) != n_steps
+                    or not math.isfinite(done[0]["loss_last"])
+                    or (want_resume is None
+                        and not done[0]["loss_last"] < done[0]["loss_first"])):
+                raise AssertionError(f"12(e) train CLI --steps {n_steps}: "
+                                     f"{done or proc.stdout[-2000:]}")
+            # The walls of the steps the loop logged (every steps // 20): how
+            # much of the process's time the steps take, beside its start-up.
+            walls = [float(x) for x in re.findall(r"\[train\] step \d+ .*? (\d+)ms",
+                                                  proc.stdout)]
+            cli.append({"steps": n_steps, "resumed_from": done[0]["resumed_from"],
+                        "loss_first": done[0]["loss_first"], "loss_last": done[0]["loss_last"],
+                        "seconds": time.perf_counter() - t0,
+                        "logged_step_ms_median": statistics.median(walls) if walls else None})
+            log(f"12(e) python -m repro_torch.launch.train --arch {cfg.name} --reduced --steps "
+                f"{n_steps} --ckpt-dir D --ckpt-every 20: resumed from "
+                f"{done[0]['resumed_from']}, loss {done[0]['loss_first']:.4f} -> "
+                f"{done[0]['loss_last']:.4f} in {cli[-1]['seconds']:.1f} s (logged steps: "
+                f"median {cli[-1]['logged_step_ms_median']} ms)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"12(c)-(e) took {phase_s:.1f} s")
+    return {"layers": layers, "params": n_params, "checkpoint_bytes": ckpt_bytes,
+            "disk_free_bytes": usage.free, "steps": steps, "ckpt_every": every,
+            "fail_at_step": fail_at, "repeat_bitwise": repeat_bitwise, "repeat_gap": repeat_gap,
+            "resume_bitwise": resume_bitwise, "resume_gap": resume_gap,
+            "save_host_copy_s": io_s["host_copy"], "save_write_s": io_s["write"],
+            "restore_s": io_s["restore"], "params_restore_s": params_restore_s,
+            "uninterrupted_s": whole_s, "k1_launches_by_route": k1_routes,
+            "serve_tokens_equal": True, "cli": cli, "seconds": phase_s}
 
 
 def decode_profile(torch, step, step_ms, n_steps: int = 4, tag: str = "(d)",
@@ -3233,6 +3712,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe_train = moe_train_phase(torch, np, mcfg, ops, ep, k4mod, dev)
+    # Phase 12: q8 training (K2, K5 forward; K1, K4 backward), then
+    # checkpoints, resume and serving from a checkpoint.
+    gc.collect()
+    torch.cuda.empty_cache()
+    q8_train = q8_train_phase(torch, cfg, mcfg, ops, ep, q8mod, k4mod, qz, q8b, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_record = checkpoint_phase(torch, cfg, dev)
+    train_record["cli"] = ckpt_record["cli"][0]  # 10(c): 12(e)'s first run
     # One MoE layer's 3 grouped GEMMs of a 4-slot decode step (capacity 1).
     g_decode = [r for r in g_rows if r["m"] == 1]
     g_sums = {key: sum(r[key] for r in g_decode)
@@ -3257,6 +3745,14 @@ def main() -> int:
     k1_paths[f"{cfg.name} train ({TRAIN_LAYERS} layers)"] = train_record["launches"]
     k1_moe_train = moe_train["k1_launches_by_route"]
     k1_paths[f"{mcfg.name} train ({MOE_TRAIN_LAYERS} layers)"] = sum(k1_moe_train.values())
+    # Phase 12's paths: each kernel's launches by route, held exact there.
+    q8_paths = {f"{cfg.name} q8 train ({TRAIN_LAYERS} layers)": q8_train["dense"],
+                f"{mcfg.name} q8 train ({Q8_MOE_TRAIN_LAYERS} layers)": q8_train["moe"]}
+    p12_k1 = {path: r["launches_by_route"]["K1"] for path, r in q8_paths.items()}
+    p12_k1[f"{cfg.name} checkpoint, resume and serve ({CKPT_LAYERS} layers)"] = \
+        ckpt_record["k1_launches_by_route"]
+    for path, routes in p12_k1.items():
+        k1_paths[path] = sum(routes.values())
     record = {
         "name": "opope_gemm",
         "route": "cuda",
@@ -3267,11 +3763,13 @@ def main() -> int:
         # check_routes held every serving path's launches to the sm90 route;
         # phases 10(d) and 11(b) held training's to their exact split (the
         # fp32 backward GEMMs on the tile route).
-        "launches_by_route": {"sm90": serve_launches + train_record["launches_by_route"]["sm90"]
-                              + k1_moe_train["sm90"],
-                              "tile": train_record["launches_by_route"]["tile"]
-                              + k1_moe_train["tile"]},
+        "launches_by_route": {r: (serve_launches if r == "sm90" else 0)
+                              + train_record["launches_by_route"][r] + k1_moe_train[r]
+                              + sum(x[r] for x in p12_k1.values()) for r in ("sm90", "tile")},
         "training": train_record,
+        "q8_training_backward": {path: r["launches_by_route"]["K1"]
+                                 for path, r in q8_paths.items()},
+        "checkpoint": ckpt_record,
         "max_abs_err": max_err,
         "ms": sums["ms"],
         "tile_ms": sums["tile_ms"],
@@ -3297,18 +3795,23 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/opope_grouped.cu",
         "replaces": "src/repro/kernels/opope_grouped.py:228",
-        "launches": mres["launches"]["k4"] + moe_train["launches"],
+        "launches": mres["launches"]["k4"] + moe_train["launches"]
+                    + sum(q8_train["moe"]["launches_by_route"]["K4"].values()),
         "launches_by_path": {mcfg.name: mres["launches"]["k4"],
                              f"{mcfg.name} q8": ds_q8["launches"]["K4"],
                              f"{mcfg.name} train ({MOE_TRAIN_LAYERS} layers)":
-                                 moe_train["launches"]},
+                                 moe_train["launches"],
+                             f"{mcfg.name} q8 train ({Q8_MOE_TRAIN_LAYERS} layers)":
+                                 sum(q8_train["moe"]["launches_by_route"]["K4"].values())},
         # check_routes held both bf16 serving paths' launches to the sm90
-        # route; phase 11(b) held training's to its exact split (the fp32
-        # backward GEMMs on the tile route).
-        "launches_by_route": {"sm90": mres["launches"]["k4"]
-                              + moe_train["launches_by_route"]["sm90"],
-                              "tile": moe_train["launches_by_route"]["tile"]},
+        # route; phases 11(b) and 12(b) held training's to their exact split
+        # (the fp32 backward GEMMs on the tile route).
+        "launches_by_route": {r: (mres["launches"]["k4"] if r == "sm90" else 0)
+                              + moe_train["launches_by_route"][r]
+                              + q8_train["moe"]["launches_by_route"]["K4"][r]
+                              for r in ("sm90", "tile")},
         "training": moe_train,
+        "q8_training_backward": q8_train["moe"]["launches_by_route"]["K4"],
         "coverage_launches_by_route": g_cov,
         "max_abs_err": g_err,
         "ms": g_sums["ms"],
@@ -3336,12 +3839,16 @@ def main() -> int:
     for name, src_line, sel, paths, work, lib in (
             ("opope_gemm_q8", 243, lambda r: r["path"] == "chatglm3-6b mlp" and r["m"] == 4,
              {f"{cfg.name} q8": glm_q8["launches"]["K2"],
-              f"{mcfg.name} q8": ds_q8["launches"]["K2"]},
+              f"{mcfg.name} q8": ds_q8["launches"]["K2"],
+              **{path: sum(r["launches_by_route"]["K2"].values())
+                 for path, r in q8_paths.items()}},
              "the 3 MLP GEMMs of one chatglm3-6b layer in a 4-slot decode step",
              "torch._int_mm (M padded to 32 where M <= 16) plus the dequant multiply"),
             ("opope_gemm_q8_grouped", 451,
              lambda r: r["path"] == "deepseek-moe-16b experts" and r["m"] == 1,
-             {f"{mcfg.name} q8": ds_q8["launches"]["K5"]},
+             {f"{mcfg.name} q8": ds_q8["launches"]["K5"],
+              f"{mcfg.name} q8 train ({Q8_MOE_TRAIN_LAYERS} layers)":
+                  sum(q8_train["moe"]["launches_by_route"]["K5"].values())},
              "the 3 grouped expert GEMMs (64 experts) of one deepseek-moe-16b layer in a "
              "4-slot decode step",
              "none: no single PyTorch call computes a grouped int8 GEMM")):
@@ -3390,8 +3897,13 @@ def main() -> int:
             f"({layers[m]['library_event_ms']:.4f} by CUDA events), bound "
             f"{layers[m]['bound_ms']:.4f} ms ({layers[m]['bound_by']})")
     q8_records[0].update(
-        # check_routes held every path's launches to the sm90 route.
+        # check_routes held every serving path's launches to the sm90
+        # route, phase 12 every training path's.
         launches_by_route={"sm90": sum(k2_paths.values()), "tile": 0},
+        training={"dense": q8_train["dense"], "moe": q8_train["moe"],
+                  "mlp_gemms": q8_train["k2_mlp_gemms"], "mlp_layer": q8_train["k2_mlp_layer"],
+                  "timing": "ms and library_ms: device time (queued_ms); plain_ms: CUDA "
+                            "events around the loop"},
         tile_ms=layers[4]["tile_ms"], event_ms=layers[4]["event_ms"],
         library_event_ms=layers[4]["library_event_ms"],
         prefill_layer=dict(layers[512], m=512),
@@ -3415,8 +3927,10 @@ def main() -> int:
             f"{k5_layers[m]['bound_ms'] / k5_layers[m]['ms']:.1%} of the kernel's time)")
     k5_paths = q8_records[1]["launches_by_path"]
     q8_records[1].update(
-        # check_routes held the path's launches to the sm90 route.
+        # check_routes held the serving path's launches to the sm90 route,
+        # phase 12(b) the training path's.
         launches_by_route={"sm90": sum(k5_paths.values()), "tile": 0},
+        training=q8_train["moe"],
         coverage_launches_by_route=k5_cov,
         tile_ms=k5_layers[1]["tile_ms"], event_ms=k5_layers[1]["event_ms"],
         k4_sm90_ms=k5_layers[1]["k4_sm90_ms"],

@@ -12,11 +12,16 @@ port's layout (parameters, gradients, optimizer moments): every leaf to
 numpy and the per-layer dicts restacked over periods, so that two trees can
 be compared leaf by leaf. Numpy has no bf16 of its own, so bf16 leaves come
 back widened to fp32, which is exact.
+
+``stack_blocks`` and ``unstack_blocks`` hold that mapping between the port's
+per-layer ``blocks`` list and the reference's per-pattern-position stacks,
+with the leaf conversion left to the caller (:mod:`repro_torch.checkpoint`
+keeps bf16 bits where this module widens them).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
@@ -25,7 +30,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.transformer import check_supported
 from repro_torch.tree import map_leaves
 
-__all__ = ["tensor_from_numpy", "params_from_numpy", "params_to_numpy"]
+__all__ = ["tensor_from_numpy", "params_from_numpy", "params_to_numpy", "stack_blocks",
+           "unstack_blocks"]
 
 
 def tensor_from_numpy(x, device) -> torch.Tensor:
@@ -42,14 +48,9 @@ def params_from_numpy(cfg: ArchConfig, tree: Dict[str, Any], device) -> Dict[str
     device = torch.device(device)
     out = {k: map_leaves(lambda x: tensor_from_numpy(x, device), v)
            for k, v in tree.items() if k != "blocks"}
-    stacks = tree["blocks"]  # one stacked dict per pattern position
-    blocks: List[Dict[str, Any]] = []
-    for period in range(cfg.n_periods):
-        for pos in range(len(cfg.pattern)):
-            blocks.append(
-                map_leaves(lambda x: tensor_from_numpy(np.asarray(x)[period], device), stacks[pos])
-            )
-    out["blocks"] = blocks
+    out["blocks"] = unstack_blocks(
+        tree["blocks"], cfg.n_periods,
+        lambda x, period: tensor_from_numpy(np.asarray(x)[period], device))
     return out
 
 
@@ -63,17 +64,30 @@ def params_to_numpy(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:
     inverse of :func:`params_from_numpy` (bf16 leaves widened to fp32)."""
     check_supported(cfg)
     out = {k: map_leaves(_to_numpy, v) for k, v in params.items() if k != "blocks"}
-    blocks, period = params["blocks"], len(cfg.pattern)
-    out["blocks"] = tuple(  # one stack per pattern position, as the reference's
-        _stack([blocks[i * period + pos] for i in range(cfg.n_periods)])
-        for pos in range(period)
-    )
+    out["blocks"] = stack_blocks(params["blocks"], len(cfg.pattern),
+                                 lambda xs: np.stack([_to_numpy(t) for t in xs]))
     return out
 
 
-def _stack(trees: List[Any]) -> Any:
-    """Leaf-wise ``np.stack`` of same-structured trees."""
+def stack_blocks(blocks: List[Any], period: int, stack: Callable[[List[Any]], Any]) -> tuple:
+    """The port's per-layer ``blocks`` as the reference's tuple of stacks,
+    one per pattern position (``period`` of them), each leaf
+    ``stack(its per-period leaves)``."""
+    n_periods = len(blocks) // period
+    return tuple(_stack([blocks[i * period + pos] for i in range(n_periods)], stack)
+                 for pos in range(period))
+
+
+def unstack_blocks(stacks: tuple, n_periods: int, take: Callable[[Any, int], Any]) -> List[Any]:
+    """The inverse of :func:`stack_blocks`: one dict per layer, each leaf
+    ``take(stacked_leaf, period)``."""
+    return [map_leaves(lambda x: take(x, period), stacks[pos])
+            for period in range(n_periods) for pos in range(len(stacks))]
+
+
+def _stack(trees: List[Any], stack: Callable[[List[Any]], Any]) -> Any:
+    """Leaf-wise ``stack`` of same-structured trees."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return np.stack([_to_numpy(t) for t in trees])
+        return {k: _stack([t[k] for t in trees], stack) for k in first}
+    return stack(trees)

@@ -43,8 +43,12 @@ reference's four grouped rules. Their backward GEMMs run on the backend's
 are K1 and K4 launches too, and they count neither into ``calls`` nor into
 ``gemm.calls`` (the reference's backward calls its backends directly as
 well). When no input requires grad, the backend is called as it always
-was. The q8 family and pre-quantized activations have no backward in the
-port yet: under autograd they raise ``NotImplementedError`` (ROADMAP A.6b).
+was. A q8-family forward trains the same way: its product runs on the
+int8 kernels (K2, K5 on the card), its backward GEMMs and an epilogue'd
+product's fp32 accumulator recompute on its full-precision
+``grad_backend`` (K1, K4), as the reference's rules put them. A
+pre-quantized activation is a serving-only lane (the reference's has no
+vjp): under autograd it raises ``NotImplementedError``.
 
 Telemetry (:mod:`repro_torch.obs`, host-side only): every entry-point call
 counts into ``gemm.calls`` (labels ``backend``, ``family``, ``shape``
@@ -56,7 +60,8 @@ writeback). Inside an engine's quiet step scope (a step key's later
 dispatches) the call pays none of this; see :mod:`repro_torch.obs.attr`.
 ``REPRO_AUDIT=N`` re-executes one in N direct q8-family calls on the
 backend's ``grad_backend`` (:mod:`repro_torch.obs.audit`); calls inside an
-engine step are never audited.
+engine step, and calls that run under autograd (the reference's traced
+calls under ``jax.grad``), are never audited.
 """
 
 from __future__ import annotations
@@ -218,10 +223,11 @@ def _needs_grad(*tensors) -> bool:
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
-def _no_backward(what: str) -> NotImplementedError:
+def _serving_only(name: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} has no backward in the port yet (ROADMAP A.6b); call it under "
-        f"torch.no_grad() or on inputs that do not require grad"
+        f"a pre-quantized activation ({name!r}) is a serving-only lane with no "
+        f"backward, as the reference's; call it under torch.no_grad() or on "
+        f"inputs that do not require grad"
     )
 
 
@@ -444,18 +450,18 @@ def matmul(
     be.calls += 1
     b2 = b.contiguous()
     if _needs_grad(a2, getattr(a, "scale", None), b2, c, *ep_ops):
-        if pre_q or be.family != "fp":
-            raise _no_backward(
-                f"a {'pre-quantized activation' if pre_q else be.family + '-family backend'} "
-                f"({name!r})")
+        if pre_q:
+            raise _serving_only(name)
+        # Not audited: the reference never audits a call under jax.grad.
         out = _Matmul.apply(name, out_dtype, steps, a2, b2, c, *ep_ops)
     else:
         out = _run(be, a2, b2, c, out_dtype, steps, ep_ops)
-    if not pre_q:  # a pre-quantized A has no fp twin to audit against
-        _maybe_audit_gemm(
-            "dense", name, out,
-            lambda: _run(_REGISTRY[grad_backend_of(name)], a2, b2, c, out_dtype, steps, ep_ops),
-            m, a2.shape[1], n)
+        if not pre_q:  # a pre-quantized A has no fp twin to audit against
+            _maybe_audit_gemm(
+                "dense", name, out,
+                lambda: _run(_REGISTRY[grad_backend_of(name)], a2, b2, c, out_dtype, steps,
+                             ep_ops),
+                m, a2.shape[1], n)
     return out if len(batch_shape) == 1 else out.reshape(*batch_shape, n)
 
 
@@ -492,7 +498,8 @@ def grouped_matmul(
     step (``bias`` for a row, ``residual`` for a full operand). Backends
     resolve as in :func:`matmul`; a q8-family backend quantizes per group
     (A per (group, row), B per (group, column)). Under autograd the call
-    runs through :class:`_GroupedMatmul` (fp family only).
+    runs through :class:`_GroupedMatmul`, whose backward runs on the
+    backend's ``grad_backend``, and is not audited.
     """
     if a.ndim != 3 or b.ndim != 3:
         raise ValueError(
@@ -517,11 +524,8 @@ def grouped_matmul(
     be.grouped_calls += 1
     a2, b2, c2 = a.contiguous(), b.contiguous(), None if c is None else c.contiguous()
     if _needs_grad(a2, b2, c2, *ep_ops):
-        if be.family != "fp":
-            raise _no_backward(f"grouped_matmul on a {be.family}-family backend ({name!r})")
-        out = _GroupedMatmul.apply(name, out_dtype, steps, a2, b2, c2, *ep_ops)
-    else:
-        out = _run(be, a2, b2, c2, out_dtype, steps, ep_ops, grouped=True)
+        return _GroupedMatmul.apply(name, out_dtype, steps, a2, b2, c2, *ep_ops)
+    out = _run(be, a2, b2, c2, out_dtype, steps, ep_ops, grouped=True)
     _maybe_audit_gemm(
         "grouped", name, out,
         lambda: _run(_REGISTRY[grad_backend_of(name)], a2, b2, c2, out_dtype, steps, ep_ops,

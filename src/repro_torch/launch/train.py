@@ -6,7 +6,9 @@ stream, with the reference's flags and schedule (warmup ``max(10,
 steps // 20)``, a log line every ``steps // 20`` steps). Runs on
 ``--device cuda`` (default) or ``cpu``; ``--reduced`` trains the tiny
 same-family config. Parameters are random, drawn from ``--seed``.
-``--ckpt-dir`` raises: checkpoints are not ported yet (ROADMAP A.6b).
+``--ckpt-dir D`` checkpoints every ``--ckpt-every`` steps and at the end
+(:mod:`repro_torch.checkpoint`, the reference's file format) and resumes
+from the newest complete checkpoint in ``D``.
 Progress goes through the structured logger (``REPRO_LOG=text|json``).
 """
 
@@ -33,7 +35,8 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
-    ap.add_argument("--ckpt-dir", default=None, help="not ported yet: raises")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint here, and resume from its newest step")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -65,8 +68,9 @@ def main(argv=None) -> TrainResult:
         log=log.raw,
     )
     log.info(
-        "done", loss_first=res.losses[0], loss_last=res.losses[-1],
-        stragglers=res.straggler_steps,
+        "done", loss_first=res.losses[0] if res.losses else None,
+        loss_last=res.losses[-1] if res.losses else None,
+        stragglers=res.straggler_steps, resumed_from=res.resumed_from,
     )
     return res
 

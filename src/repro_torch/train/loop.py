@@ -1,5 +1,6 @@
 """Training loop: the train step (loss, gradients, AdamW) and the loop
-around it with its straggler watchdog and step telemetry.
+around it with checkpoints, resume, its straggler watchdog and step
+telemetry.
 
 The port of :mod:`repro.train.loop` for the dense and MoE decoders. The
 step runs eagerly: the reference's ``jit=`` and ``donate=`` have no
@@ -7,11 +8,21 @@ counterpart here (:func:`repro_torch.optim.apply_updates` updates in place,
 which is what donation buys the reference). Gradients come from autograd
 through :class:`repro_torch.kernels.ops._Matmul` and ``_GroupedMatmul``, so
 on the card every GEMM of the forward and the backward is a K1 launch, and
-every expert GEMM a K4 launch.
+every expert GEMM a K4 launch. Under a q8-family ``policy`` the quantized
+roles' forward GEMMs (and their remat recompute) are K2 and K5 launches,
+their backward GEMMs K1 and K4 on the full-precision ``grad_backend``.
 
-Not ported yet, and refused with ``NotImplementedError`` (ROADMAP A.6b):
-checkpoints and resume (``ckpt_dir``) and training under a q8-family
-``policy``.
+With ``ckpt_dir`` the loop resumes from the newest complete checkpoint
+(:mod:`repro_torch.checkpoint`, the reference's file format), restored in
+place into the parameters and moments, and saves every ``ckpt_every``
+steps and at the end through the async writer; a failure flushes the
+writer without masking the failure.
+
+Refused with ``NotImplementedError``: a policy whose ``requant`` names a
+role on a q8-family backend. That lane feeds the next GEMM an int8
+activation, which carries no gradient: the reference's gradients through
+it are exactly zero for the role's weights and the norm before them, and
+the port does not reproduce a silent zero gradient.
 
 Telemetry: each step observes ``train.step_seconds``, sets
 ``train.tokens_per_sec`` and emits a ``train_step`` event with the
@@ -30,25 +41,23 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch import obs as _obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import roofline as _roofline
 from repro_torch.kernels import ops
 from repro_torch.models import api as model_api
 from repro_torch.optim.adamw import AdamWConfig, OptState, apply_updates, init_opt_state
-from repro_torch.quant.policy import ROLES
 from repro_torch.tree import leaves, map_leaves
 
 __all__ = ["TrainLoopConfig", "make_train_step", "train", "TrainResult"]
-
-_A6B = "ROADMAP A.6b"
 
 
 @dataclasses.dataclass
 class TrainLoopConfig:
     total_steps: int = 100
     ckpt_every: int = 50
-    ckpt_dir: Optional[str] = None  # checkpoints are not ported: set, it raises
+    ckpt_dir: Optional[str] = None
     log_every: int = 10
     watchdog_factor: float = 3.0
     fail_at_step: Optional[int] = None  # fault-injection hook (tests)
@@ -60,17 +69,23 @@ class TrainResult:
     resumed_from: Optional[int]
     straggler_steps: int
     final_step: int
+    # The final state (the reference's jitted loop keeps it to itself): the
+    # caller's parameter tensors, updated in place, and the moments.
+    params: Any = None
+    opt_state: Optional[OptState] = None
 
 
 def _check_trainable(policy) -> None:
-    """Refuse what has no backward in the port yet: a policy that puts any
-    role on a q8-family backend."""
-    names = ({policy.backend_for(r) for r in ROLES} if hasattr(policy, "backend_for")
-             else {policy})
-    for name in names - {None, "auto"}:
-        if name == "q8" or ops.family_of(name) != "fp":
+    """Refuse a policy whose ``requant`` names a role on a q8-family
+    backend: its int8 hidden activation stops the gradient."""
+    for role in getattr(policy, "requant", None) or {}:
+        name = policy.backend_for(role)
+        if name == "q8" or (name not in (None, "auto") and ops.family_of(name) != "fp"):
             raise NotImplementedError(
-                f"training under a q8-family policy ({name!r}) is not ported ({_A6B})")
+                f"policy {getattr(policy, 'name', policy)!r} requantizes role {role!r} on "
+                f"the q8-family backend {name!r}: that int8 activation carries no gradient "
+                f"(the reference's gradients of the role's weights are exactly zero there); "
+                f"train without requant")
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, policy=None) -> Callable:
@@ -79,8 +94,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, policy=None) -> Ca
     With ``cfg.grad_accum > 1`` the batch's leading dim is split into that
     many microbatches, run one after another, their gradients summed in
     fp32 and divided by the count, as are their losses. ``policy`` is a
-    backend name (or an fp-family precision policy) for the forward GEMMs;
-    the backward runs on each backend's ``grad_backend``. Parameters and
+    backend name or a precision policy for the forward GEMMs, of either
+    family (a requant policy on a q8-family role raises); the backward runs
+    on each backend's ``grad_backend``. Parameters and
     moments are updated in place, the block leaves seen by AdamW as the
     reference's stacks (:func:`_stacked`)."""
     _check_trainable(policy)
@@ -157,17 +173,31 @@ def train(
     log: Callable[[str], None] = print,
     policy=None,
 ) -> TrainResult:
-    """Run training from step 0. ``batch_fn(step)`` must be deterministic and
-    give tensors on the parameters' device. Parameters are ``params`` or
-    :func:`repro_torch.models.api.init_params` on ``device`` (default
-    ``cuda``) from ``generator`` (seed 0 when omitted)."""
-    if loop.ckpt_dir:
-        raise NotImplementedError(f"checkpoints and resume are not ported ({_A6B})")
+    """Run (or resume) training. ``batch_fn(step)`` must be deterministic
+    and give tensors on the parameters' device. Parameters are ``params``
+    (updated in place) or :func:`repro_torch.models.api.init_params` on
+    ``device`` (default ``cuda``) from ``generator`` (seed 0 when omitted).
+    With ``loop.ckpt_dir`` a complete checkpoint there is restored into
+    them and training resumes at its step; the final state comes back in
+    the result."""
     if params is None:
         params = model_api.init_params(cfg, generator, device)
     device = next(leaves(params)).device
     opt_cfg = dataclasses.replace(opt_cfg, moment_dtype=cfg.moment_dtype)
     opt_state = init_opt_state(params, opt_cfg)
+
+    start = 0
+    resumed_from = saved = None
+    writer = None
+    if loop.ckpt_dir:
+        writer = ckpt.AsyncCheckpointer(loop.ckpt_dir, period=len(cfg.pattern))
+        last = ckpt.latest_step(loop.ckpt_dir)
+        if last is not None:
+            live = {"params": params, "opt": opt_state}
+            _copy_into(live, ckpt.restore(loop.ckpt_dir, last, like=live, device="cpu",
+                                             period=len(cfg.pattern)))
+            start = resumed_from = saved = last
+            log(f"[train] resumed from step {last}")
 
     step_fn = make_train_step(cfg, opt_cfg, policy=policy)
     wd = _Watchdog(loop.watchdog_factor)
@@ -175,47 +205,81 @@ def train(
     # The 6*N*D train-FLOP estimate's N, so each step event carries its
     # achieved GFLOP/s and its fraction of the card's peak.
     n_params = sum(int(x.numel()) for x in leaves(params))
-    for step in range(loop.total_steps):
-        if loop.fail_at_step is not None and step == loop.fail_at_step:
-            raise RuntimeError(f"injected failure at step {step}")
-        t0 = time.perf_counter()
-        batch = batch_fn(step)
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
-        loss = float(metrics["loss"])  # waits for the device
-        losses.append(loss)
-        dt = time.perf_counter() - t0
-        if _obs.enabled():
-            tok_arr = batch.get("tokens", next(iter(batch.values())))
-            tokens = int(tok_arr.numel())
-            flops = _roofline.model_flops(n_params, tokens, kind="train")
-            tok_s = tokens / dt if dt else 0.0
-            gflops = flops / dt / 1e9 if dt else 0.0
-            _obs.histogram("train.step_seconds").observe(dt)
-            _obs.gauge("train.tokens_per_sec").set(tok_s)
-            _obs.event(
-                "train_step",
-                step=step,
-                loss=loss,
-                wall_s=dt,
-                tokens=tokens,
-                tokens_per_sec=tok_s,
-                gflops_per_sec=gflops,
-                roofline_frac=flops / dt / _roofline.spec_for_device(device).peak_flops
-                if dt else 0.0,
-            )
-        if wd.observe(dt):
-            log(f"[train] straggler: step {step} took {dt:.3f}s")
-            _obs.counter("train.stragglers").inc()
-            _obs.event("straggler", step=step, wall_s=dt)
-        if loop.log_every and step % loop.log_every == 0:
-            log(
-                f"[train] step {step} loss {loss:.4f} "
-                f"lr {float(metrics['lr']):.2e} gnorm {float(metrics['grad_norm']):.3f} "
-                f"{dt*1e3:.0f}ms"
-            )
+    try:
+        for step in range(start, loop.total_steps):
+            if loop.fail_at_step is not None and step == loop.fail_at_step:
+                raise RuntimeError(f"injected failure at step {step}")
+            t0 = time.perf_counter()
+            batch = batch_fn(step)
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            loss = float(metrics["loss"])  # waits for the device
+            losses.append(loss)
+            dt = time.perf_counter() - t0
+            if _obs.enabled():
+                tok_arr = batch.get("tokens", next(iter(batch.values())))
+                tokens = int(tok_arr.numel())
+                flops = _roofline.model_flops(n_params, tokens, kind="train")
+                tok_s = tokens / dt if dt else 0.0
+                gflops = flops / dt / 1e9 if dt else 0.0
+                _obs.histogram("train.step_seconds").observe(dt)
+                _obs.gauge("train.tokens_per_sec").set(tok_s)
+                _obs.event(
+                    "train_step",
+                    step=step,
+                    loss=loss,
+                    wall_s=dt,
+                    tokens=tokens,
+                    tokens_per_sec=tok_s,
+                    gflops_per_sec=gflops,
+                    roofline_frac=flops / dt / _roofline.spec_for_device(device).peak_flops
+                    if dt else 0.0,
+                )
+            if wd.observe(dt):
+                log(f"[train] straggler: step {step} took {dt:.3f}s")
+                _obs.counter("train.stragglers").inc()
+                _obs.event("straggler", step=step, wall_s=dt)
+            if loop.log_every and step % loop.log_every == 0:
+                log(
+                    f"[train] step {step} loss {loss:.4f} "
+                    f"lr {float(metrics['lr']):.2e} gnorm {float(metrics['grad_norm']):.3f} "
+                    f"{dt*1e3:.0f}ms"
+                )
+            if writer and (step + 1) % loop.ckpt_every == 0:
+                writer.save(step + 1, {"params": params, "opt": opt_state})
+                saved = step + 1
+        # The reference saves at the end even where the last interval just
+        # did; the same state is not written twice here.
+        if writer and saved != loop.total_steps:
+            writer.save(loop.total_steps, {"params": params, "opt": opt_state})
+        if writer:
+            writer.wait()
+    finally:
+        # A failing step must not also lose the checkpoint already in
+        # flight: join the writer, so every save issued before the failure
+        # is committed.
+        if writer:
+            try:
+                writer.wait()
+            except Exception as flush_err:  # don't mask the original failure
+                log(f"[train] checkpoint flush failed: {flush_err}")
     return TrainResult(
         losses=losses,
-        resumed_from=None,
+        resumed_from=resumed_from,
         straggler_steps=wd.flagged,
         final_step=loop.total_steps,
+        params=params,
+        opt_state=opt_state,
     )
+
+
+def _copy_into(live: Any, restored: Any) -> None:
+    """Write a restored tree into the live tensors of the same structure,
+    so the device holds one copy of the state; a dtype the live tensor does
+    not have (another configuration's checkpoint) raises."""
+    pairs = list(zip(leaves(live), leaves(restored)))
+    for dst, src in pairs:
+        if dst.dtype != src.dtype:
+            raise ValueError(f"checkpoint leaf of dtype {src.dtype} for a {dst.dtype} tensor")
+    with torch.no_grad():
+        for dst, src in pairs:
+            dst.copy_(src)

@@ -18,7 +18,9 @@ against the JAX reference's ``custom_vjp`` rules, on the CPU.
   every C form and every epilogue op against ``jax.vjp`` of
   ``repro.kernels.ops.grouped_matmul`` on ``xla`` and ``pallas_interpret``,
   the backward's GEMMs on the grouped member.
-* What has no backward yet (the q8 family) raises.
+* A q8-family forward (``torch_q8``) has the ``torch`` backend's gradients,
+  bit for bit, dense and grouped; it is never audited under autograd; a
+  pre-quantized activation under autograd raises (serving-only).
 
 Tolerance, unless a test says otherwise: fp32 operands, ``1e-4 *
 max(1, max|want|)`` (only the order of fp32 sums differs).
@@ -389,28 +391,105 @@ def test_moe_remat_full_relaunches_the_expert_gemms():
     assert counts == {"full": (2 * 3 * 2, 2 * 8 * 2), "none": (3 * 2, 8 * 2)}
 
 
-# --- what has no backward yet raises -------------------------------------------
+# --- q8 forwards train on their full-precision grad backend ---------------------
+
+Q8_FORMS = ["none", "bias", "full", "chain"]
 
 
-def test_q8_and_pre_quantized_matmul_under_grad_raise():
+def _q8_case(rng, form, groups=None):
+    """Inputs (requiring grad), ``c`` and an epilogue for a q8-vs-fp
+    gradient case; ``groups`` makes them grouped."""
+    lead = () if groups is None else (groups,)
+    a, b = _t(_rand(rng, *lead, M, K)), _t(_rand(rng, *lead, K, N))
+    c, spec, extra = None, None, []
+    if form == "bias":
+        c = _t(_rand(rng, *lead, N))
+    elif form == "full":
+        c = _t(_rand(rng, *lead, M, N))
+    elif form == "chain":
+        row, full = _t(_rand(rng, *lead, N)), _t(_rand(rng, *lead, M, N))
+        spec, extra = [("bias", row), "silu", ("mul", full)], [row, full]
+    return a, b, c, spec, [a, b] + ([c] if c is not None else []) + extra
+
+
+@pytest.mark.parametrize("form", Q8_FORMS)
+def test_q8_matmul_gradients_equal_the_fp_ones_bitwise(form):
+    """The port's twin of the reference's ``test_q8_gradients_run_full_precision``:
+    a ``torch_q8`` forward's output is the int8 product (as under
+    ``no_grad``), and its gradients are the ``torch`` backend's, bit for bit
+    (the same rules on the same saved inputs, on the grad backend)."""
     rng = np.random.default_rng(30)
-    a, b = _t(_rand(rng, M, K)), _t(_rand(rng, K, N))
-    with pytest.raises(NotImplementedError, match="A.6b"):
-        tops.matmul(a, b, backend="q8")
+    a, b, c, spec, inputs = _q8_case(rng, form)
+    g = torch.from_numpy(_rand(rng, M, N))
+    tops.reset_counts()
+    out_q = tops.matmul(a, b, c, backend="torch_q8", epilogue=spec)
+    assert isinstance(_find_fn(out_q), tops._Matmul._backward_cls)
+    assert tops.backend("torch_q8").calls == 1
+    with torch.no_grad():
+        assert torch.equal(out_q, tops.matmul(a, b, c, backend="torch_q8", epilogue=spec))
+        assert not torch.equal(out_q, tops.matmul(a, b, c, backend="torch", epilogue=spec))
+    got = torch.autograd.grad(out_q, inputs, g)
+    want = torch.autograd.grad(tops.matmul(a, b, c, backend="torch", epilogue=spec), inputs, g)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("form", Q8_FORMS)
+def test_q8_grouped_matmul_gradients_equal_the_fp_ones_bitwise(form):
+    rng = np.random.default_rng(31)
+    a, b, c, spec, inputs = _q8_case(rng, form, groups=3)
+    g = torch.from_numpy(_rand(rng, 3, M, N))
+    out_q = tops.grouped_matmul(a, b, c, backend="torch_q8", epilogue=spec)
+    assert isinstance(out_q.grad_fn, tops._GroupedMatmul._backward_cls)
+    with torch.no_grad():
+        assert torch.equal(out_q, tops.grouped_matmul(a, b, c, backend="torch_q8",
+                                                      epilogue=spec))
+        assert not torch.equal(out_q, tops.grouped_matmul(a, b, c, backend="torch",
+                                                          epilogue=spec))
+    got = torch.autograd.grad(out_q, inputs, g)
+    want = torch.autograd.grad(tops.grouped_matmul(a, b, c, backend="torch", epilogue=spec),
+                               inputs, g)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_pre_quantized_matmul_under_grad_raises():
+    """The pre-quantized lane is serving-only, as the reference's (no vjp)."""
+    rng = np.random.default_rng(32)
+    b = _t(_rand(rng, K, N))
     q = QuantizedTensor(torch.ones((M, K), dtype=torch.int8), torch.tensor(0.5))
-    with pytest.raises(NotImplementedError, match="A.6b"):
+    with pytest.raises(NotImplementedError, match="serving-only"):
         tops.matmul(q, b, backend="q8")
     with torch.no_grad():  # serving: unchanged
-        assert tops.matmul(a, b, backend="q8").shape == (M, N)
+        assert tops.matmul(q, b, backend="q8").shape == (M, N)
 
 
-def test_q8_grouped_matmul_under_grad_raises():
-    rng = np.random.default_rng(31)
-    a, b = _t(_rand(rng, 3, M, K)), _t(_rand(rng, 3, K, N))
-    with pytest.raises(NotImplementedError, match="A.6b"):
-        tops.grouped_matmul(a, b, backend="q8")
-    with torch.no_grad():
-        assert tops.grouped_matmul(a, b, backend="q8").shape == (3, M, N)
+def test_no_q8_call_under_grad_is_audited(monkeypatch):
+    """``REPRO_AUDIT=1`` audits a direct q8 call, and none that runs under
+    autograd (the reference's calls under ``jax.grad`` are tracers)."""
+    from repro_torch import obs as tobs
+    from repro_torch.obs import audit as t_audit
+
+    monkeypatch.setenv("REPRO_AUDIT", "1")
+    tobs.reset()
+    t_audit.set_audit_every(None)
+    try:
+        rng = np.random.default_rng(33)
+        a, b = _t(_rand(rng, M, K)), _t(_rand(rng, K, N))
+        ga, gb = _t(_rand(rng, 2, M, K)), _t(_rand(rng, 2, K, N))
+        out = tops.matmul(a, b, backend="q8", epilogue="silu")
+        gout = tops.grouped_matmul(ga, gb, backend="q8")
+        torch.autograd.grad((out.sum(), gout.sum()), [a, b, ga, gb])
+        assert "numerics.audits" not in tobs.snapshot()["counters"]
+        with torch.no_grad():
+            tops.matmul(a, b, backend="q8")
+            tops.grouped_matmul(ga, gb, backend="q8")
+        assert tobs.snapshot()["counters"]["numerics.audits"] == {
+            "backend=torch_q8,family=q8,shape=dense": 1.0,
+            "backend=torch_q8,family=q8,shape=grouped": 1.0}
+    finally:
+        tobs.reset()
+        t_audit.set_audit_every(None)
 
 
 # --- the grouped GEMM's vjp ----------------------------------------------------

@@ -7,9 +7,10 @@ JAX registry's member of the same numerics family (``xla`` for ``fp``,
 ``xla_q8`` for ``q8``) on the same numpy inputs:
 
 * the reference contract, the single final cast and the bias in the backend;
-* the vjp of every fp member (through ``ops._Matmul``), and the q8 members'
-  full-precision ``grad_backend``, while they still refuse under grad
-  (ROADMAP A.6b);
+* the vjp of every member (through ``ops._Matmul``): the q8 members
+  backpropagate on their full-precision ``grad_backend``, bit for bit its
+  gradients, as the reference's; a pre-quantized activation under grad
+  raises (serving-only);
 * grouped equals stacked, with a bias and with every epilogue op, and the
   grouped gradients (through ``ops._GroupedMatmul``);
 * every epilogue op on both lanes, fused (the chain at the backend's
@@ -53,6 +54,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.opope_gemm import _epilogue_struct
 from repro_torch.kernels.opope_grouped import opope_gemm_grouped_plain
 from repro_torch.quant import backends as q8b
+from repro_torch.quant.quantize import QuantizedTensor
 
 jops._load_plugin_backends()
 ALL_BACKENDS = sorted(ops.registered_backends())
@@ -161,12 +163,9 @@ def test_bias_rides_the_backend(name):
 @_over_backends
 def test_vjp_of_every_fp_member(name):
     """sum() makes the cotangent all-ones, so every member's backward sees
-    the same cotangent; fp32 sums on both sides, reassociation noise only."""
+    the same cotangent; fp32 sums on both sides, reassociation noise only.
+    A q8 member's backward is its fp grad backend's, so it holds too."""
     a, b = _operands(m=24, k=48, n=32, seed=4)
-    if ops.family_of(name) != "fp":
-        with pytest.raises(NotImplementedError, match="A.6b"):
-            ops.matmul(*_t(a, b, grad=True), backend=name)
-        return
     ta, tb = _t(a, b, grad=True)
     out = ops.matmul(ta, tb, backend=name)
     assert isinstance(out.grad_fn, ops._Matmul._backward_cls)
@@ -178,19 +177,28 @@ def test_vjp_of_every_fp_member(name):
 
 
 @_over_backends
-def test_q8_members_have_a_full_precision_grad_backend_and_refuse_grad(name):
+def test_q8_members_have_a_full_precision_grad_backend_and_refuse_grad(name, monkeypatch):
+    """A q8 member's gradients are its fp grad backend's, bit for bit,
+    dense and grouped (the reference's grad-backend indirection); what
+    refuses grad is the serving-only pre-quantized lane."""
     if ops.family_of(name) != "q8":
         assert ops.grad_backend_of(name) == name  # fp: backward on itself
         return
     gb = ops.grad_backend_of(name)
     assert ops.family_of(gb) == "fp", f"{name} backpropagates through {gb}"
     assert ops.backend(gb).grouped_fn is not None  # a grouped backward has its member
+    monkeypatch.setattr(ops.backend(gb), "device_type", None)  # `cuda` on CPU tensors
     a, b = _operands(m=8, k=16, n=8, seed=5)
     ga, gb_ = _grouped_operands(g=2, m=4, k=16, n=8, seed=5)
-    with pytest.raises(NotImplementedError, match="A.6b"):
-        ops.matmul(*_t(a, b, grad=True), backend=name)
-    with pytest.raises(NotImplementedError, match="A.6b"):
-        ops.grouped_matmul(*_t(ga, gb_, grad=True), backend=name)
+    for fn, (x, y) in ((ops.matmul, (a, b)), (ops.grouped_matmul, (ga, gb_))):
+        tx, ty = _t(x, y, grad=True)
+        got = torch.autograd.grad(fn(tx, ty, backend=name, epilogue="silu").sum(), (tx, ty))
+        want = torch.autograd.grad(fn(tx, ty, backend=gb, epilogue="silu").sum(), (tx, ty))
+        for u, v in zip(got, want):
+            assert torch.equal(u, v)
+    q = QuantizedTensor(torch.ones((8, 16), dtype=torch.int8), torch.tensor(0.5))
+    with pytest.raises(NotImplementedError, match="serving-only"):
+        ops.matmul(q, _t(b, grad=True), backend=name)
 
 
 # --- the grouped member -------------------------------------------------------
@@ -228,10 +236,6 @@ def test_grouped_bias_rides_the_backend(name):
 @_over_backends
 def test_grouped_gradients_match_reference(name):
     a, b = _grouped_operands(g=2, m=16, k=32, n=24, seed=7)
-    if ops.family_of(name) != "fp":
-        with pytest.raises(NotImplementedError, match="A.6b"):
-            ops.grouped_matmul(*_t(a, b, grad=True), backend=name)
-        return
     ta, tb = _t(a, b, grad=True)
     out = ops.grouped_matmul(ta, tb, backend=name)
     assert isinstance(out.grad_fn, ops._GroupedMatmul._backward_cls)
@@ -338,10 +342,8 @@ def test_epilogue_vjp_matches_unfused(name, lane, monkeypatch):
     a, b = _operands(m=24, k=48, n=32, seed=13)
     gate = np.random.default_rng(14).standard_normal((24, 32)).astype(np.float32)
     ta, tb, tg = _t(a, b, gate, grad=True)
-    if ops.family_of(name) != "fp":
-        with pytest.raises(NotImplementedError, match="A.6b"):
-            ops.matmul(ta, tb, backend=name, epilogue=["silu", ("mul", tg)])
-        return
+    # Every family: the backward recomputes the accumulator on the fp grad
+    # backend, so even a q8 forward differentiates the fp composition.
     out = ops.matmul(ta, tb, backend=name, epilogue=["silu", ("mul", tg)])
     got = torch.autograd.grad(out.sum(), (ta, tb, tg))
     want = jax.grad(lambda a, b, g: (jax.nn.silu(reference_matmul(a, b)) * g).sum(),
@@ -522,10 +524,6 @@ def test_runtime_op_vjp_matches_the_reference(name, which, monkeypatch):
     op = _register_both(monkeypatch, which)
     a, b = _operands(m=12, k=16, n=8, seed=23)
     ga, gb = _grouped_operands(g=2, m=6, k=16, n=8, seed=24)
-    if ops.family_of(name) != "fp":
-        with pytest.raises(NotImplementedError, match="A.6b"):
-            ops.matmul(*_t(a, b, grad=True), backend=name, epilogue=op)
-        return
     for grouped, (x, y) in ((False, (a, b)), (True, (ga, gb))):
         f_t = ops.grouped_matmul if grouped else ops.matmul
         f_j = jops.grouped_matmul if grouped else jops.matmul

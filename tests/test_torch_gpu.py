@@ -1249,15 +1249,14 @@ def test_card_members_keep_the_registry_contract(cuda_device, name, lane, monkey
         ("bias", gbias[i]), "silu"]) for i in range(3)])
     got = ops.grouped_matmul(ga, gb, backend=name, epilogue=[("bias", gbias), "silu"])
     assert (got - stacked).abs().max() <= 1e-4 * float(stacked.abs().max()) + 1e-5
+    # Under autograd both families' backward runs on the fp grad backend
+    # (K1, K4 for the card members): with a cotangent of ones the gradients
+    # do not depend on the forward's numerics.
     x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
-    if ops.family_of(name) == "q8":
-        with pytest.raises(NotImplementedError, match="A.6b"):
-            ops.matmul(x, y, backend=name)
-        with pytest.raises(NotImplementedError, match="A.6b"):
-            ops.grouped_matmul(ga.clone().requires_grad_(), gb, backend=name)
-    else:
-        got = torch.autograd.grad(ops.matmul(x, y, backend=name, epilogue="silu").sum(), (x, y))
-        want = torch.autograd.grad(ops.matmul(x, y, backend=plain, epilogue="silu").sum(), (x, y))
+    gx, gy = ga.clone().requires_grad_(), gb.clone().requires_grad_()
+    for fn, args in ((ops.matmul, (x, y)), (ops.grouped_matmul, (gx, gy))):
+        got = torch.autograd.grad(fn(*args, backend=name, epilogue="silu").sum(), args)
+        want = torch.autograd.grad(fn(*args, backend=plain, epilogue="silu").sum(), args)
         for u, v in zip(got, want):
             torch.testing.assert_close(u, v, rtol=1e-4, atol=1e-3)
 
@@ -1425,3 +1424,119 @@ def test_reduced_deepseek_loss_and_gradients_on_the_kernels_match_the_plain_back
     assert opope_gemm.launches - k1 == 3 * (8 + 8 + 10 + 3 + 6) * cfg.n_layers
     assert tg.opope_gemm_grouped.launches - k4 == 3 * (3 + 3 + 2 + 1 + 4) * cfg.n_layers
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# q8 training on the card: a `cuda_q8` forward (K2, K5) with its backward on
+# K1 and K4. Its gradients are the `cuda` backend's vjp, bit for bit (the
+# same rules on the grad backend, the same saved inputs and cotangent; K1
+# and K4 are deterministic), and within the bf16 tolerance of
+# test_k1_vjp_matches_the_plain_backend (2e-2 of the largest magnitude) of
+# the `torch_q8` vjp, whose backward is the plain fp backend's. The
+# same-run fp32/fp64 floor gate runs at the models' shapes in chip_smoke.py
+# phase 12: at these few-thousand-element bf16 outputs the floor counts a
+# handful of rounding flips.
+@pytest.mark.parametrize("form", ["none", "bias", "full", "chain"])
+@pytest.mark.parametrize("grouped", [False, True], ids=["k2", "k5"])
+def test_cuda_q8_vjp_runs_the_fp_backward(cuda_device, grouped, form):
+    gen = torch.Generator(device=cuda_device).manual_seed(28)
+    lead = (3,) if grouped else ()
+    m, k, n = 64, 256, 128
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(lead + shape, generator=gen, device=cuda_device) * scale).to(
+            torch.bfloat16).requires_grad_()
+
+    a, b = rand(m, k), rand(k, n, scale=k ** -0.5)
+    c, spec, extra = None, None, []
+    if form == "bias":
+        c = rand(n)
+    elif form == "full":
+        c = rand(m, n)
+    elif form == "chain":
+        row, full = rand(n), rand(m, n)
+        spec, extra = [("bias", row), "silu", ("mul", full)], [row, full]
+    inputs = [a, b] + ([c] if c is not None else []) + extra
+    g = torch.randn(lead + (m, n), generator=gen, device=cuda_device).to(torch.bfloat16)
+    fn = ops.grouped_matmul if grouped else ops.matmul
+    kern = tq8.opope_gemm_q8_grouped if grouped else tq8.opope_gemm_q8
+    fp_kern = tg.opope_gemm_grouped if grouped else opope_gemm
+
+    def vjp(backend):
+        out = fn(a, b, c, backend=backend, epilogue=spec)
+        return out, torch.autograd.grad(out, inputs, g)
+
+    before = (kern.launches, fp_kern.launches)
+    out, got = vjp("cuda_q8")
+    torch.cuda.synchronize()
+    assert kern.launches - before[0] == 1  # the forward on K2 / K5, the backward not
+    assert fp_kern.launches - before[1] == (3 if spec else 2)
+    with torch.no_grad():
+        assert torch.equal(out, fn(a, b, c, backend="cuda_q8", epilogue=spec))
+    _, fp = vjp("cuda")
+    _, want = vjp("torch_q8")
+    for x, y, z in zip(got, fp, want):
+        assert x.dtype == z.dtype and x.shape == z.shape and torch.isfinite(x.float()).all()
+        assert torch.equal(x, y)
+        assert (x.float() - z.float()).abs().max() <= 2e-2 * z.float().abs().max()
+
+
+def _aligned_moe(cfg):
+    """Reduced deepseek-moe-16b whose router N and expert rows plan sm90 as
+    at full width: 8 experts, capacity-dropped onehot groups of 32."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dropless=False, group_size=32, n_experts=8, capacity_factor=1.5))
+
+
+# Launches a layer of one q8 train step, by kernel and route (chip_smoke.py
+# phase 12's tables): the quantized roles' forward and remat recompute on K2
+# and K5, every backward GEMM on K1 and K4, the fp32 ones on the tile route.
+@pytest.mark.parametrize("arch,policy,per_layer", [
+    ("chatglm3-6b", mlp_q8_policy(),
+     {"K1": {"sm90": 19, "tile": 6}, "K2": {"sm90": 6, "tile": 0},
+      "K4": {"sm90": 0, "tile": 0}, "K5": {"sm90": 0, "tile": 0}}),
+    ("deepseek-moe-16b", PrecisionPolicy(rules={"moe": "q8"}),
+     {"K1": {"sm90": 23, "tile": 6}, "K2": {"sm90": 6, "tile": 0},
+      "K4": {"sm90": 3, "tile": 4}, "K5": {"sm90": 6, "tile": 0}}),
+], ids=["chatglm3-6b", "deepseek-moe-16b"])
+def test_q8_train_step_launches_by_route(cuda_device, arch, policy, per_layer):
+    from repro_torch.data import MarkovLMDataset, make_batch_fn
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import make_train_step
+
+    cfg = _reduced_bf16(arch)
+    if cfg.moe is not None:
+        cfg = _aligned_moe(cfg)
+    params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    batch = make_batch_fn(MarkovLMDataset(cfg.vocab, 32, 4), cuda_device)(0)
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=2)
+    step, state = make_train_step(cfg, opt, policy=policy), init_opt_state(params, opt)
+    kernels = {"K1": opope_gemm, "K2": tq8.opope_gemm_q8, "K4": tg.opope_gemm_grouped,
+               "K5": tq8.opope_gemm_q8_grouped}
+    before = {k: dict(v.launches_by_route) for k, v in kernels.items()}
+    loss = float(step(params, state, batch)[2]["loss"])
+    torch.cuda.synchronize()
+    got = {k: {r: v.launches_by_route[r] - before[k][r] for r in ("sm90", "tile")}
+           for k, v in kernels.items()}
+    assert got == {k: {r: x * cfg.n_layers for r, x in v.items()} for k, v in per_layer.items()}
+    assert np.isfinite(loss)
+
+
+def test_bf16_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    """A reduced bf16 model's parameters and AdamW state saved from the card
+    and restored onto it, bit for bit, bf16 staying bf16."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.tree import leaves, map_leaves
+
+    cfg = _reduced_bf16()
+    params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    st = init_opt_state(params, AdamWConfig())
+    st = st._replace(mu=map_leaves(lambda x: torch.randn(x.shape, generator=gen,
+                                                         device=cuda_device), st.mu))
+    tree = {"params": params, "opt": st}
+    ckpt.save(str(tmp_path), 3, tree)
+    back = ckpt.restore(str(tmp_path), 3, tree, cuda_device)
+    for x, y in zip(leaves(back), leaves(tree)):
+        assert x.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y)
+    assert any(x.dtype == torch.bfloat16 for x in leaves(back["params"]))

@@ -56,7 +56,8 @@ def test_every_port_module_is_scanned():
                 "repro_torch/obs/logging.py", "repro_torch/obs/tracing.py",
                 "repro_torch/obs/attr.py", "repro_torch/obs/audit.py",
                 "repro_torch/obs/http.py", "repro_torch/core/roofline.py",
-                "repro_torch/launch/stats.py"):
+                "repro_torch/launch/stats.py", "repro_torch/checkpoint/__init__.py",
+                "repro_torch/checkpoint/checkpoint.py"):
         assert mod in names
     assert kbuild.sources() == ["opope_attention", "opope_gemm", "opope_grouped", "opope_q8",
                                 "opope_q8_grouped", "opope_scan"]

@@ -1,7 +1,9 @@
 """The port's training path against the JAX reference, on the CPU: AdamW and
 its schedule, the Markov data pipeline, the train step of a dense and of an
-MoE decoder (deepseek-moe-16b, both dispatches), the loop (its telemetry and
-watchdog), the MoE parameter layout and the two command lines.
+MoE decoder (deepseek-moe-16b, both dispatches), each also under a q8
+policy (``mlp_q8_policy()``, ``{"moe": "q8"}``), the loop (its telemetry
+and watchdog), the MoE parameter layout, the two command lines, and what
+training refuses (a requant policy on a q8 role; the pre-quantized lane).
 
 Tolerances: the optimizer gets identical numpy parameters, gradients and
 state on both sides, so its fp32 results must agree to ``1e-6 *
@@ -30,6 +32,8 @@ from repro.configs import get_config as j_get_config
 from repro.data import MarkovLMDataset as JMarkov
 from repro.models import api as japi
 from repro.optim import adamw as jadamw
+from repro.quant import PrecisionPolicy as JPolicy
+from repro.quant import mlp_q8_policy as j_mlp_q8_policy
 from repro.train import loop as jloop
 from repro_torch import obs as tobs
 from repro_torch.configs import get_config as t_get_config
@@ -37,6 +41,7 @@ from repro_torch.convert import params_from_numpy, params_to_numpy, tensor_from_
 from repro_torch.data import MarkovLMDataset, Prefetcher, make_batch_fn
 from repro_torch.launch import stats as t_stats
 from repro_torch.launch import train as t_launch
+from repro_torch.models import api as tapi
 from repro_torch.optim import adamw as tadamw
 from repro_torch.quant import PrecisionPolicy, mlp_q8_policy
 from repro_torch.train import loop as tloop
@@ -189,14 +194,21 @@ def _model():
     return jcfg, tcfg, jax.tree.map(np.asarray, jparams)
 
 
+@pytest.mark.parametrize("policy", ["fp", "q8"])
 @pytest.mark.parametrize("grad_accum", [1, 2])
-def test_train_step_losses_match_jax_over_3_steps(grad_accum):
+def test_train_step_losses_match_jax_over_3_steps(grad_accum, policy):
+    """``policy="q8"``: ``mlp_q8_policy()`` on both sides (the MLP's forward
+    GEMMs int8, on ``xla_q8`` and ``torch_q8``; their backward full
+    precision)."""
     jcfg, tcfg, params = _model()
     jcfg = dataclasses.replace(jcfg, grad_accum=grad_accum)
     tcfg = dataclasses.replace(tcfg, grad_accum=grad_accum)
     opt = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10)
-    jstep = jloop.make_train_step(jcfg, jadamw.AdamWConfig(**opt), donate=False)
-    tstep = tloop.make_train_step(tcfg, tadamw.AdamWConfig(**opt))
+    q8 = policy == "q8"
+    jstep = jloop.make_train_step(jcfg, jadamw.AdamWConfig(**opt), donate=False,
+                                  policy=j_mlp_q8_policy() if q8 else None)
+    tstep = tloop.make_train_step(tcfg, tadamw.AdamWConfig(**opt),
+                                  policy=mlp_q8_policy() if q8 else None)
     jp = jax.tree.map(jnp.asarray, params)
     tp = params_from_numpy(tcfg, params, "cpu")
     js = jadamw.init_opt_state(jp, jadamw.AdamWConfig(**opt))
@@ -298,14 +310,20 @@ def _moe_model():
     return jcfg, tcfg, jax.tree.map(np.asarray, jparams)
 
 
+@pytest.mark.parametrize("policy", ["fp", "q8"])
 @pytest.mark.parametrize("dispatch", ["onehot", "sort"])
-def test_moe_train_step_losses_match_jax_over_3_steps(dispatch):
+def test_moe_train_step_losses_match_jax_over_3_steps(dispatch, policy):
+    """``policy="q8"``: ``{"moe": "q8"}`` on both sides (the routed experts
+    and the shared MLP int8 in the forward)."""
     jcfg, tcfg, params = _moe_model()
     jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, dispatch=dispatch))
     tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe, dispatch=dispatch))
     opt = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10)
-    jstep = jloop.make_train_step(jcfg, jadamw.AdamWConfig(**opt), donate=False)
-    tstep = tloop.make_train_step(tcfg, tadamw.AdamWConfig(**opt))
+    q8 = policy == "q8"
+    jstep = jloop.make_train_step(jcfg, jadamw.AdamWConfig(**opt), donate=False,
+                                  policy=JPolicy(rules={"moe": "q8"}) if q8 else None)
+    tstep = tloop.make_train_step(tcfg, tadamw.AdamWConfig(**opt),
+                                  policy=PrecisionPolicy(rules={"moe": "q8"}) if q8 else None)
     jp = jax.tree.map(jnp.asarray, params)
     tp = params_from_numpy(tcfg, params, "cpu")
     js = jadamw.init_opt_state(jp, jadamw.AdamWConfig(**opt))
@@ -377,28 +395,47 @@ def test_moe_step_events_count_every_parameter_like_the_reference():
         _close(a["gflops_per_sec"] * a["wall_s"], b["gflops_per_sec"] * b["wall_s"], 1e-6)
 
 
-# --- what is not ported raises ----------------------------------------------------------
+# --- what training refuses ------------------------------------------------------------
 
 
-def test_unported_training_paths_raise(tmp_path, monkeypatch):
+def test_unported_training_paths_raise():
+    """A requant policy on a q8-family role is refused up front (the
+    reference's gradients through its int8 activation are exactly zero);
+    the pre-quantized lane it feeds raises under autograd (serving-only)."""
+    _, tcfg, params = _model()
+    opt = tadamw.AdamWConfig(total_steps=2)
+    for policy in (mlp_q8_policy(requant_scale=0.05),
+                   PrecisionPolicy(rules={"mlp": "torch_q8"}, requant={"mlp": 0.05})):
+        with pytest.raises(NotImplementedError, match="no gradient"):
+            tloop.make_train_step(tcfg, opt, policy=policy)
+    # Requant on a role whose backend is fp never writes int8: fine.
+    tloop.make_train_step(tcfg, opt, policy=PrecisionPolicy(rules={"mlp": "torch"},
+                                                            requant={"mlp": 0.05}))
+    tp = params_from_numpy(tcfg, params, "cpu")
+    live = jax.tree.map(lambda p: p.detach().requires_grad_(), tp)
+    batch = make_batch_fn(MarkovLMDataset(tcfg.vocab, 8, 2), "cpu")(0)
+    with pytest.raises(NotImplementedError, match="serving-only"):
+        tapi.loss_fn(tcfg, live, batch, backend=mlp_q8_policy(requant_scale=0.05))
+
+
+@pytest.mark.parametrize("policy", ["q8", "torch_q8", "attn_qkv", "moe"])
+def test_q8_policies_train(policy):
+    """Every q8 policy without requant trains: one step, finite loss."""
+    arch = "deepseek-moe-16b" if policy == "moe" else "chatglm3-6b"
+    tcfg = t_get_config(arch).reduced()
+    pol = {"attn_qkv": PrecisionPolicy(rules={"attn_qkv": "torch_q8"}),
+           "moe": PrecisionPolicy(rules={"moe": "q8"})}.get(policy, policy)
+    fn = make_batch_fn(MarkovLMDataset(tcfg.vocab, 8, 2), "cpu")
+    res = tloop.train(tcfg, tadamw.AdamWConfig(total_steps=2),
+                      tloop.TrainLoopConfig(total_steps=2, log_every=0), fn, device="cpu",
+                      policy=pol, log=lambda *_: None)
+    assert len(res.losses) == 2 and all(np.isfinite(res.losses))
+
+
+def test_training_entry_points_default_to_the_card(monkeypatch):
     _, tcfg, _ = _model()
     opt = tadamw.AdamWConfig(total_steps=2)
     fn = make_batch_fn(MarkovLMDataset(tcfg.vocab, 8, 2), "cpu")
-    with pytest.raises(NotImplementedError, match="A.6b"):
-        tloop.train(tcfg, opt, tloop.TrainLoopConfig(total_steps=2, ckpt_dir=str(tmp_path)),
-                    fn, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.6b"):
-        t_launch.main(["--arch", "chatglm3-6b", "--reduced", "--device", "cpu",
-                       "--steps", "2", "--ckpt-dir", str(tmp_path)])
-    for policy in ("q8", "torch_q8", mlp_q8_policy(),
-                   PrecisionPolicy(rules={"attn_qkv": "torch_q8"})):
-        with pytest.raises(NotImplementedError, match="q8"):
-            tloop.make_train_step(tcfg, opt, policy=policy)
-    with pytest.raises(NotImplementedError, match="q8"):
-        tloop.make_train_step(t_get_config("deepseek-moe-16b").reduced(), opt,
-                              policy=PrecisionPolicy(rules={"moe": "q8"}))
-    # An fp-family policy is fine.
-    tloop.make_train_step(tcfg, opt, policy=PrecisionPolicy(rules={"mlp": "torch"}))
     # The default device is the card; without one the entry points raise.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
