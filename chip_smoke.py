@@ -143,6 +143,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     CLI at its reduced config with ``--ckpt-dir``, 40 steps, then 60 steps
     resuming from 40.
 
+13. tuning (``repro_torch.tune``; run after phase 4(h), on chatglm3-6b's
+    resident weights, so that phases 7-12 run on the heuristic plans): (a)
+    the tuner times every legal plan by device time, into a throwaway table
+    under ``build/``: K1 at chatglm3-6b's four distinct projection shapes
+    and K2 at its two distinct MLP shapes, at M = 4 and 512, K4 and K5 at
+    deepseek-moe-16b's two expert shapes (G 64) at M = 1, 30 and 60 — for
+    each, the heuristic plan and its time, the winner and its time (never
+    above the heuristic's), the candidates timed and the fusion verdict;
+    (b) every winner against its plain version, with and without the
+    probe's epilogue; (c) the table active: a 4-row decode step whose every
+    K1 call resolves ``"tuned"`` (its ``GemmRecord``s and ``gemm.calls``
+    labels) and launches on sm90, its teacher-forced logits within
+    PROMPT_LOGIT_FLOOR_FACTOR x the plain GEMM's RMS gap of this run, its
+    wall and busy time beside the heuristic's (no gain claimed), and the
+    host time of a direct K1 call with the plan path against the kernel
+    called directly; then the table cleared (``tile="heuristic"`` again);
+    (d) ``python -m repro_torch.launch.tune`` on two explicit shapes, its
+    table reloaded.
+
 The last lines are a JSON ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 not 0 and no result is printed. Without a CUDA device, or outside a checkout,
@@ -250,6 +269,12 @@ K4_Q8_MOE_TRAIN = {"backward": 2, "fp32 recompute": 1, "fp32 backward": 4}
 # parameters: 1.9 GB of bf16 weights and 7.5 GB of fp32 moments a
 # checkpoint), 6 steps, a checkpoint every 3, a failure at step 5.
 CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT = 2, 6, 3, 5
+
+# Tuning (phase 13): the cells the tuner times, and its samples a plan.
+TUNE_DENSE_MS = (4, 512)
+TUNE_GROUPED_MS = (1, 30, 60)
+TUNE_ITERS = 3
+
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
@@ -3552,6 +3577,328 @@ def checkpoint_phase(torch, cfg, dev, *, layers=CKPT_LAYERS, batch=TRAIN_BATCH, 
             "serve_tokens_equal": True, "cli": cli, "seconds": phase_s}
 
 
+def _plan_str(p):
+    return f"{p.bm}x{p.bn}x{p.bk} x{p.splits}" if p.route == "sm90" else "tile"
+
+
+def tune_phase(torch, np, cfg, mcfg, params, ops, dev):
+    """Phase 13 on chatglm3-6b's resident weights: (a) the tuner over every
+    legal plan of K1, K2, K4 and K5 at the path shapes, (b) each winner
+    against its plain version, (c) the table served in a decode step, then
+    cleared, (d) the tuning CLI. Returns the record."""
+    import os
+
+    from repro_torch import obs
+    from repro_torch.kernels.opope_gemm import opope_gemm, opope_gemm_plain
+    from repro_torch.kernels import opope_grouped as k4
+    from repro_torch.models import api
+    from repro_torch.obs import attr as obs_attr
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.quant import opope_q8 as q8
+    from repro_torch.quant.backends import quantize_grouped_operands, quantize_operands
+    from repro_torch.tune import GemmShape, TuningTable, search
+
+    t_phase = time.perf_counter()
+    out = {"cells": []}
+    d, dff = cfg.d_model, cfg.d_ff
+    dq, dkv = cfg.n_heads * cfg.head_dim_, cfg.n_kv * cfg.head_dim_
+    k1_shapes = sorted({(d, dq), (d, dkv), (dq, d), (d, dff), (dff, d)})
+    k2_shapes = sorted({(d, dff), (dff, d)})
+    md, mff, g = mcfg.d_model, mcfg.moe.d_ff_expert, mcfg.moe.n_experts
+    cells = [("cuda", GemmShape("dense", m, k, n, 0, "bfloat16"))
+             for m in TUNE_DENSE_MS for k, n in k1_shapes]
+    cells += [("cuda_q8", GemmShape("dense", m, k, n, 0, "bfloat16"))
+              for m in TUNE_DENSE_MS for k, n in k2_shapes]
+    cells += [(be, GemmShape("grouped", m, k, n, g, "bfloat16")) for be in ("cuda", "cuda_q8")
+              for m in TUNE_GROUPED_MS for k, n in ((md, mff), (mff, md))]
+
+    # (a) the search, into a throwaway table.
+    table = TuningTable()
+    t0 = time.perf_counter()
+    for backend, shape in cells:
+        entry, results = search.tune_shape(backend, shape, iters=TUNE_ITERS)
+        table.put(entry)
+        heur = next(r for r in results if r.is_heuristic)
+        if entry.us > heur.us:
+            raise AssertionError(f"13(a) {backend} {shape}: winner {entry.us} us > heuristic "
+                                 f"{heur.us} us")
+        kname = {("cuda", "dense"): "K1", ("cuda", "grouped"): "K4",
+                 ("cuda_q8", "dense"): "K2", ("cuda_q8", "grouped"): "K5"}[(backend, shape.family)]
+        row = {"kernel": kname, "backend": backend, "family": shape.family, "m": shape.m,
+               "k": shape.k, "n": shape.n, "g": shape.g,
+               "heuristic": {"block": list(heur.block), "splits": heur.splits, "us": heur.us},
+               "winner": {"block": list(entry.block), "splits": entry.splits, "us": entry.us},
+               "candidates": len(results), "fuse_epilogue": entry.fuse_epilogue,
+               "times_us": {f"{r.block[0]}x{r.splits}": r.us for r in results}}
+        out["cells"].append(row)
+        log(f"13(a) {kname} {shape.family} g={shape.g} M={shape.m} K={shape.k} N={shape.n}: "
+            f"heuristic {heur.block[0]} rows x{heur.splits} {heur.us:.2f} us, winner "
+            f"{entry.block[0]} rows x{entry.splits} {entry.us:.2f} us "
+            f"({heur.us / entry.us:.3f}x), {len(results)} plans timed, fuse_epilogue="
+            f"{entry.fuse_epilogue}; " + ", ".join(
+                f"{r.block[0]}x{r.splits} {r.us:.2f}" for r in results))
+    out["search_s"] = time.perf_counter() - t0
+    path = ROOT / "build" / "tune_phase13.json"
+    table.save(str(path))
+    changed = [r for r in out["cells"] if (r["winner"]["block"], r["winner"]["splits"])
+               != (r["heuristic"]["block"], r["heuristic"]["splits"])]
+    log(f"13(a) {len(cells)} cells, {sum(r['candidates'] for r in out['cells'])} plans timed in "
+        f"{out['search_s']:.1f} s; the winner differs from the heuristic in {len(changed)}; "
+        f"table {path}")
+
+    # (b) every winner against its plain version, with and without the
+    # probe's chain (bias + silu, fp32 out).
+    gen = torch.Generator(device=dev).manual_seed(13)
+    max_err = {}
+    for backend, shape in cells:
+        e = table.lookup_entry(backend=backend, shape_family=shape.family, m=shape.m, k=shape.k,
+                               n=shape.n, g=shape.g, itemsize=1 if backend == "cuda_q8" else 2)
+        grouped = shape.family == "grouped"
+        lead = (shape.g,) if grouped else ()
+        a = torch.randn(lead + (shape.m, shape.k), generator=gen, device=dev).to(torch.bfloat16)
+        b = (torch.randn(lead + (shape.k, shape.n), generator=gen, device=dev)
+             * shape.k ** -0.5).to(torch.bfloat16)
+        bias = torch.randn(lead + (1, shape.n), generator=gen, device=dev)
+        if backend == "cuda":
+            mod = k4 if grouped else importlib_k1()
+            plan = mod.validate_plan(shape.m, shape.n, shape.k, e.block, e.splits)
+            kern = k4.opope_gemm_grouped if grouped else opope_gemm
+            plain = k4.opope_gemm_grouped_plain if grouped else opope_gemm_plain
+            args = (a, b)
+        else:
+            plan = q8.validate_plan(shape.m, shape.n, shape.k, e.block, e.splits,
+                                    grouped=grouped)
+            aq, bq = (quantize_grouped_operands if grouped else quantize_operands)(a, b)
+            args = (aq.q, aq.scale, bq.q, bq.scale)
+            kern = q8.opope_gemm_q8_grouped if grouped else q8.opope_gemm_q8
+            plain = q8.opope_gemm_q8_grouped_plain if grouped else q8.opope_gemm_q8_plain
+        what = f"13(b) {backend} {shape.family} M={shape.m} K={shape.k} N={shape.n} {_plan_str(plan)}"
+        for steps, ops_, out_dtype in (((), (), torch.bfloat16),
+                                       (search.PROBE_EPILOGUE, (bias,), torch.float32)):
+            got = kern(*args, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ops_,
+                       plan=plan)
+            sync(torch, dev)
+            if backend == "cuda":
+                err = check_close(torch, got, lambda dt: plain(
+                    *args, out_dtype=dt, epilogue=steps, epilogue_operands=ops_), out_dtype,
+                    f"{what} {steps}")
+            else:
+                err = q8_check(torch, got, plain(*args, out_dtype=out_dtype, epilogue=steps,
+                                                 epilogue_operands=ops_),
+                               bool(steps), f"{what} {steps}")
+            key = {"cuda": "K4" if grouped else "K1",
+                   "cuda_q8": "K5" if grouped else "K2"}[backend]
+            max_err[key] = max(max_err.get(key, 0.0), err)
+    out["winners_max_abs_err"] = max_err
+    log(f"13(b) every winner against its plain version, with and without bias+silu: max abs "
+        f"err {max_err}")
+
+    # (c) the table served: a 4-row decode step on it, against the heuristic.
+    rng = np.random.default_rng(13)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))).to(dev)
+    n_forced = 7
+
+    # Positions: 64 prompt tokens, 7 forced steps (64-70), the step timings
+    # 72-94, the captured step 95; the caches hold 128.
+    def forced(tokens):
+        with torch.inference_mode():
+            logits, caches = api.prefill(cfg, params, {"tokens": prompts}, 128)
+            outs = [logits.float()]
+            for i in range(n_forced):
+                logits, caches = api.decode(cfg, params, tokens[i], caches, 64 + i)
+                outs.append(logits.float())
+        return torch.stack(outs), caches
+
+    def greedy():
+        with torch.inference_mode():
+            logits, caches = api.prefill(cfg, params, {"tokens": prompts}, 128)
+            toks = []
+            for i in range(n_forced):
+                toks.append(logits.argmax(-1)[:, None])
+                logits, caches = api.decode(cfg, params, toks[-1], caches, 64 + i)
+        return toks
+
+    def step_times(caches, tok):
+        with torch.inference_mode():
+            for i in range(3):
+                api.decode(cfg, params, tok, caches, 72 + i)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            for i in range(16):
+                api.decode(cfg, params, tok, caches, 75 + i)
+            sync(torch, dev)
+            wall = (time.perf_counter() - t0) * 1e3 / 16
+            prof = decode_profile(torch, lambda i: api.decode(cfg, params, tok, caches, 91 + i),
+                                  wall, tag="13(c)")
+        return {"wall_ms": wall, "busy_ms": None if prof is None else sum(ms for _, ms, _ in prof)}
+
+    def loop_us(fn, n=20000):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return 1e6 * (time.perf_counter() - t0) / n
+
+    def host_cost(x, w):
+        """Host microseconds of ``ops.matmul(x, w)`` on the ``cuda`` member
+        ("planned") against the same call with K1 as the member ("direct":
+        its own _plan, no resolver), 200 calls a turn, 7 interleaved turns,
+        medians (one call's host time spreads by ~10 us here), telemetry off
+        and on; and the member's own part alone ("member alone": a tight
+        loop over the member wrapping a kernel that returns at once)."""
+        def call_us(n=200):
+            ops.matmul(x, w)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                ops.matmul(x, w)
+            host = time.perf_counter() - t0
+            sync(torch, dev)
+            return 1e6 * host / n
+
+        res = {}
+        member = ops._planned("cuda", lambda a, b, c=None, **kw: None, False, False)
+        for flag in (False, True):
+            tag = "on" if flag else "off"
+            prev = obs_metrics.set_enabled(flag)
+            try:
+                per_call = {f"planned {tag}": [], f"direct {tag}": []}
+                for _ in range(7):
+                    per_call[f"planned {tag}"].append(call_us())
+                    with _patched(ops.backend("cuda"), "fn", opope_gemm):
+                        per_call[f"direct {tag}"].append(call_us())
+                res.update({k: statistics.median(v) for k, v in per_call.items()})
+                res[f"member alone {tag}"] = min(loop_us(lambda: member(x, w)) for _ in range(3))
+            finally:
+                obs_metrics.set_enabled(prev)
+        return {k: res[k] for k in sorted(res)}
+
+    toks = greedy()
+    ref, caches = forced(toks)
+    out["heuristic_step"] = step_times(caches, toks[0])
+    with _patched(ops.backend("cuda"), "fn", opope_gemm_plain):
+        ref_plain, _ = forced(toks)
+    os.environ["REPRO_TUNE_TABLE"] = str(path)
+    ops.clear_tile_cache()
+    try:
+        prev = obs_metrics.set_enabled(True)
+        obs.reset()
+        _reset_k1(ops, opope_gemm)
+        with torch.inference_mode(), obs_attr.capture_gemms() as recs:
+            api.decode(cfg, params, toks[0], caches, 95)
+        sync(torch, dev)
+        obs_metrics.set_enabled(prev)
+        k1_recs = [r for r in recs if r.backend == "cuda"]
+        sources = sorted({r.tile_source for r in k1_recs})
+        labels = obs.snapshot()["counters"]["gemm.calls"]
+        if sources != ["tuned"] or len(k1_recs) != 7 * cfg.n_layers:
+            raise AssertionError(f"13(c) decode step K1 tile sources {sources}, "
+                                 f"{len(k1_recs)} calls")
+        if any("tile=tuned" not in key for key in labels):
+            raise AssertionError(f"13(c) gemm.calls labels {labels}")
+        check_routes(opope_gemm, 7 * cfg.n_layers, "13(c) tuned decode step")
+        _reset_k1(ops, opope_gemm)
+        got, caches_t = forced(toks)
+        # The 4 x 64-row prefill (M 256, heuristic plans) and the decode steps.
+        check_routes(opope_gemm, 7 * cfg.n_layers * (n_forced + 1), "13(c) tuned forced decode")
+        out["tuned_launches"] = opope_gemm.launches
+        out["tuned_step"] = step_times(caches_t, toks[0])
+        # Host time of a direct K1 call at wq's shape, the table active (see
+        # host_cost), and the two pieces the table path adds, each alone.
+        x = torch.randn(4, d, device=dev, dtype=torch.bfloat16)
+        w = params["blocks"][0]["attn"]["wq"]["w"]
+        out["host_us"] = {"table": host_cost(x, w)}
+        k1 = importlib_k1()
+        plan = ops._tile_for(4, d, dq, 2, "dense", 0, "cuda")
+        prev = obs_metrics.set_enabled(False)
+        pieces = {
+            "memo hit (telemetry off)": min(loop_us(lambda: ops._tile_for(
+                4, d, dq, 2, "dense", 0, "cuda")) for _ in range(3)),
+            "kernel plan check": min(loop_us(lambda: k1._forced(plan, 4, dq, d, x, w))
+                                     for _ in range(3)),
+            "kernel _plan (no table)": min(loop_us(lambda: k1._plan(
+                4, dq, d, x.dtype, x.data_ptr(), w.data_ptr())) for _ in range(3))}
+        obs_metrics.set_enabled(True)
+        pieces["memo hit (telemetry on)"] = min(loop_us(lambda: ops._tile_for(
+            4, d, dq, 2, "dense", 0, "cuda")) for _ in range(3))
+        obs_metrics.set_enabled(prev)
+        out["host_us"]["pieces"] = pieces
+        obs.reset()
+    finally:
+        del os.environ["REPRO_TUNE_TABLE"]
+        ops.clear_tile_cache()
+    d_floor = (ref_plain - ref).pow(2).mean().sqrt().item()
+    d_tuned = (got - ref).pow(2).mean().sqrt().item()
+    arg = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    log(f"13(c) table active: the decode step's {len(k1_recs)} K1 calls all 'tuned', "
+        f"gemm.calls {labels}, all on sm90; teacher-forced logits (first token + {n_forced} "
+        f"decode steps) tuned vs heuristic RMS {d_tuned:.4g} (gated <= "
+        f"{PROMPT_LOGIT_FLOOR_FACTOR} x {d_floor:.4g}, the plain GEMM vs the kernels), argmax "
+        f"agreement {arg:.4f}")
+    if not d_tuned <= PROMPT_LOGIT_FLOOR_FACTOR * d_floor:
+        raise AssertionError(f"13(c) tuned vs heuristic logits RMS {d_tuned} > "
+                             f"{PROMPT_LOGIT_FLOOR_FACTOR} x {d_floor}")
+    out["logits"] = {"rms_tuned_vs_heuristic": d_tuned, "rms_plain_vs_heuristic": d_floor,
+                     "argmax_agreement": arg}
+    hs, ts = out["heuristic_step"], out["tuned_step"]
+    log(f"13(c) 4-row decode step: heuristic {hs['wall_ms']:.3f} ms wall, busy {hs['busy_ms']} ms; "
+        f"tuned {ts['wall_ms']:.3f} ms wall, busy {ts['busy_ms']} ms (no gain claimed)")
+    # Cleared: the heuristic again, through no resolver at all.
+    prev = obs_metrics.set_enabled(True)
+    obs.reset()
+    ops.matmul(x, w)
+    obs_metrics.set_enabled(prev)
+    labels = obs.snapshot()["counters"]["gemm.calls"]
+    if ops.tile_source("cuda", 4, d, dq) != "heuristic" or \
+            list(labels) != ["backend=cuda,family=fp,fusion=default,shape=dense,tile=heuristic"]:
+        raise AssertionError(f"13(c) after clearing: {ops.tile_source('cuda', 4, d, dq)}, {labels}")
+    obs.reset()
+    ops.reset_tile_cache_stats()
+    out["host_us"]["no table"] = host_cost(x, w)
+    if sum(ops.tile_cache_stats()[k] for k in ("hits", "misses")):
+        raise AssertionError(f"13(c) no table: the member resolved plans {ops.tile_cache_stats()}")
+    obs.reset()
+    for state in ("table", "no table"):
+        log(f"13(c) host time a direct K1 call (4x{d} @ {d}x{dq}), {state}: " + ", ".join(
+            f"{k} {v:.2f} us" for k, v in out["host_us"][state].items()))
+    log("13(c) host time, the table path's pieces alone: " + ", ".join(
+        f"{k} {v:.3f} us" for k, v in out["host_us"]["pieces"].items()))
+
+    # (d) the CLI on two explicit shapes, its table reloaded.
+    cli_path = ROOT / "build" / "tune_cli.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.tune", "--shapes", f"4x{d}x{dq}",
+         f"4x{dff}x{d}", "--backends", "cuda", "--table", str(cli_path), "--fresh",
+         "--iters", str(TUNE_ITERS)],
+        env=env, capture_output=True, text=True, timeout=300, cwd=str(ROOT))
+    cli_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"13(d) tune CLI rc {res.returncode}: {res.stderr[-2000:]}")
+    cli_table = TuningTable.load(str(cli_path))
+    kinds = {e.key.device_kind for e in cli_table.entries}
+    if len(cli_table) != 2 or kinds != {torch.cuda.get_device_name(0).strip().lower()
+                                        .replace(" ", "-")}:
+        raise AssertionError(f"13(d) CLI table: {len(cli_table)} entries, kinds {kinds}")
+    for e in cli_table.entries:
+        importlib_k1().validate_plan(e.key.m, e.key.n, e.key.k, e.block, e.splits)
+    out["cli"] = {"seconds": cli_s, "entries": [e.to_json() for e in cli_table.entries]}
+    log(f"13(d) tune CLI on 2 shapes in {cli_s:.1f} s: " + "; ".join(
+        line.strip() for line in res.stdout.splitlines() if "best" in line))
+    for p_ in (path, cli_path):
+        p_.unlink()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
+def importlib_k1():
+    """The K1 module (the package exports the function under its name)."""
+    import importlib
+
+    return importlib.import_module("repro_torch.kernels.opope_gemm")
+
+
 def decode_profile(torch, step, step_ms, n_steps: int = 4, tag: str = "(d)",
                    what: str = "decode step"):
     """Device time by kernel over ``n_steps`` decode steps (torch.profiler),
@@ -3595,6 +3942,7 @@ def _leaves(tree):
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3650,6 +3998,10 @@ def main() -> int:
     _, prefix_eng = prompt_phase(torch, np, cfg, res["params"], ops, dev)
     telemetry_phase(torch, cfg, res["params"], ops, dev, prefix_eng)
     del prefix_eng
+    # Phase 13 on the resident weights; it clears its table, so phases
+    # 7-12 run on the heuristic plans.
+    gc.collect()
+    tune_record = tune_phase(torch, np, cfg, mcfg, res["params"], ops, dev)
 
     # One layer's 7 GEMMs of a 4-slot decode step (and of a 512-row
     # prefill), from the timed rows.
@@ -3944,6 +4296,22 @@ def main() -> int:
         log(f"{tag}: prefill logits kernels vs plain RMS {r['logits_rms']:.4g} (floor "
             f"{r['logits_floor_rms']:.4g}); q8 vs bf16 RMS {r['q8_vs_bf16']['rms']:.4g}; "
             f"decode step {r['decode_step_ms']:.3f} ms wall")
+    # Phase 13: each GEMM kernel's tuned cells; K1's tuned decode path.
+    for rec, kname in ((record, "K1"), (g_record, "K4"), (q8_records[0], "K2"),
+                       (q8_records[1], "K5")):
+        rec["tuning"] = {"cells": [r for r in tune_record["cells"] if r["kernel"] == kname],
+                         "winners_max_abs_err": tune_record["winners_max_abs_err"].get(kname),
+                         "timing": "device time (search.median_time_us: the median of "
+                                   f"{TUNE_ITERS} means over calls queued behind a sleeping "
+                                   "kernel), weights cold in L2"}
+    record["tuning"].update({k: tune_record[k] for k in (
+        "heuristic_step", "tuned_step", "logits", "host_us", "cli",
+        "seconds")})
+    record["launches_by_path"][f"{cfg.name} tuned decode (13(c))"] = tune_record["tuned_launches"]
+    record["launches"] += tune_record["tuned_launches"]
+    record["launches_by_route"]["sm90"] += tune_record["tuned_launches"]
+    log(f"the whole script took {time.perf_counter() - t_script:.1f} s (builds "
+        f"{sum(kbuild.BUILD_SECONDS.values()):.1f} s summed over sources, run together)")
     print(smi, flush=True)
     print(json.dumps({"kernels": [record, g_record] + q8_records + [k3_record, k6_record]}),
           flush=True)

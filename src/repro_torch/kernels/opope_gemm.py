@@ -19,6 +19,14 @@ cast to ``out_dtype`` at the end.
 * :func:`opope_gemm_plain` is ``a.float() @ b.float()`` (TF32 off) plus C,
   the same epilogue chain, one cast: the CPU path and the reference the
   kernel is held against on the card.
+
+The plan is the kernel's tuning knob (:mod:`repro_torch.tune`): a compiled
+tile configuration, named by its block ``(bm, bn, bk)``, and on the sm90
+route a K split count. :func:`candidate_plans` lists every legal sm90 plan of
+a shape, :func:`validate_plan` builds the plan of one knob or raises where
+the kernel cannot take it, and :func:`opope_gemm` takes a ``plan=`` whose
+knob it runs (re-planned for its operands; an illegal one raises, it never
+falls back).
 """
 
 from __future__ import annotations
@@ -27,14 +35,15 @@ import contextlib
 import ctypes
 import functools
 import math
-from typing import Dict, Iterator, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import build as _build
 from . import epilogue as _ep
 
-__all__ = ["opope_gemm", "opope_gemm_plain", "full_fp32", "MAX_EPILOGUE_STEPS"]
+__all__ = ["opope_gemm", "opope_gemm_plain", "full_fp32", "MAX_EPILOGUE_STEPS", "Plan",
+           "candidate_plans", "validate_plan", "SPLIT_LADDER"]
 
 MAX_EPILOGUE_STEPS = 8
 
@@ -94,6 +103,12 @@ def _launcher(route: str):
 _SM90_BK = 64
 _SM90_DECODE = (0, 64, 128, 8)
 _SM90_PREFILL = (1, 128, 128, 5)
+# Block (bm, bn, bk) -> (config code, stages): the tiles a plan may name.
+_SM90_BLOCKS = {(bm, bn, _SM90_BK): (code, stages)
+                for code, bm, bn, stages in (_SM90_DECODE, _SM90_PREFILL)}
+# K split counts the tuner tries (with the heuristic's own), each kept where
+# validate_plan takes it.
+SPLIT_LADDER = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
 _SM_COUNT = 132  # H100 SXM: one wave of the one-block-an-SM sm90 configs
 _MIN_SPLIT_PANELS = 4  # each split walks at least this many BK panels when it can
 _TILE = (64, 64, 32)  # the tile route's BM, BN, BK (csrc/opope_tile.cuh)
@@ -169,26 +184,96 @@ def _plan_aligned(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool) -> 
     return plan._replace(splits=splits, k_bounds=_split_bounds(k, _SM90_BK, splits))
 
 
+def _tma_ok(n: int, k: int, dtype: torch.dtype, aligned: bool) -> bool:
+    """Whether TMA tensor maps describe bf16 A [m, k] and B [k, n]: row
+    strides ``2k`` and ``2n`` bytes and bases multiples of 16, ``k > 0``."""
+    return (dtype == torch.bfloat16 and k > 0 and (2 * k) % 16 == 0 and (2 * n) % 16 == 0
+            and aligned)
+
+
+def _tile_plan(m: int, n: int, k: int) -> Plan:
+    bm, bn, bk = _TILE
+    return Plan("tile", -1, bm, bn, bk, 2, 1, -(-m // bm), -(-n // bn), (0, k))
+
+
 @functools.lru_cache(maxsize=4096)
 def _unsplit_plan(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool) -> Plan:
     """The route and tile of ``A[m,k] @ B[k,n]`` with K in one split: the
-    sm90 route for bf16 operands a TMA tensor map describes (row strides
-    ``2k`` and ``2n`` bytes and bases multiples of 16, ``k > 0``), the
-    64-row tile at ``m <= 64``, the 128-row one above; else the tile route.
-    The grouped kernel (K4) takes this plan for each of its groups."""
-    tma_ok = (dtype == torch.bfloat16 and k > 0 and (2 * k) % 16 == 0 and (2 * n) % 16 == 0
-              and aligned)
-    if not tma_ok:
-        bm, bn, bk = _TILE
-        return Plan("tile", -1, bm, bn, bk, 2, 1, -(-m // bm), -(-n // bn), (0, k))
+    sm90 route for bf16 operands a TMA tensor map describes (:func:`_tma_ok`),
+    the 64-row tile at ``m <= 64``, the 128-row one above; else the tile
+    route. The grouped kernel (K4) takes this plan for each of its groups."""
+    if not _tma_ok(n, k, dtype, aligned):
+        return _tile_plan(m, n, k)
     config, bm, bn, stages = _SM90_DECODE if m <= 64 else _SM90_PREFILL
     return Plan("sm90", config, bm, bn, _SM90_BK, stages, 1, -(-m // bm), -(-n // bn), (0, k))
 
 
+def validate_plan(m: int, n: int, k: int, block: Tuple[int, int, int], splits: int = 1, *,
+                  dtype: torch.dtype = torch.bfloat16, aligned: bool = True) -> Plan:
+    """The plan of ``A[m,k] @ B[k,n]`` on tile ``block`` (bm, bn, bk) with K
+    in ``splits`` splits, or ValueError naming the hard constraint it breaks.
+
+    ``block`` is a compiled tile: one of the sm90 route's configurations
+    (64x128 and 128x128, BK 64) or the tile route's 64x64x32. The sm90 route
+    takes only operands :func:`_tma_ok` passes; every split walks at least
+    one BK panel; a split plan has at most ``_N_COUNTERS`` output tiles (one
+    split-K counter each); the tile route never splits."""
+    return _validated(m, n, k, tuple(block), splits, dtype, aligned)
+
+
+@functools.lru_cache(maxsize=4096)
+def _validated(m: int, n: int, k: int, block: Tuple[int, int, int], splits: int,
+               dtype: torch.dtype, aligned: bool) -> Plan:
+    # validate_plan's body, memoized on positional arguments: the kernel
+    # checks every plan it is handed here, once per call.
+    if splits < 1:
+        raise ValueError(f"splits {splits} < 1")
+    if block == _TILE:
+        if splits != 1:
+            raise ValueError(f"the tile route never splits K (splits {splits})")
+        return _tile_plan(m, n, k)
+    if block not in _SM90_BLOCKS:
+        raise ValueError(f"block {block} is not a compiled tile: sm90 {sorted(_SM90_BLOCKS)} "
+                         f"or tile {_TILE}")
+    if not _tma_ok(n, k, dtype, aligned):
+        raise ValueError(f"the sm90 route does not take these operands ({dtype}, K {k}, N {n}, "
+                         f"bases {'' if aligned else 'not '}16-byte aligned)")
+    config, stages = _SM90_BLOCKS[block]
+    bm, bn, bk = block
+    m_tiles, n_tiles = -(-m // bm), -(-n // bn)
+    panels = -(-k // bk)
+    if splits > panels:
+        raise ValueError(f"{splits} splits of {panels} K panels: a split would be empty")
+    if splits > 1 and m_tiles * n_tiles > _N_COUNTERS:
+        raise ValueError(f"{m_tiles * n_tiles} output tiles > {_N_COUNTERS} split-K counters")
+    return Plan("sm90", config, bm, bn, bk, stages, splits, m_tiles, n_tiles,
+                _split_bounds(k, bk, splits))
+
+
+def candidate_plans(m: int, n: int, k: int, *, dtype: torch.dtype = torch.bfloat16,
+                    aligned: bool = True) -> List[Plan]:
+    """Every legal sm90 plan of ``A[m,k] @ B[k,n]``: each compiled sm90
+    tile with each split count of :data:`SPLIT_LADDER` and the heuristic's
+    own that :func:`validate_plan` takes. Empty where the sm90 route does
+    not take the operands (the tile route's one plan has nothing to tune)."""
+    if not _tma_ok(n, k, dtype, aligned):
+        return []
+    heuristic = _plan_aligned(m, n, k, dtype, aligned)
+    out = []
+    for block in _SM90_BLOCKS:
+        for splits in sorted(set(SPLIT_LADDER) | {heuristic.splits}):
+            try:
+                out.append(validate_plan(m, n, k, block, splits, dtype=dtype, aligned=aligned))
+            except ValueError:
+                continue
+    return out
+
+
 # One zeroed split-K counter per output tile, kept per (device, stream):
 # calls on one stream run in order and each leaves the counters it used at
-# zero; calls on two streams get two buffers. A call splits only when two
-# or more splits of its tiles fit one wave, so it has at most _SM_COUNT // 2.
+# zero; calls on two streams get two buffers. The heuristic splits only when
+# two or more splits of its tiles fit one wave, so it has at most
+# _SM_COUNT // 2 tiles; validate_plan holds a forced split plan to the same.
 _N_COUNTERS = _SM_COUNT // 2
 _COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
@@ -294,6 +379,7 @@ def opope_gemm(
     out_dtype: Optional[torch.dtype] = None,
     epilogue: Tuple[str, ...] = (),
     epilogue_operands: Tuple[torch.Tensor, ...] = (),
+    plan: Optional[Plan] = None,
 ) -> torch.Tensor:
     """``O = epilogue(A @ B (+ C))`` on the hand-written CUDA kernel.
 
@@ -302,20 +388,34 @@ def opope_gemm(
     carries one canonical operand per operand-taking step (scalar ``(1,1)``,
     row ``(1,N)``, full ``(M,N)``). ``out_dtype`` is bf16, fp16 or fp32, or
     int8 behind ``requant_int8``; it defaults to ``a.dtype``. The route is
-    :func:`_plan`'s.
+    :func:`_plan`'s, or ``plan``'s tile and split count (:func:`validate_plan`
+    on these operands; ValueError where the kernel cannot take it, on the CPU
+    too).
     """
     if a.device.type == "cpu":
+        if plan is not None:
+            _forced(plan, a.shape[0], b.shape[1], a.shape[1], a, b)
         return opope_gemm_plain(
             a, b, c, out_dtype=out_dtype, epilogue=epilogue,
             epilogue_operands=epilogue_operands,
         )
-    return _run(a, b, c, out_dtype, epilogue, epilogue_operands)
+    return _run(a, b, c, out_dtype, epilogue, epilogue_operands, plan=plan)
 
 
-def _run(a, b, c, out_dtype, epilogue, epilogue_operands, route: Optional[str] = None):
-    """One launch on the planned route; ``route`` forces one (``"tile"``
-    takes every operand the kernels take; ``"sm90"`` raises where the plan
-    is not sm90), so a caller can time the two routes on the same call."""
+def _forced(plan: Plan, m: int, n: int, k: int, a: torch.Tensor, b: torch.Tensor) -> Plan:
+    """``plan``'s knob re-planned for ``A[m,k] @ B[k,n]`` on these operands
+    (their dtype and bases' alignment): one memo lookup, as :func:`_plan`;
+    ValueError where illegal."""
+    return _validated(m, n, k, (plan.bm, plan.bn, plan.bk), plan.splits, a.dtype,
+                      a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+
+
+def _run(a, b, c, out_dtype, epilogue, epilogue_operands, route: Optional[str] = None,
+         plan: Optional[Plan] = None):
+    """One launch on the planned route, or on ``plan``'s knob; ``route``
+    forces one (``"tile"`` takes every operand the kernels take; ``"sm90"``
+    raises where the plan is not sm90), so a caller can time the two routes
+    on the same call."""
     if a.device.type != "cuda":
         raise ValueError(f"opope_gemm runs on cuda tensors, got {a.device}")
     out_dtype = out_dtype or a.dtype
@@ -328,7 +428,10 @@ def _run(a, b, c, out_dtype, epilogue, epilogue_operands, route: Optional[str] =
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    plan = _plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr())
+    if plan is None:
+        plan = _plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr())
+    else:
+        plan = _forced(plan, m, n, k, a, b)
     if route == "sm90" and plan.route != "sm90":
         raise ValueError(f"the sm90 route does not take this call ({plan})")
     route = route or plan.route

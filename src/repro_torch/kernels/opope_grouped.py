@@ -22,13 +22,17 @@ and one cast to ``out_dtype`` at the end.
 * :func:`opope_gemm_grouped_plain` is ``torch.bmm`` in fp32 (TF32 off) plus
   C, the same epilogue chain, one cast: the CPU path and the reference the
   kernel is held against on the card.
+
+The tuning knob is the tile alone (K never splits): :func:`candidate_plans`
+and :func:`validate_plan` as K1's, and a ``plan=`` on
+:func:`opope_gemm_grouped` whose tile the launch runs (an illegal one raises).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -38,13 +42,17 @@ from .opope_gemm import (
     _DTYPE_CODES,
     _Epilogue,
     Plan,
+    _SM90_BLOCKS,
     _check_launch_operands,
     _epilogue_struct,
+    _tma_ok,
     _unsplit_plan,
     full_fp32,
 )
+from .opope_gemm import _validated as _k1_validated
 
-__all__ = ["opope_gemm_grouped", "opope_gemm_grouped_plain"]
+__all__ = ["opope_gemm_grouped", "opope_gemm_grouped_plain", "candidate_plans",
+           "validate_plan"]
 
 
 def _launcher(route: str):
@@ -84,10 +92,40 @@ def _plan(m: int, n: int, k: int, dtype: torch.dtype, a_ptr: int, b_ptr: int) ->
 
 @functools.lru_cache(maxsize=1024)
 def _plan_aligned(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool) -> Plan:
-    plan = _unsplit_plan(m, n, k, dtype, aligned)
+    return _grouped_stages(_unsplit_plan(m, n, k, dtype, aligned))
+
+
+def _grouped_stages(plan: Plan) -> Plan:
     if plan.route == "sm90" and plan.config == 0:
-        plan = plan._replace(stages=_SM90_DECODE_STAGES)
+        return plan._replace(stages=_SM90_DECODE_STAGES)
     return plan
+
+
+def validate_plan(m: int, n: int, k: int, block: Tuple[int, int, int], splits: int = 1, *,
+                  dtype: torch.dtype = torch.bfloat16, aligned: bool = True) -> Plan:
+    """The plan of every group's ``A[g][m,k] @ B[g][k,n]`` on tile
+    ``block``, or ValueError naming the hard constraint it breaks: K1's
+    (:func:`repro_torch.kernels.opope_gemm.validate_plan`), and K never
+    split."""
+    return _validated(m, n, k, tuple(block), splits, dtype, aligned)
+
+
+@functools.lru_cache(maxsize=1024)
+def _validated(m: int, n: int, k: int, block: Tuple[int, int, int], splits: int,
+               dtype: torch.dtype, aligned: bool) -> Plan:
+    if splits != 1:
+        raise ValueError(f"the grouped kernel never splits K (splits {splits})")
+    return _grouped_stages(_k1_validated(m, n, k, block, 1, dtype, aligned))
+
+
+def candidate_plans(m: int, n: int, k: int, *, dtype: torch.dtype = torch.bfloat16,
+                    aligned: bool = True) -> List[Plan]:
+    """Every legal sm90 plan of the groups' ``A[g][m,k] @ B[g][k,n]``: each
+    compiled sm90 tile, K unsplit. Empty where the sm90 route does not take
+    the operands."""
+    if not _tma_ok(n, k, dtype, aligned):
+        return []
+    return [validate_plan(m, n, k, block, dtype=dtype, aligned=aligned) for block in _SM90_BLOCKS]
 
 
 def _check_shapes(a, b, c, out_dtype, epilogue, epilogue_operands):
@@ -136,6 +174,7 @@ def opope_gemm_grouped(
     out_dtype: Optional[torch.dtype] = None,
     epilogue: Tuple[str, ...] = (),
     epilogue_operands: Tuple[torch.Tensor, ...] = (),
+    plan: Optional[Plan] = None,
 ) -> torch.Tensor:
     """``O[g] = epilogue(A[g] @ B[g] (+ C[g]))`` on the hand-written CUDA
     kernel, every group in one launch.
@@ -144,20 +183,34 @@ def opope_gemm_grouped(
     c: [G, M, N] or [G, N]. ``epilogue_operands`` carries one canonical
     operand per operand-taking step (scalar ``(1,1,1)``, row ``(G,1,N)``,
     full ``(G,M,N)``). ``out_dtype`` is bf16, fp16 or fp32, or int8 behind
-    ``requant_int8``; it defaults to ``a.dtype``. The route is :func:`_plan`'s.
+    ``requant_int8``; it defaults to ``a.dtype``. The route is :func:`_plan`'s,
+    or ``plan``'s tile (:func:`validate_plan` on these operands; ValueError
+    where the kernel cannot take it, on the CPU too).
     """
     if a.device.type == "cpu":
+        if plan is not None:
+            _forced(plan, a.shape[1], b.shape[2], a.shape[2], a, b)
         return opope_gemm_grouped_plain(
             a, b, c, out_dtype=out_dtype, epilogue=epilogue,
             epilogue_operands=epilogue_operands,
         )
-    return _run(a, b, c, out_dtype, epilogue, epilogue_operands)
+    return _run(a, b, c, out_dtype, epilogue, epilogue_operands, plan=plan)
 
 
-def _run(a, b, c, out_dtype, epilogue, epilogue_operands, route: Optional[str] = None):
-    """One launch on the planned route; ``route`` forces one (``"tile"``
-    takes every operand the kernels take; ``"sm90"`` raises where the plan
-    is not sm90), so a caller can time the two routes on the same call."""
+def _forced(plan: Plan, m: int, n: int, k: int, a: torch.Tensor, b: torch.Tensor) -> Plan:
+    """``plan``'s tile re-planned for each group's ``A[m,k] @ B[k,n]`` on
+    these operands: one memo lookup, as :func:`_plan`; ValueError where
+    illegal."""
+    return _validated(m, n, k, (plan.bm, plan.bn, plan.bk), plan.splits, a.dtype,
+                      a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+
+
+def _run(a, b, c, out_dtype, epilogue, epilogue_operands, route: Optional[str] = None,
+         plan: Optional[Plan] = None):
+    """One launch on the planned route, or on ``plan``'s tile; ``route``
+    forces one (``"tile"`` takes every operand the kernels take; ``"sm90"``
+    raises where the plan is not sm90), so a caller can time the two routes
+    on the same call."""
     if a.device.type != "cuda":
         raise ValueError(f"opope_gemm_grouped runs on cuda tensors, got {a.device}")
     out_dtype = out_dtype or a.dtype
@@ -172,7 +225,10 @@ def _run(a, b, c, out_dtype, epilogue, epilogue_operands, route: Optional[str] =
     out = torch.empty((g, m, n), dtype=out_dtype, device=a.device)
     if g == 0 or m == 0 or n == 0:
         return out
-    plan = _plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr())
+    if plan is None:
+        plan = _plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr())
+    else:
+        plan = _forced(plan, m, n, k, a, b)
     if route == "sm90" and plan.route != "sm90":
         raise ValueError(f"the sm90 route does not take this call ({plan})")
     route = route or plan.route

@@ -50,14 +50,41 @@ product's fp32 accumulator recompute on its full-precision
 pre-quantized activation is a serving-only lane (the reference's has no
 vjp): under autograd it raises ``NotImplementedError``.
 
+Plans (the reference's tile path, ``repro.kernels.ops._tile_for``): the
+``cuda`` and ``cuda_q8`` members run K1, K4, K2 and K5 on the plan that
+:func:`_tile_for` resolves, a memoized (LRU, ``_TILE_CACHE_CAP``) pure
+function of backend, shape family, (M, K, N, G), element width and the
+operands' 16-byte alignment, **tuned table first, heuristic second**: the
+active tuning table (:mod:`repro_torch.tune`, ``REPRO_TUNE_TABLE``) names a
+measured tile and K split count for this device kind, validated against the
+kernel's hard constraints (an illegal entry warns and the heuristic serves);
+on a miss the backend's ``tile_fn`` gives the kernel module's own ``_plan``.
+With no table loaded the members skip the resolver and call the kernel
+without a plan, so it runs its own ``_plan`` exactly as it did before
+tuning, at no added host cost. The backward GEMMs of :class:`_Matmul` and
+:class:`_GroupedMatmul` call the same members, so they resolve the same way.
+:func:`tile_source` and :func:`fusion_source` report which path decided a
+shape; a tuned ``fuse_epilogue=False`` sends an epilogue'd call down the
+post-hoc lane. :func:`capture_shapes` records every GEMM shape its thread
+routes through the registry; a call on ``meta`` tensors then computes
+nothing and returns an empty result of the right shape and dtype (the
+tuner's zero-FLOP harvest, :mod:`repro_torch.tune.capture`), a call on any
+other device computes as always.
+
 Telemetry (:mod:`repro_torch.obs`, host-side only): every entry-point call
 counts into ``gemm.calls`` (labels ``backend``, ``family``, ``shape``
-dense/grouped, ``tile`` and ``fusion``) and, under
-:class:`repro_torch.obs.attr.capture_gemms`, appends a ``GemmRecord``. The
-port has no tuning table, so ``tile`` is always ``"heuristic"`` and
-``fusion`` ``"default"`` (every backend runs the epilogue at its
-writeback). Inside an engine's quiet step scope (a step key's later
-dispatches) the call pays none of this; see :mod:`repro_torch.obs.attr`.
+dense/grouped, ``tile`` tuned/heuristic and ``fusion`` tuned/default, or
+none for a backend that does not fuse) and, under
+:class:`repro_torch.obs.attr.capture_gemms`, appends a ``GemmRecord``; every
+plan resolution (while a table is loaded) counts into ``tile.lookups`` (hit
+or miss of the memo) and feeds the miss-streak seam (:func:`on_miss_streak`),
+and
+:func:`repro_torch.obs.attr.observe_step` feeds tuned shapes' roofline
+fractions to the drift seam (:func:`on_util_gap`, counter
+``gemm.util_gap_observations``); both default to
+:func:`repro_torch.tune.retune.retune_candidate`. Inside an engine's quiet
+step scope (a step key's later dispatches) a call pays none of the counters;
+see :mod:`repro_torch.obs.attr`.
 ``REPRO_AUDIT=N`` re-executes one in N direct q8-family calls on the
 backend's ``grad_backend`` (:mod:`repro_torch.obs.audit`); calls inside an
 engine step, and calls that run under autograd (the reference's traced
@@ -66,9 +93,13 @@ calls under ``jax.grad``), are never audited.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import math
-from typing import Callable, Dict, List, Optional
+import threading
+import warnings
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -77,9 +108,16 @@ from repro_torch import obs as _obs
 from repro_torch.obs import attr as _attr
 
 from . import epilogue as _epi
-from .opope_gemm import opope_gemm, opope_gemm_plain
+from .opope_gemm import Plan, opope_gemm, opope_gemm_plain
+from .opope_gemm import _plan_aligned as _k1_plan
+from .opope_gemm import validate_plan as _k1_validate_plan
 from .opope_grouped import opope_gemm_grouped, opope_gemm_grouped_plain
+from .opope_grouped import _plan_aligned as _k4_plan
+from .opope_grouped import validate_plan as _k4_validate_plan
 from repro_torch.quant import backends as _q8
+from repro_torch.quant.opope_q8 import _plan_aligned as _k2_plan
+from repro_torch.quant.opope_q8 import _plan_grouped_aligned as _k5_plan
+from repro_torch.quant.opope_q8 import validate_plan as _q8_validate_plan
 from repro_torch.quant.quantize import QuantizedTensor
 
 __all__ = [
@@ -94,6 +132,19 @@ __all__ = [
     "matmul",
     "linear",
     "grouped_matmul",
+    "epilogue_capable",
+    "fusion_source",
+    "tunable_backends",
+    "tile_for",
+    "tile_source",
+    "heuristic_tile",
+    "tile_cache_info",
+    "tile_cache_stats",
+    "reset_tile_cache_stats",
+    "on_miss_streak",
+    "on_util_gap",
+    "clear_tile_cache",
+    "capture_shapes",
 ]
 
 
@@ -105,7 +156,8 @@ class Backend:
     ``epilogue_operands=`` too where ``epilogue_fused``; the device type it
     runs on (None for any), its numerics family (``"fp"``/``"q8"``), the
     full-precision backend its gradients will run on (``grad_backend``, for
-    quantized members), and its call counts."""
+    quantized members), its plan heuristic and validator (``tile_fn``, None
+    for a backend with no tile knob), and its call counts."""
 
     name: str
     fn: Callable[..., torch.Tensor]
@@ -114,16 +166,74 @@ class Backend:
     family: str = "fp"
     grad_backend: Optional[str] = None
     epilogue_fused: bool = False
+    tile_fn: Optional[Callable[..., Plan]] = None
     calls: int = 0
     grouped_calls: int = 0
 
 
+def _fp_tile(shape_family: str, m: int, k: int, n: int, *, itemsize: int,
+             aligned: bool = True, block=None, splits: int = 1) -> Plan:
+    """The ``cuda`` backend's ``tile_fn``: K1's plan (``"dense"``) or K4's
+    (``"grouped"``) for bf16 operands (fp32 at ``itemsize`` 4). Without
+    ``block`` the kernel module's heuristic; with one, the plan of that tile
+    and split count, validated (ValueError where the kernel cannot take it)."""
+    dtype = torch.float32 if itemsize == 4 else torch.bfloat16
+    grouped = shape_family == "grouped"
+    if block is None:
+        return (_k4_plan if grouped else _k1_plan)(m, n, k, dtype, aligned)
+    validate = _k4_validate_plan if grouped else _k1_validate_plan
+    return validate(m, n, k, tuple(block), splits, dtype=dtype, aligned=aligned)
+
+
+def _q8_tile(shape_family: str, m: int, k: int, n: int, *, itemsize: int = 1,
+             aligned: bool = True, block=None, splits: int = 1) -> Plan:
+    """The ``cuda_q8`` backend's ``tile_fn``: K2's plan (``"dense"``) or
+    K5's (``"grouped"``) on the int8 operands, as :func:`_fp_tile`."""
+    grouped = shape_family == "grouped"
+    if block is None:
+        return (_k5_plan if grouped else _k2_plan)(m, n, k, aligned)
+    return _q8_validate_plan(m, n, k, tuple(block), splits, aligned=aligned, grouped=grouped)
+
+
+def _planned(name: str, kernel: Callable[..., torch.Tensor], grouped: bool, q8: bool
+             ) -> Callable[..., torch.Tensor]:
+    """The member of backend ``name`` that runs ``kernel`` on the plan
+    :func:`_tile_for` resolves for its operands (the reference's
+    ``_pallas_fn``). With no table loaded it passes no plan: the kernel runs
+    its own ``_plan``, the path before tuning. A q8 member quantizes A and B
+    into fresh (aligned) int8 tensors, so only a pre-quantized A's own
+    values set its alignment. An empty product plans nothing (the kernels
+    return before planning)."""
+    shape_family = "grouped" if grouped else "dense"
+
+    def run(a, b, c=None, **kw):
+        if _tuning_table() is None:
+            return kernel(a, b, c, **kw)
+        x = getattr(a, "q", a)
+        if q8:
+            aligned, itemsize = x is a or x.data_ptr() % 16 == 0, 1
+        else:
+            aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+            itemsize = a.element_size()
+        m, k, n = x.shape[-2], x.shape[-1], b.shape[-1]
+        groups = x.shape[0] if grouped else 0
+        plan = None
+        if m and n and (groups or not grouped):
+            plan = _tile_for(m, k, n, itemsize, shape_family, groups, name, aligned=aligned)
+        return kernel(a, b, c, plan=plan, **kw)
+
+    return run
+
+
 _REGISTRY: Dict[str, Backend] = {
-    "cuda": Backend("cuda", opope_gemm, opope_gemm_grouped, "cuda", epilogue_fused=True),
+    "cuda": Backend("cuda", _planned("cuda", opope_gemm, False, False),
+                    _planned("cuda", opope_gemm_grouped, True, False), "cuda",
+                    epilogue_fused=True, tile_fn=_fp_tile),
     "torch": Backend("torch", opope_gemm_plain, opope_gemm_grouped_plain, None,
                      epilogue_fused=True),
-    "cuda_q8": Backend("cuda_q8", _q8.cuda_q8, _q8.cuda_q8_grouped, "cuda",
-                       family="q8", grad_backend="cuda", epilogue_fused=True),
+    "cuda_q8": Backend("cuda_q8", _planned("cuda_q8", _q8.cuda_q8, False, True),
+                       _planned("cuda_q8", _q8.cuda_q8_grouped, True, True), "cuda",
+                       family="q8", grad_backend="cuda", epilogue_fused=True, tile_fn=_q8_tile),
     "torch_q8": Backend("torch_q8", _q8.torch_q8, _q8.torch_q8_grouped, None,
                         family="q8", grad_backend="torch", epilogue_fused=True),
 }
@@ -138,6 +248,7 @@ def register_backend(
     family: str = "fp",
     grad_backend: Optional[str] = None,
     epilogue_fused: bool = False,
+    tile_fn: Optional[Callable[..., Plan]] = None,
 ) -> None:
     """Register (or replace) a GEMM backend, as the reference's
     ``register_backend``.
@@ -151,15 +262,22 @@ def register_backend(
     the backend its backward GEMMs run on (itself when None).
     ``epilogue_fused=True`` declares that both take ``epilogue=`` and
     ``epilogue_operands=`` and run the chain at their writeback; every
-    other backend gets the post-hoc lane. The reference's ``available``,
-    ``fallback`` and ``tile_fn`` have no counterpart: there are no chains,
-    and no tuned tiles."""
+    other backend gets the post-hoc lane. ``tile_fn(shape_family, m, k, n,
+    *, itemsize, aligned=True, block=None, splits=1) -> Plan`` is the plan
+    heuristic (without ``block``) and validator (with one: ValueError where
+    the kernel cannot take that tile and split count); registering one
+    makes the backend tunable, its members resolving plans through
+    :func:`_tile_for`, tuned table first. The reference's ``available`` and
+    ``fallback`` have no counterpart: there are no chains."""
     if not callable(fn):
         raise TypeError(f"backend fn for {name!r} is not callable")
     if grouped is not None and not callable(grouped):
         raise TypeError(f"grouped member for {name!r} is not callable")
+    if tile_fn is not None and not callable(tile_fn):
+        raise TypeError(f"tile_fn for {name!r} is not callable")
     _REGISTRY[name] = Backend(name, fn, grouped, device_type, family=family,
-                              grad_backend=grad_backend, epilogue_fused=epilogue_fused)
+                              grad_backend=grad_backend, epilogue_fused=epilogue_fused,
+                              tile_fn=tile_fn)
 
 
 def registered_backends() -> List[str]:
@@ -218,6 +336,432 @@ def grad_backend_of(name: str) -> str:
     return be.grad_backend if be is not None and be.grad_backend else name
 
 
+# ---------------------------------------------------------------------------
+# Plan resolution: tuned table first, heuristic second (the reference's
+# ``_tile_for``), with its telemetry and retune seams
+# ---------------------------------------------------------------------------
+
+# Cap on the plan memo: a serving process sees an unbounded stream of
+# (prompt bucket x layer) shapes; LRU eviction bounds it.
+_TILE_CACHE_CAP = 512
+
+# The loaded tuning table (repro_torch.tune.table.TuningTable or None),
+# read once on the first resolution and dropped by clear_tile_cache().
+_TUNE_STATE: Dict[str, object] = {"loaded": False, "table": None}
+
+# (backend, shape_family, m, k, n, groups, itemsize): the key the retune
+# seams receive, as the reference's.
+TileKey = Tuple[Optional[str], str, int, int, int, int, int]
+
+
+def _tuning_table():
+    if not _TUNE_STATE["loaded"]:
+        _TUNE_STATE["loaded"] = True
+        from repro_torch.tune.table import load_active_table
+
+        _TUNE_STATE["table"] = load_active_table()
+    return _TUNE_STATE["table"]
+
+
+def _tuned_tile(backend: Optional[str], family: str, m: int, k: int, n: int, groups: int,
+                itemsize: int, aligned: bool = True, warn: bool = True) -> Optional[Plan]:
+    """The tuning table's plan for this cell, validated by the backend's
+    ``tile_fn``; None without a table, an entry, a tile knob, or aligned
+    operands (the tuner measures aligned ones). An entry the kernel cannot
+    take (an uncompiled tile, a split over the counters, a split of K4 or
+    K5, operands the route refuses) warns and gives None: the table is
+    untrusted input."""
+    be = _REGISTRY.get(backend) if backend else None
+    if be is None or be.tile_fn is None or not aligned:
+        return None
+    table = _tuning_table()
+    if table is None:
+        return None
+    entry = table.lookup_entry(backend=backend, shape_family=family, m=m, k=k, n=n,
+                               g=groups, itemsize=itemsize)
+    if entry is None:
+        return None
+    try:
+        return be.tile_fn(family, m, k, n, itemsize=itemsize, aligned=True,
+                          block=entry.block, splits=entry.splits)
+    except ValueError as e:
+        if warn:
+            warnings.warn(
+                f"tuning-table entry {entry.block} x {entry.splits} splits for backend "
+                f"{backend!r} ({family} {m}x{k}x{n}, g={groups}) violates kernel "
+                f"constraints ({e}); using the heuristic instead",
+                RuntimeWarning, stacklevel=3,
+            )
+        return None
+
+
+# Resettable lookup telemetry (the LRU's own totals cannot be zeroed without
+# dropping the memo): hits and misses feed ``tile.lookups``, the consecutive
+# miss streak the on_miss_streak seam.
+_TILE_STATS_LOCK = threading.Lock()
+_TILE_STATS = {"hits": 0, "misses": 0, "streak": 0}
+_MISS_STREAK_HOOK: Dict[str, object] = {"fn": None, "threshold": 8}
+
+
+def on_miss_streak(callback: Optional[Callable[[TileKey, int], None]] = None, *,
+                   threshold: int = 8) -> None:
+    """Register the sustained plan-memo-miss callback (the auto-retune seam).
+
+    ``callback(key, streak)`` fires when ``threshold`` consecutive plan
+    resolutions miss the memo, and again at every further multiple while the
+    streak lasts; ``key`` is ``(backend, shape_family, m, k, n, groups,
+    itemsize)``. ``None`` restores the default hook
+    (:func:`repro_torch.tune.retune.retune_candidate`: count and log, never
+    retune). Exceptions in the callback are swallowed."""
+    if threshold < 1:
+        raise ValueError("miss-streak threshold must be >= 1")
+    _MISS_STREAK_HOOK["fn"] = callback
+    _MISS_STREAK_HOOK["threshold"] = int(threshold)
+
+
+def _default_miss_streak(key: TileKey, streak: int) -> None:
+    from repro_torch.tune.retune import retune_candidate
+
+    retune_candidate(key, streak)
+
+
+def _note_tile_lookup(missed: bool, key: TileKey) -> None:
+    with _TILE_STATS_LOCK:
+        if missed:
+            _TILE_STATS["misses"] += 1
+            _TILE_STATS["streak"] += 1
+            streak = _TILE_STATS["streak"]
+        else:
+            _TILE_STATS["hits"] += 1
+            _TILE_STATS["streak"] = 0
+            streak = 0
+    if _obs.enabled() and not _attr.step_quiet():
+        _obs.counter("tile.lookups", result="miss" if missed else "hit").inc()
+    if missed:
+        thr = int(_MISS_STREAK_HOOK["threshold"])  # type: ignore[arg-type]
+        if streak >= thr and streak % thr == 0:
+            fn = _MISS_STREAK_HOOK["fn"] or _default_miss_streak
+            try:
+                fn(key, streak)  # type: ignore[operator]
+            except Exception:
+                pass
+
+
+# The drift sibling: shapes the table covers whose live roofline fraction
+# (obs.attr.observe_step) keeps landing below a share of their own best.
+_UTIL_GAP_HOOK: Dict[str, object] = {"fn": None, "threshold": 0.5, "streak": 4}
+_UTIL_STREAKS: Dict[TileKey, int] = {}
+_UTIL_BEST: Dict[TileKey, float] = {}
+
+
+def on_util_gap(callback: Optional[Callable[[TileKey, int, float], None]] = None, *,
+                threshold: float = 0.5, streak: int = 4) -> None:
+    """Register the tuned-but-underperforming callback (the drift-retune seam).
+
+    Fed by :func:`repro_torch.obs.attr.observe_step`: each attributed
+    execution of a *tuned* GEMM class scores a roofline fraction; when a
+    key's fraction falls below ``threshold`` x its own best for ``streak``
+    consecutive observations, ``callback(key, streak_len, fraction)`` fires
+    (and at every further multiple). Relative to its own best, not absolute:
+    on the card the fraction is host wall time apportioned, so drift is a
+    shape doing worse than itself. ``None`` restores the default hook
+    (``retune_candidate(..., reason="util_gap")``); exceptions are swallowed;
+    heuristic-planned observations only reset the streak."""
+    if not (0.0 < threshold <= 1.0):
+        raise ValueError("util-gap threshold must be in (0, 1]")
+    if streak < 1:
+        raise ValueError("util-gap streak must be >= 1")
+    _UTIL_GAP_HOOK["fn"] = callback
+    _UTIL_GAP_HOOK["threshold"] = float(threshold)
+    _UTIL_GAP_HOOK["streak"] = int(streak)
+
+
+def _default_util_gap(key: TileKey, streak: int, fraction: float) -> None:
+    from repro_torch.tune.retune import retune_candidate
+
+    retune_candidate(key, streak, reason="util_gap")
+
+
+def _note_util_observation(key: TileKey, fraction: float, source: str) -> None:
+    """One attributed utilization observation for ``key`` (obs.attr calls
+    this). Only tuned plans advance the gap streak."""
+    if source != "tuned":
+        _UTIL_STREAKS.pop(key, None)
+        return
+    with _TILE_STATS_LOCK:
+        best = _UTIL_BEST.get(key, 0.0)
+        if fraction > best:
+            _UTIL_BEST[key] = best = fraction
+        thr = float(_UTIL_GAP_HOOK["threshold"])  # type: ignore[arg-type]
+        if best > 0.0 and fraction < thr * best:
+            streak = _UTIL_STREAKS.get(key, 0) + 1
+            _UTIL_STREAKS[key] = streak
+        else:
+            _UTIL_STREAKS.pop(key, None)
+            return
+    if _obs.enabled():
+        _obs.counter("gemm.util_gap_observations").inc()
+    need = int(_UTIL_GAP_HOOK["streak"])  # type: ignore[arg-type]
+    if streak >= need and streak % need == 0:
+        fn = _UTIL_GAP_HOOK["fn"] or _default_util_gap
+        try:
+            fn(key, streak, fraction)  # type: ignore[operator]
+        except Exception:
+            pass
+
+
+def _heuristic(backend: Optional[str], family: str, m: int, k: int, n: int, itemsize: int,
+               aligned: bool) -> Plan:
+    """The backend's ``tile_fn`` heuristic; a backend with no tile knob
+    gets the ``cuda`` members' (the reference's default-block-shape rule)."""
+    be = _REGISTRY.get(backend) if backend else None
+    tile_fn = be.tile_fn if be is not None and be.tile_fn is not None else _fp_tile
+    return tile_fn(family, m, k, n, itemsize=itemsize, aligned=aligned)
+
+
+CacheInfo = collections.namedtuple("CacheInfo", "hits misses maxsize currsize")
+
+
+class _TileResolver:
+    """The memoized plan resolver behind :func:`_tile_for`: an LRU over
+    (m, k, n, itemsize, shape family, groups, backend, aligned) whose every
+    call notes hit or miss (:func:`tile_cache_stats`, ``tile.lookups``, the
+    miss streak). A grouped GEMM never shares a slot, or a table entry, with
+    a dense one of the same (M, K, N). Tuned table first, the backend's
+    ``tile_fn`` heuristic second. Every GEMM a member runs resolves here, so
+    a hit is a dict lookup (no ``lru_cache`` bookkeeping to read back)."""
+
+    def __init__(self, maxsize: int) -> None:
+        self.maxsize = maxsize
+        self._memo: "collections.OrderedDict[tuple, Plan]" = collections.OrderedDict()
+        self._lock = threading.Lock()
+        self._hits = self._misses = 0
+
+    @staticmethod
+    def _resolve(m: int, k: int, n: int, itemsize: int, family: str, groups: int,
+                 backend: Optional[str], aligned: bool) -> Plan:
+        tuned = _tuned_tile(backend, family, m, k, n, groups, itemsize, aligned)
+        if tuned is not None:
+            return tuned
+        return _heuristic(backend, family, m, k, n, itemsize, aligned)
+
+    def __call__(self, m: int, k: int, n: int, itemsize: int, family: str = "dense",
+                 groups: int = 0, backend: Optional[str] = None, *,
+                 aligned: bool = True) -> Plan:
+        key = (m, k, n, itemsize, family, groups, backend, aligned)
+        with self._lock:
+            plan = self._memo.get(key)
+            if plan is not None:
+                self._memo.move_to_end(key)
+                self._hits += 1
+        missed = plan is None
+        if missed:
+            plan = self._resolve(*key)
+            with self._lock:
+                self._memo[key] = plan
+                if len(self._memo) > self.maxsize:
+                    self._memo.popitem(last=False)
+                self._misses += 1
+        _note_tile_lookup(missed, (backend, family, m, k, n, groups, itemsize))
+        return plan
+
+    def cache_info(self) -> CacheInfo:
+        with self._lock:
+            return CacheInfo(self._hits, self._misses, self.maxsize, len(self._memo))
+
+    def cache_clear(self) -> None:
+        with self._lock:
+            self._memo.clear()
+            self._hits = self._misses = 0
+
+
+_tile_for = _TileResolver(maxsize=_TILE_CACHE_CAP)
+
+
+def tile_cache_info():
+    """CacheInfo of the plan memo (lifetime totals; currsize never exceeds
+    the cap). For resettable counts use :func:`tile_cache_stats`."""
+    return _tile_for.cache_info()
+
+
+def tile_cache_stats() -> Dict[str, int]:
+    """``hits``/``misses`` since :func:`reset_tile_cache_stats`, the current
+    ``miss_streak``, and the memo's ``currsize``/``maxsize``."""
+    info = _tile_for.cache_info()
+    with _TILE_STATS_LOCK:
+        return {"hits": _TILE_STATS["hits"], "misses": _TILE_STATS["misses"],
+                "miss_streak": _TILE_STATS["streak"], "currsize": info.currsize,
+                "maxsize": info.maxsize}
+
+
+def reset_tile_cache_stats() -> None:
+    """Zero the lookup counts, the miss streak and the util-gap state,
+    keeping the memo warm."""
+    with _TILE_STATS_LOCK:
+        _TILE_STATS.update(hits=0, misses=0, streak=0)
+        _UTIL_STREAKS.clear()
+        _UTIL_BEST.clear()
+
+
+def clear_tile_cache() -> None:
+    """Drop the plan memo, the fusion and label memos and the loaded
+    table: the next resolution re-reads ``REPRO_TUNE_TABLE`` (or the
+    default path). The miss streak resets too."""
+    _tile_for.cache_clear()
+    _fusion_for.cache_clear()
+    _labels.cache_clear()
+    _TUNE_STATE["loaded"] = False
+    _TUNE_STATE["table"] = None
+    with _TILE_STATS_LOCK:
+        _TILE_STATS["streak"] = 0
+
+
+def tunable_backends() -> List[str]:
+    """Registered backends with a tile knob (a ``tile_fn``)."""
+    return [name for name, be in _REGISTRY.items() if be.tile_fn is not None]
+
+
+def _tile_itemsize(backend: str, dtype: torch.dtype) -> int:
+    """Element width plan selection keys on: q8 backends stream int8."""
+    be = _REGISTRY.get(backend)
+    if be is not None and be.family == "q8":
+        return 1
+    return dtype.itemsize
+
+
+def tile_for(backend: str, m: int, k: int, n: int, *, groups: int = 0,
+             dtype: torch.dtype = torch.bfloat16) -> Plan:
+    """The plan ``backend`` would run this GEMM on, for aligned operands
+    (``groups=0``: dense; ``groups>0``: grouped, (m, k, n) per group)."""
+    family = "grouped" if groups else "dense"
+    return _tile_for(m, k, n, _tile_itemsize(backend, dtype), family, groups, backend)
+
+
+def tile_source(backend: str, m: int, k: int, n: int, *, groups: int = 0,
+                dtype: torch.dtype = torch.bfloat16) -> str:
+    """``"tuned"`` if the tuning table decides this shape's plan, else
+    ``"heuristic"`` (also for backends with no tile knob)."""
+    family = "grouped" if groups else "dense"
+    tuned = _tuned_tile(backend, family, m, k, n, groups, _tile_itemsize(backend, dtype))
+    return "tuned" if tuned is not None else "heuristic"
+
+
+def heuristic_tile(backend: str, m: int, k: int, n: int, *, groups: int = 0,
+                   dtype: torch.dtype = torch.bfloat16) -> Plan:
+    """The backend's ``tile_fn`` plan, bypassing any table (the tuner's
+    always-measured baseline)."""
+    family = "grouped" if groups else "dense"
+    return _heuristic(backend, family, m, k, n, _tile_itemsize(backend, dtype), True)
+
+
+def epilogue_capable(name: str) -> bool:
+    """Whether ``name``'s members run an epilogue at their writeback
+    (``epilogue_fused``); every other backend takes the post-hoc lane."""
+    be = _REGISTRY.get(name)
+    if be is None:
+        raise ValueError(
+            f"unknown matmul backend {name!r}; registered: {registered_backends()}"
+        )
+    return be.epilogue_fused
+
+
+def _fusion_verdict(backend: Optional[str], family: str, m: int, k: int, n: int,
+                    groups: int, itemsize: int) -> Optional[bool]:
+    table = _tuning_table()
+    if table is None:
+        return None
+    return table.lookup_fusion(backend=backend, shape_family=family, m=m, k=k, n=n,
+                               g=groups, itemsize=itemsize)
+
+
+@functools.lru_cache(maxsize=_TILE_CACHE_CAP)
+def _fusion_for(m: int, k: int, n: int, itemsize: int, family: str = "dense",
+                groups: int = 0, backend: Optional[str] = None) -> bool:
+    """Memoized fuse-or-not verdict for an epilogue-capable backend: the
+    table's measured ``fuse_epilogue`` first, fuse by default second."""
+    verdict = _fusion_verdict(backend, family, m, k, n, groups, itemsize)
+    return True if verdict is None else bool(verdict)
+
+
+def fusion_source(backend: str, m: int, k: int, n: int, *, groups: int = 0,
+                  dtype: torch.dtype = torch.bfloat16) -> str:
+    """``"tuned"`` if the tuning table decides fused-vs-post-hoc for this
+    shape on this backend, else ``"default"``."""
+    family = "grouped" if groups else "dense"
+    verdict = _fusion_verdict(backend, family, m, k, n, groups,
+                              _tile_itemsize(backend, dtype))
+    return "default" if verdict is None else "tuned"
+
+
+@functools.lru_cache(maxsize=_TILE_CACHE_CAP)
+def _labels(backend: str, shape_family: str, m: int, k: int, n: int, groups: int,
+            itemsize: int) -> Tuple[str, str]:
+    """The ``tile`` and ``fusion`` labels of ``gemm.calls`` for a cell,
+    memoized (an illegal entry warns once, from the resolver, not per call)."""
+    tile = "tuned" if _tuned_tile(backend, shape_family, m, k, n, groups, itemsize,
+                                  warn=False) is not None else "heuristic"
+    fusion = "none"
+    if _REGISTRY[backend].epilogue_fused:
+        verdict = _fusion_verdict(backend, shape_family, m, k, n, groups, itemsize)
+        fusion = "default" if verdict is None else "tuned"
+    return tile, fusion
+
+
+def _fused_here(be: Backend, a, b, grouped: bool) -> bool:
+    """Whether ``be`` fuses the chain for these operands (the tuned verdict;
+    with no table loaded, fused)."""
+    if _tuning_table() is None:
+        return True
+    x = getattr(a, "q", a)
+    return _fusion_for(x.shape[-2], x.shape[-1], b.shape[-1], _tile_itemsize(be.name, x.dtype),
+                       "grouped" if grouped else "dense", x.shape[0] if grouped else 0,
+                       be.name)
+
+
+# ---------------------------------------------------------------------------
+# Shape capture (the tuner's workload harvest)
+# ---------------------------------------------------------------------------
+
+# Each thread's open captures: a harvest in one thread neither records nor
+# changes another thread's calls.
+_SHAPE_CAPTURE = threading.local()
+
+
+def _captures() -> List[list]:
+    return getattr(_SHAPE_CAPTURE, "stack", ())
+
+
+class capture_shapes:
+    """Record every GEMM shape this thread routes through the registry inside
+    the block, as ``(shape_family, m, k, n, g, dtype_name)`` tuples in call
+    order (duplicates included). A call on ``meta`` tensors computes
+    nothing: it returns an empty result of the right shape and dtype, so
+    parameters and inputs on ``torch.device("meta")`` harvest a model's GEMM
+    workload with zero FLOPs (the port's ``jax.eval_shape``). A call on any
+    other device is recorded and computes as always. Nestable."""
+
+    def __enter__(self) -> List[Tuple[str, int, int, int, int, str]]:
+        self._records: List[Tuple[str, int, int, int, int, str]] = []
+        if not hasattr(_SHAPE_CAPTURE, "stack"):
+            _SHAPE_CAPTURE.stack = []
+        _SHAPE_CAPTURE.stack.append(self._records)
+        return self._records
+
+    def __exit__(self, *exc):
+        stack = _SHAPE_CAPTURE.stack
+        for i in range(len(stack) - 1, -1, -1):
+            if stack[i] is self._records:
+                del stack[i]
+                break
+        return False
+
+
+def _record_shape(family: str, m: int, k: int, n: int, g: int, dtype: torch.dtype) -> None:
+    rec = (family, int(m), int(k), int(n), int(g), _dtype_name(dtype))
+    for records in _captures():
+        records.append(rec)
+
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
@@ -243,13 +787,14 @@ def _member(be: Backend, grouped: bool) -> Callable[..., torch.Tensor]:
 
 def _run(be: Backend, a, b, c, out_dtype, steps, ep_ops, grouped: bool = False):
     """``epilogue(a @ b (+ c))`` on ``be``: the chain at the backend's
-    writeback where it fuses and every op has a kernel code, else the
-    post-hoc lane (an fp32 product, the chain, one cast). ``c`` is None
-    whenever ``steps`` is not empty (the entry points fold it in)."""
+    writeback where it fuses, every op has a kernel code and no tuned
+    ``fuse_epilogue=False`` says otherwise for the shape, else the post-hoc
+    lane (an fp32 product, the chain, one cast). ``c`` is None whenever
+    ``steps`` is not empty (the entry points fold it in)."""
     fn = _member(be, grouped)
     if not steps:
         return fn(a, b, c, out_dtype=out_dtype)
-    if be.epilogue_fused and _epi.fusable(steps):
+    if be.epilogue_fused and _epi.fusable(steps) and _fused_here(be, a, b, grouped):
         return fn(a, b, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ep_ops)
     acc = fn(a, b, c, out_dtype=torch.float32)
     return _epi.apply_epilogue(acc, steps, ep_ops).to(out_dtype)
@@ -354,19 +899,25 @@ def _note_gemm_call(
     only; a no-op with telemetry off or inside a quiet step scope."""
     if not _obs.enabled() or _attr.step_quiet():
         return
-    family = _REGISTRY[backend].family
+    be = _REGISTRY[backend]
+    family = be.family
+    itemsize = 1 if family == "q8" else dtype.itemsize
+    if _tuning_table() is None:
+        tile, fusion = "heuristic", "default" if be.epilogue_fused else "none"
+    else:
+        tile, fusion = _labels(backend, shape_family, int(m), int(k), int(n), int(groups),
+                               itemsize)
     _obs.counter(
         "gemm.calls", backend=backend, family=family, shape=shape_family,
-        tile="heuristic", fusion="default",
+        tile=tile, fusion=fusion,
     ).inc()
     if _attr.capturing():
         _attr.record_call(_attr.GemmRecord(
             shape_family=shape_family, backend=backend, family=family,
             m=int(m), k=int(k), n=int(n), g=int(groups),
             a_dtype=_dtype_name(dtype), b_dtype=_dtype_name(b_dtype),
-            out_dtype=_dtype_name(out_dtype), tile_source="heuristic",
-            tile_key=(backend, shape_family, int(m), int(k), int(n), int(groups),
-                      1 if family == "q8" else dtype.itemsize),
+            out_dtype=_dtype_name(out_dtype), tile_source=tile,
+            tile_key=(backend, shape_family, int(m), int(k), int(n), int(groups), itemsize),
         ))
 
 
@@ -420,6 +971,10 @@ def matmul(
     batch_shape = tuple(arr.shape[:-1])
     m = math.prod(batch_shape)
     n = b.shape[-1]
+    if _captures():
+        _record_shape("dense", m, arr.shape[-1], n, 0, arr.dtype)
+        if arr.device.type == "meta":
+            return torch.empty((*batch_shape, n), dtype=out_dtype, device=arr.device)
     _note_gemm_call("dense", name, m, arr.shape[-1], n, 0, arr.dtype, b.dtype, out_dtype)
     steps, raw_ops = _epi.normalize_epilogue(epilogue)
     if steps and c is not None:
@@ -509,6 +1064,10 @@ def grouped_matmul(
     out_dtype = out_dtype or a.dtype
     name = resolve_backend(backend, a.device)
     g, m, n = a.shape[0], a.shape[1], b.shape[2]
+    if _captures():
+        _record_shape("grouped", m, a.shape[2], n, g, a.dtype)
+        if a.device.type == "meta":
+            return torch.empty((g, m, n), dtype=out_dtype, device=a.device)
     _note_gemm_call("grouped", name, m, a.shape[2], n, g, a.dtype, b.dtype, out_dtype)
     steps, raw_ops = _epi.normalize_epilogue(epilogue)
     if steps and c is not None:

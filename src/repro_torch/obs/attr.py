@@ -1,8 +1,7 @@
 """Live utilization attribution: from "GEMMs ran" to "GEMMs ran *this well*".
 
-The port of :mod:`repro.obs.attr` (without its ``ops._note_util_observation``
-seam, which feeds tuning). Attribution works at the granularity a real
-wall-clock bracket exists:
+The port of :mod:`repro.obs.attr`. Attribution works at the granularity a
+real wall-clock bracket exists:
 
 1. A timed span owner (the continuous-batching engine's decode, prefill
    and chunk steps) runs a step key's first dispatch under
@@ -20,7 +19,8 @@ wall-clock bracket exists:
    histograms plus a ``gemm.device_seconds`` counter — the ranking feed for
    ``launch.stats top``. On the card the bracket is the host's wall time of
    an eagerly issued step, so the fraction reads how far the host keeps the
-   card from its bound.
+   card from its bound. Tuned entries also feed the drift-retune seam
+   (``kernels.ops._note_util_observation``, :func:`kernels.ops.on_util_gap`).
 
 **Step scopes.** The reference counts, captures and audits GEMMs at trace
 time inside ``jit``: once per compiled step, never per executed step. The
@@ -338,7 +338,8 @@ def observe_step(workload: StepWorkload, seconds: float) -> None:
     over its wall time. On the card, where a step is issued eagerly and not
     synchronized, ``gemm.device_seconds`` and ``gemm.achieved_gflops`` are
     host wall time apportioned by roofline cost, not device measurements:
-    a device time comes from a ``torch.profiler`` trace.
+    a device time comes from a ``torch.profiler`` trace. Tuned entries
+    additionally feed ``ops.on_util_gap`` drift detection.
     """
     if seconds <= 0.0 or not workload or not _metrics.enabled():
         return
@@ -363,3 +364,8 @@ def observe_step(workload: StepWorkload, seconds: float) -> None:
             "gemm.roofline_fraction", buckets=FRACTION_BUCKETS, **labels
         ).observe(fraction)
         _metrics.counter("gemm.device_seconds", **labels).inc(attributed)
+        if entry.tile_key is not None:
+            # Lazy import: ops imports this module.
+            from repro_torch.kernels import ops as _ops
+
+            _ops._note_util_observation(entry.tile_key, fraction, entry.tile_source)

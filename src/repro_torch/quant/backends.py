@@ -9,7 +9,9 @@ accumulator, the epilogue chain, one cast.
 
 * ``torch_q8`` — the plain versions (:func:`.opope_gemm_q8.opope_gemm_q8_plain`
   and its grouped twin), bitwise against the reference's ``xla_q8``.
-* ``cuda_q8`` — the hand-written kernels K2 and K5.
+* ``cuda_q8`` — the hand-written kernels K2 and K5; a ``plan=`` (the tile
+  and split count :mod:`repro_torch.kernels.ops` resolves, tuned table
+  first) passes through to the kernel.
 
 Both quantize the weight operand B on every call, as the reference does.
 An A operand that is already quantized (anything with ``.q``/``.scale``, the
@@ -76,19 +78,20 @@ def quantize_grouped_operands(a: torch.Tensor, b: torch.Tensor
 
 
 def _dense(gemm: Callable) -> Callable:
-    def run(a, b, c=None, *, out_dtype=None, epilogue=(), epilogue_operands=()):
+    # ``plan_kw`` (the kernel's ``plan=``, on the cuda_q8 members) passes through.
+    def run(a, b, c=None, *, out_dtype=None, epilogue=(), epilogue_operands=(), **plan_kw):
         a_q, a_scale = a_values_scale(a)
         bq = quantize(b, "int8", axis=1)
         return gemm(a_q, a_scale, bq.q, bq.scale, c, out_dtype=out_dtype,
-                    epilogue=epilogue, epilogue_operands=epilogue_operands)
+                    epilogue=epilogue, epilogue_operands=epilogue_operands, **plan_kw)
     return run
 
 
 def _grouped(gemm: Callable) -> Callable:
-    def run(a, b, c=None, *, out_dtype=None, epilogue=(), epilogue_operands=()):
+    def run(a, b, c=None, *, out_dtype=None, epilogue=(), epilogue_operands=(), **plan_kw):
         aq, bq = quantize_grouped_operands(a, b)
         return gemm(aq.q, aq.scale, bq.q, bq.scale, c, out_dtype=out_dtype,
-                    epilogue=epilogue, epilogue_operands=epilogue_operands)
+                    epilogue=epilogue, epilogue_operands=epilogue_operands, **plan_kw)
     return run
 
 

@@ -33,6 +33,12 @@ default; bf16, fp16, or int8 behind ``requant_int8``).
 
 The int32 accumulator is exact while K * 127^2 < 2^31, i.e. K <= ``MAX_K``;
 longer products raise.
+
+The tuning knob (:mod:`repro_torch.tune`) is the plan: a compiled sm90 tile
+(8 or 128 rows of A_q, named by its block ``(rows, 128, 128)``) and, for K2
+only, the K split count. :func:`candidate_plans` and :func:`validate_plan`
+(``grouped=True`` for K5) list and check plans as K1's do, and both entry
+functions take a ``plan=`` whose knob they run (an illegal one raises).
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -48,15 +54,18 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels import epilogue as _ep
 from repro_torch.kernels.opope_gemm import (
     _DTYPE_CODES,
+    _N_COUNTERS,
     _OPERAND_DTYPES,
     _SM_COUNT,
     _TILE,
     MAX_EPILOGUE_STEPS,
+    SPLIT_LADDER,
     Plan,
     _counters,
     _Epilogue,
     _epilogue_struct,
     _split_bounds,
+    _tile_plan,
 )
 
 __all__ = [
@@ -65,6 +74,8 @@ __all__ = [
     "opope_gemm_q8_plain",
     "opope_gemm_q8_grouped",
     "opope_gemm_q8_grouped_plain",
+    "candidate_plans",
+    "validate_plan",
 ]
 
 MAX_K = (2**31 - 1) // (127 * 127)
@@ -142,13 +153,18 @@ def _plan(m: int, n: int, k: int, a_ptr: int, b_ptr: int) -> Plan:
     return _plan_aligned(m, n, k, a_ptr % 16 == 0 and b_ptr % 16 == 0)
 
 
+def _tma_ok(n: int, k: int, aligned: bool) -> bool:
+    """Whether TMA tensor maps describe int8 A_q [m, k] and B_q [k, n]:
+    bases aligned to 16 bytes, ``k`` and ``n`` multiples of 16, ``k > 0``."""
+    return aligned and k > 0 and k % 16 == 0 and n % 16 == 0
+
+
 @functools.lru_cache(maxsize=4096)
 def _plan_aligned(m: int, n: int, k: int, aligned: bool) -> Plan:
     # Only the bases' alignment enters the plan: cached on it (a decode
     # step plans the same few shapes hundreds of times).
-    if not (aligned and k > 0 and k % 16 == 0 and n % 16 == 0):
-        bm, bn, bk = _TILE
-        return Plan("tile", -1, bm, bn, bk, 2, 1, -(-m // bm), -(-n // bn), (0, k))
+    if not _tma_ok(n, k, aligned):
+        return _tile_plan(m, n, k)
     config, mt, stages = next((c for c in _SM90_CONFIGS if m <= c[1]), _SM90_CONFIGS[-1])
     m_tiles, n_tiles = -(-m // mt), -(-n // _SM90_BN)
     splits = max(1, min(_SM_COUNT // (m_tiles * n_tiles), _max_splits(m, k, mt)))
@@ -180,6 +196,77 @@ def _plan_grouped_aligned(m: int, n: int, k: int, aligned: bool) -> Plan:
     if plan.route != "sm90":
         return plan
     return plan._replace(stages=_GROUPED_STAGES[plan.bm], splits=1, k_bounds=(0, k))
+
+
+# Block (rows, 128, 128) -> (config code, K2's stages): the tiles a plan may name.
+_SM90_BLOCKS = {(mt, _SM90_BN, _SM90_BK): (code, stages) for code, mt, stages in _SM90_CONFIGS}
+
+
+def validate_plan(m: int, n: int, k: int, block: Tuple[int, int, int], splits: int = 1, *,
+                  aligned: bool = True, grouped: bool = False) -> Plan:
+    """The plan of K2's ``A_q[m,k] @ B_q[k,n]`` (K5's, for every group, with
+    ``grouped``) on tile ``block`` with K in ``splits`` splits, or
+    ValueError naming the hard constraint it breaks.
+
+    ``block`` is a compiled tile: 8 or 128 rows of A_q by 128 weight columns
+    by 128 K bytes on the sm90 route, or the tile route's 64x64x32. The
+    sm90 route takes only operands :func:`_tma_ok` passes; every split walks
+    at least one K panel; a split plan has at most ``_N_COUNTERS`` output
+    tiles (one split-K counter each); K5 and the tile route never split."""
+    return _validated(m, n, k, tuple(block), splits, aligned, grouped)
+
+
+@functools.lru_cache(maxsize=4096)
+def _validated(m: int, n: int, k: int, block: Tuple[int, int, int], splits: int,
+               aligned: bool, grouped: bool) -> Plan:
+    # validate_plan's body, memoized on positional arguments: the kernels
+    # check every plan they are handed here, once per call.
+    if splits < 1:
+        raise ValueError(f"splits {splits} < 1")
+    if grouped and splits != 1:
+        raise ValueError(f"the grouped int8 kernel never splits K (splits {splits})")
+    if block == _TILE:
+        if splits != 1:
+            raise ValueError(f"the tile route never splits K (splits {splits})")
+        return _tile_plan(m, n, k)
+    if block not in _SM90_BLOCKS:
+        raise ValueError(f"block {block} is not a compiled tile: sm90 {sorted(_SM90_BLOCKS)} "
+                         f"or tile {_TILE}")
+    if not _tma_ok(n, k, aligned):
+        raise ValueError(f"the sm90 route does not take these operands (K {k}, N {n}, bases "
+                         f"{'' if aligned else 'not '}16-byte aligned)")
+    config, stages = _SM90_BLOCKS[block]
+    mt = block[0]
+    m_tiles, n_tiles = -(-m // mt), -(-n // _SM90_BN)
+    panels = -(-k // _SM90_BK)
+    if splits > panels:
+        raise ValueError(f"{splits} splits of {panels} K panels: a split would be empty")
+    if splits > 1 and m_tiles * n_tiles > _N_COUNTERS:
+        raise ValueError(f"{m_tiles * n_tiles} output tiles > {_N_COUNTERS} split-K counters")
+    return Plan("sm90", config, mt, _SM90_BN, _SM90_BK,
+                _GROUPED_STAGES[mt] if grouped else stages, splits, m_tiles, n_tiles,
+                _split_bounds(k, _SM90_BK, splits))
+
+
+def candidate_plans(m: int, n: int, k: int, *, aligned: bool = True,
+                    grouped: bool = False) -> List[Plan]:
+    """Every legal sm90 plan of K2's ``A_q[m,k] @ B_q[k,n]`` (K5's with
+    ``grouped``): each compiled sm90 tile with each split count of
+    ``SPLIT_LADDER`` and the heuristic's own that :func:`validate_plan`
+    takes (K5: K unsplit). Empty where the sm90 route does not take the
+    operands."""
+    if not _tma_ok(n, k, aligned):
+        return []
+    ladder = {1} if grouped else set(SPLIT_LADDER) | {_plan_aligned(m, n, k, aligned).splits}
+    out = []
+    for block in _SM90_BLOCKS:
+        for splits in sorted(ladder):
+            try:
+                out.append(validate_plan(m, n, k, block, splits, aligned=aligned,
+                                         grouped=grouped))
+            except ValueError:
+                continue
+    return out
 
 
 def _check_common(k, c, c_shapes, out_dtype, epilogue, epilogue_operands):
@@ -336,11 +423,12 @@ def _launch(
     epilogue: Tuple[str, ...] = (),
     epilogue_operands: Tuple[torch.Tensor, ...] = (),
     route: Optional[str] = None,
+    plan: Optional[Plan] = None,
 ) -> torch.Tensor:
-    """One K2 launch on the planned route; ``route`` forces one (``"tile"``
-    takes every operand the kernel takes; ``"sm90"`` raises, launching
-    nothing, where the plan is not sm90), so a caller can hold and time the
-    two routes on the same call."""
+    """One K2 launch on the planned route, or on ``plan``'s knob; ``route``
+    forces one (``"tile"`` takes every operand the kernel takes; ``"sm90"``
+    raises, launching nothing, where the plan is not sm90), so a caller can
+    hold and time the two routes on the same call."""
     if a_q.device.type != "cuda":
         raise ValueError(f"opope_gemm_q8 runs on cuda tensors, got {a_q.device}")
     out_dtype = out_dtype or torch.float32
@@ -353,7 +441,10 @@ def _launch(
     out = torch.empty((m, n), dtype=out_dtype, device=a_q.device)
     if m == 0 or n == 0:
         return out
-    plan = _plan(m, n, k, a_q.data_ptr(), b_q.data_ptr())
+    if plan is None:
+        plan = _plan(m, n, k, a_q.data_ptr(), b_q.data_ptr())
+    else:
+        plan = _forced(plan, m, n, k, a_q, b_q, False)
     if route == "sm90" and plan.route != "sm90":
         raise ValueError(f"the sm90 route does not take this call ({plan})")
     route = route or plan.route
@@ -394,6 +485,7 @@ def opope_gemm_q8(
     out_dtype: Optional[torch.dtype] = None,
     epilogue: Tuple[str, ...] = (),
     epilogue_operands: Tuple[torch.Tensor, ...] = (),
+    plan: Optional[Plan] = None,
 ) -> torch.Tensor:
     """``O = epilogue((A_q @ B_q) * (a_scale * b_scale) (+ C))`` on the
     hand-written CUDA kernel K2.
@@ -402,15 +494,28 @@ def opope_gemm_q8(
     with column scales b_scale [1, N] fp32; c: [M, N] or [N]; all
     contiguous. ``epilogue_operands`` carries one canonical operand per
     operand-taking step (scalar ``(1,1)``, row ``(1,N)``, full ``(M,N)``).
-    ``out_dtype`` defaults to fp32. The route is :func:`_plan`'s.
+    ``out_dtype`` defaults to fp32. The route is :func:`_plan`'s, or
+    ``plan``'s tile and split count (:func:`validate_plan` on these
+    operands; ValueError where the kernel cannot take it, on the CPU too).
     """
     if a_q.device.type == "cpu":
+        if plan is not None:
+            _forced(plan, a_q.shape[0], b_q.shape[1], a_q.shape[1], a_q, b_q, False)
         return opope_gemm_q8_plain(
             a_q, a_scale, b_q, b_scale, c, out_dtype=out_dtype, epilogue=epilogue,
             epilogue_operands=epilogue_operands,
         )
     return _launch(a_q, a_scale, b_q, b_scale, c, out_dtype=out_dtype, epilogue=epilogue,
-                   epilogue_operands=epilogue_operands)
+                   epilogue_operands=epilogue_operands, plan=plan)
+
+
+def _forced(plan: Plan, m: int, n: int, k: int, a_q: torch.Tensor, b_q: torch.Tensor,
+            grouped: bool) -> Plan:
+    """``plan``'s knob re-planned for (each group's) ``A_q[m,k] @ B_q[k,n]``
+    on these operands: one memo lookup, as :func:`_plan`; ValueError where
+    illegal."""
+    return _validated(m, n, k, (plan.bm, plan.bn, plan.bk), plan.splits,
+                      a_q.data_ptr() % 16 == 0 and b_q.data_ptr() % 16 == 0, grouped)
 
 
 def opope_gemm_q8_grouped(
@@ -423,6 +528,7 @@ def opope_gemm_q8_grouped(
     out_dtype: Optional[torch.dtype] = None,
     epilogue: Tuple[str, ...] = (),
     epilogue_operands: Tuple[torch.Tensor, ...] = (),
+    plan: Optional[Plan] = None,
 ) -> torch.Tensor:
     """Grouped ``O[g] = epilogue((A_q[g] @ B_q[g]) * (a_scale[g] *
     b_scale[g]) (+ C[g]))`` on the hand-written CUDA kernel K5, every group
@@ -432,15 +538,19 @@ def opope_gemm_q8_grouped(
     scales [G, 1, N]; c: [G, M, N] or [G, N]; all contiguous.
     ``epilogue_operands``: scalar ``(1,1,1)``, row ``(G,1,N)``, full
     ``(G,M,N)``. ``out_dtype`` defaults to fp32. The route is
-    :func:`_plan_grouped`'s.
+    :func:`_plan_grouped`'s, or ``plan``'s tile (:func:`validate_plan` with
+    ``grouped=True``; ValueError where the kernel cannot take it, on the CPU
+    too).
     """
     if a_q.device.type == "cpu":
+        if plan is not None:
+            _forced(plan, a_q.shape[1], b_q.shape[2], a_q.shape[2], a_q, b_q, True)
         return opope_gemm_q8_grouped_plain(
             a_q, a_scale, b_q, b_scale, c, out_dtype=out_dtype, epilogue=epilogue,
             epilogue_operands=epilogue_operands,
         )
     return _launch_grouped(a_q, a_scale, b_q, b_scale, c, out_dtype=out_dtype,
-                           epilogue=epilogue, epilogue_operands=epilogue_operands)
+                           epilogue=epilogue, epilogue_operands=epilogue_operands, plan=plan)
 
 
 def _launch_grouped(
@@ -454,11 +564,12 @@ def _launch_grouped(
     epilogue: Tuple[str, ...] = (),
     epilogue_operands: Tuple[torch.Tensor, ...] = (),
     route: Optional[str] = None,
+    plan: Optional[Plan] = None,
 ) -> torch.Tensor:
-    """One K5 launch on the planned route; ``route`` forces one (``"tile"``
-    takes every operand the kernel takes; ``"sm90"`` raises, launching
-    nothing, where the plan is not sm90), so a caller can hold and time both
-    on the same call."""
+    """One K5 launch on the planned route, or on ``plan``'s tile; ``route``
+    forces one (``"tile"`` takes every operand the kernel takes; ``"sm90"``
+    raises, launching nothing, where the plan is not sm90), so a caller can
+    hold and time both on the same call."""
     if a_q.device.type != "cuda":
         raise ValueError(f"opope_gemm_q8_grouped runs on cuda tensors, got {a_q.device}")
     out_dtype = out_dtype or torch.float32
@@ -468,7 +579,8 @@ def _launch_grouped(
                            out_dtype, epilogue, epilogue_operands)
     ep = _epilogue_struct(epilogue, epilogue_operands,
                           {"scalar": (1, 1, 1), "row": (g, 1, n), "full": (g, m, n)})
-    plan = _plan_grouped(g, m, n, k, a_q.data_ptr(), b_q.data_ptr())
+    heuristic = _plan_grouped(g, m, n, k, a_q.data_ptr(), b_q.data_ptr())  # checks G too
+    plan = heuristic if plan is None else _forced(plan, m, n, k, a_q, b_q, True)
     if route == "sm90" and plan.route != "sm90":
         raise ValueError(f"the sm90 route does not take this call ({plan})")
     route = route or plan.route

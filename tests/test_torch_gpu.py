@@ -1540,3 +1540,151 @@ def test_bf16_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
     for x, y in zip(leaves(back), leaves(tree)):
         assert x.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y)
     assert any(x.dtype == torch.bfloat16 for x in leaves(back["params"]))
+
+
+# --- tuning: every candidate plan of K1, K2, K4, K5 (repro_torch.tune) --------------------
+
+# (m, k, n): decode and prefill rows on both tiles, the 8-row int8 tile at
+# M 30 and 60, K tails (1000 = 15 full 64-element panels + 40, 8 int8
+# panels of 128 - a split of the last short), split counts to the ladder's
+# largest legal one.
+PLAN_SHAPES = [(4, 1000, 512), (30, 1024, 512), (60, 1024, 256), (512, 1024, 256)]
+PLAN_FORMS = [("none", None, ()), ("bias+silu", "row", ("silu",)), ("full+mul", "full", ("mul",))]
+
+
+def _plan_forms(gen, dev, lead, m, n, dtype):
+    """(label, c, steps, operands): without C or chain; an [N] (or [G, N]) C
+    and silu; a full C and a full ``mul`` operand."""
+    row = torch.randn(lead + (n,), generator=gen, device=dev).to(dtype)
+    full = torch.randn(lead + (m, n), generator=gen, device=dev).to(dtype)
+    mul = torch.randn(lead + (m, n), generator=gen, device=dev).to(dtype)
+    return [("none", None, (), ()), ("bias+silu", row, ("silu",), ()),
+            ("full+mul", full, ("mul",), (mul,))]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_every_k1_plan_matches_plain(cuda_device, shape):
+    m, k, n = shape
+    k1 = _k1_module()
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=gen, device=cuda_device).to(torch.bfloat16)
+    b = (torch.randn((k, n), generator=gen, device=cuda_device) * k ** -0.5).to(torch.bfloat16)
+    plans = k1.candidate_plans(m, n, k)
+    assert {p.bm for p in plans} == {64, 128} and max(p.splits for p in plans) > 1
+    for plan in plans:
+        for label, c, steps, ops_ in _plan_forms(gen, cuda_device, (), m, n, torch.bfloat16):
+            before = dict(opope_gemm.launches_by_route)
+            got = opope_gemm(a, b, c, epilogue=steps, epilogue_operands=ops_, plan=plan)
+            assert opope_gemm.launches_by_route["sm90"] == before["sm90"] + 1
+            _check(got, a, b, c, torch.bfloat16, steps, ops_)
+        if plan.splits > 1:  # split-K stays deterministic under a forced split
+            assert torch.equal(opope_gemm(a, b, plan=plan), opope_gemm(a, b, plan=plan))
+
+
+@pytest.mark.parametrize("shape", [(1, 1000, 256), (30, 1024, 256), (60, 520, 264),
+                                   (130, 256, 128)], ids=lambda s: "x".join(map(str, s)))
+def test_every_k4_plan_matches_plain(cuda_device, shape):
+    m, k, n = shape
+    g = 8
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a = torch.randn((g, m, k), generator=gen, device=cuda_device).to(torch.bfloat16)
+    b = (torch.randn((g, k, n), generator=gen, device=cuda_device) * k ** -0.5).to(torch.bfloat16)
+    plans = tg.candidate_plans(m, n, k)
+    assert [(p.bm, p.splits) for p in plans] == [(64, 1), (128, 1)]
+    for plan in plans:
+        for label, c, steps, ops_ in _plan_forms(gen, cuda_device, (g,), m, n, torch.bfloat16):
+            ops3 = tuple(x for x in ops_)
+            got = tg.opope_gemm_grouped(a, b, c, epilogue=steps, epilogue_operands=ops3,
+                                        plan=plan)
+            want = tg.opope_gemm_grouped_plain(a, b, c, out_dtype=torch.float32,
+                                               epilogue=steps, epilogue_operands=ops3)
+            _, e = torch.frexp(want)
+            tol = torch.ldexp(torch.ones_like(want), e - 8) + 1e-5 * want.abs().max()
+            assert ((got.float() - want).abs() <= tol).all(), (plan, label)
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["k2", "k5"])
+@pytest.mark.parametrize("shape", [(4, 1024, 512), (30, 1024, 512), (60, 1040, 256),
+                                   (512, 1024, 256)], ids=lambda s: "x".join(map(str, s)))
+def test_every_int8_plan_matches_plain(cuda_device, shape, grouped):
+    m, k, n = shape
+    lead = (8,) if grouped else ()
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n + grouped)
+    a, sa, b, sb = _q8_operands(gen, cuda_device, lead + (m,), k, n)
+    plans = tq8.candidate_plans(m, n, k, grouped=grouped)
+    assert {p.bm for p in plans} == {8, 128}
+    assert grouped or max(p.splits for p in plans) > 1
+    kern = tq8.opope_gemm_q8_grouped if grouped else tq8.opope_gemm_q8
+    plain = tq8.opope_gemm_q8_grouped_plain if grouped else tq8.opope_gemm_q8_plain
+    for plan in plans:
+        for label, c, steps, ops_ in _plan_forms(gen, cuda_device, lead, m, n, torch.float32):
+            got = kern(a, sa, b, sb, c, epilogue=steps, epilogue_operands=ops_, plan=plan)
+            want = plain(a, sa, b, sb, c, epilogue=steps, epilogue_operands=ops_)
+            _check_q8(got, want, steps[0] if steps else "none")
+
+
+def test_illegal_forced_plans_raise_and_launch_nothing(cuda_device):
+    k1 = _k1_module()
+    a = torch.randn((4, 256), device=cuda_device).to(torch.bfloat16)
+    b = torch.randn((256, 512), device=cuda_device).to(torch.bfloat16)
+    before = opope_gemm.launches
+    too_many = k1.Plan("sm90", 0, 64, 128, 64, 8, 5, 1, 4, ())  # 5 splits of 4 panels
+    with pytest.raises(ValueError, match="empty"):
+        opope_gemm(a, b, plan=too_many)
+    with pytest.raises(ValueError, match="does not take"):
+        opope_gemm(a.float(), b.float(), plan=k1.validate_plan(4, 512, 256, (64, 128, 64)))
+    with pytest.raises(ValueError, match="never splits"):
+        tg.opope_gemm_grouped(a[None], b[None], plan=k1.validate_plan(4, 512, 256,
+                                                                     (64, 128, 64), 2))
+    wide = torch.randn((256, 128 * 67), device=cuda_device).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="counters"):
+        opope_gemm(a, wide, plan=k1.Plan("sm90", 0, 64, 128, 64, 8, 2, 1, 67, ()))
+    assert opope_gemm.launches == before
+    aq, sa, bq, sb = _q8_operands(torch.Generator(device=cuda_device).manual_seed(0),
+                                  cuda_device, (4,), 256, 512)
+    before = tq8.opope_gemm_q8.launches
+    with pytest.raises(ValueError, match="not a compiled tile"):
+        tq8.opope_gemm_q8(aq, sa, bq, sb, plan=k1.validate_plan(4, 512, 256, (64, 128, 64)))
+    with pytest.raises(ValueError, match="never splits"):
+        tq8.opope_gemm_q8_grouped(aq[None], sa[None], bq[None], sb[None],
+                                  plan=tq8.validate_plan(4, 512, 256, (8, 128, 128), 2))
+    assert tq8.opope_gemm_q8.launches == before
+
+
+def test_a_tuned_table_serves_the_card_members(cuda_device, tmp_path, monkeypatch):
+    """With a table naming a non-heuristic plan, ``ops`` runs K1 and K2 on it
+    (sm90, the plain version's result) and reports it tuned; cleared, the
+    heuristic serves again."""
+    from repro_torch.tune import TuneEntry, TuneKey, TuningTable, device_kind
+
+    k1 = _k1_module()
+    kind = device_kind()
+    table = TuningTable([
+        TuneEntry(TuneKey("cuda", "dense", 4, 1024, 512, 0, "bfloat16", kind), (128, 128, 64),
+                  1.0, 1.0, splits=3),
+        TuneEntry(TuneKey("cuda_q8", "dense", 30, 1024, 512, 0, "int8", kind), (8, 128, 128),
+                  1.0, 1.0, splits=2, fuse_epilogue=False)])
+    path = tmp_path / "t.json"
+    table.save(str(path))
+    monkeypatch.setenv("REPRO_TUNE_TABLE", str(path))
+    ops.clear_tile_cache()
+    try:
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        x = torch.randn((4, 1024), generator=gen, device=cuda_device).to(torch.bfloat16)
+        w = (torch.randn((1024, 512), generator=gen, device=cuda_device) / 32).to(torch.bfloat16)
+        assert ops.tile_for("cuda", 4, 1024, 512) == k1.validate_plan(4, 512, 1024,
+                                                                      (128, 128, 64), 3)
+        assert ops.tile_source("cuda", 4, 1024, 512) == "tuned"
+        before = dict(opope_gemm.launches_by_route)
+        got = ops.matmul(x, w)
+        assert opope_gemm.launches_by_route["sm90"] == before["sm90"] + 1
+        _check(got, x, w, None, torch.bfloat16, (), ())
+        x30 = torch.randn((30, 1024), generator=gen, device=cuda_device).to(torch.bfloat16)
+        assert ops.tile_for("cuda_q8", 30, 1024, 512).bm == 8
+        got = ops.matmul(x30, w, backend="cuda_q8", epilogue="relu")  # post-hoc: fuse False
+        want = ops.matmul(x30, w, backend="torch_q8", epilogue="relu")
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=0)
+    finally:
+        monkeypatch.delenv("REPRO_TUNE_TABLE")
+        ops.clear_tile_cache()
+    assert ops.tile_source("cuda", 4, 1024, 512) == "heuristic"
