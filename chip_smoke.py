@@ -161,6 +161,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     called directly; then the table cleared (``tile="heuristic"`` again);
     (d) ``python -m repro_torch.launch.tune`` on two explicit shapes, its
     table reloaded.
+14. the families of ROADMAP A.8 (after phase 12), one at a time at their
+    published widths, each freed before the next: stablelm-12b (40 layers,
+    the parallel block), gemma2-9b (42 layers, local and global attention,
+    soft-capping), qwen2.5-32b (64 layers, QKV bias) and grok-1-314b cut to
+    GROK_SERVE_LAYERS of its 64 layers. Each: (i) the all-layer prefill
+    logits through the kernels against the plain backend under a same-run
+    floor (grok with the kernels' routing replayed, beside 6(a)'s routing
+    agreement), (ii) the
+    continuous engine on 4(b)'s Poisson trace, every K1 and K4 launch
+    counted and on sm90, (iii) a profiled 4-row decode step and the peak
+    device memory. Then (a) stablelm-12b: 4(f)'s chunked-prefill and
+    prefix-cache gate; (b) gemma2-9b: one prompt longer than its 4096-token
+    window, chunked against monolithic prefill and 8 decode steps,
+    teacher-forced, at 4(f)'s same-run floor, and the window shown to move
+    the logits; (c) qwen2.5-32b under ``mlp_q8_policy()`` (phase 8, K2
+    counted); (d) grok-1-314b under ``{"moe": "q8"}`` (phase 8, K5
+    counted), and K4 and K5 at its expert GEMMs (G 8) against their plain
+    versions, timed beside ``torch.bmm`` and the bound; (e) training
+    gemma2-9b at 4 layers and grok-1-314b at 1 layer (``grad_accum=8``,
+    bf16 moments), 3 steps each: the first step's gradients under 10(a)'s
+    floor gate, launches by role and route, step time, tokens/s and peak
+    memory.
 
 The last lines are a JSON ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
@@ -217,6 +239,8 @@ PROMPT_LOGIT_FLOOR_FACTOR = 3.0
 # rounded cotangent moves a gradient by 30x the floor or more.
 TRAIN_GRAD_FLOOR_FACTOR = 8.0
 TRAIN_LOSS_RTOL = 1e-3
+# The gradient gates' RMS sums take this many elements at a time: 0.5 GB in fp64.
+RMS_GAP_SLICE = 1 << 26
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (K1's fp32 tile route)
 # Full-width chatglm3-6b cut to 4 layers (1.35 G parameters: 16.2 GB with
 # bf16 gradients and fp32 AdamW moments; all 28 layers would need 74.9 GB
@@ -269,6 +293,36 @@ K4_Q8_MOE_TRAIN = {"backward": 2, "fp32 recompute": 1, "fp32 backward": 4}
 # parameters: 1.9 GB of bf16 weights and 7.5 GB of fp32 moments a
 # checkpoint), 6 steps, a checkpoint every 3, a failure at step 5.
 CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT = 2, 6, 3, 5
+
+# Phase 14 (ROADMAP A.8): the families served and trained since the
+# sixteenth slice, one at a time at their published widths. grok-1-314b is
+# cut to 4 of its 64 layers to serve (9.84 GB a layer: 40.97 GB with its
+# tied table; all 64 would need 631 GB) and to 1 to train (11.45 GB of
+# weights, as much in bf16 gradients, 22.9 GB of fp32 gradient sums for its
+# 8 microbatches and 22.9 GB of bf16 moments); gemma2-9b trains at 4 layers
+# (2 periods of local and global attention).
+FAMILIES = ("stablelm-12b", "gemma2-9b", "qwen2.5-32b", "grok-1-314b")
+GROK_SERVE_LAYERS = 4
+GROK_EXPERT_MS = (2, 160)  # expert rows at a 4-row decode step and a 512-token group
+# 14(i): the all-layer prefill logits, kernels vs plain, their RMS at most
+# this many times that of the plain backend's fp32 and fp64 sums in the
+# same run. 4(a)'s max gate (2e-2 of max|logits|) measures rounding alone at
+# qwen2.5-32b's 64 layers: there two plain orders differ by an RMS of the
+# kernels' own size (on an H100: 0.02451 and 0.02466, max 0.1243 of
+# max|logits| 5.944). A wrong GEMM moves the logits by their own size.
+PREFILL_LOGIT_FLOOR_FACTOR = 3.0
+# gemma2-9b's long prompt: past its local layers' 4096-token window.
+GEMMA2_LONG_PROMPT, GEMMA2_LONG_CHUNK, GEMMA2_LONG_STEPS = 4608, 512, 8
+FAMILY_TRAIN = (("gemma2-9b", 4, 4, 512), ("grok-1-314b", 1, 8, 512))  # layers, batch, seq
+FAMILY_TRAIN_STEPS = 3
+# Launches a layer and a step by role: a dense layer as phase 10's (7 GEMMs
+# twice, 8 bf16 backward, 3 fp32 recomputes, 6 fp32 backward on tile);
+# grok's K1 the attention and the router (no shared expert: wo is its only
+# epilogue'd K1 GEMM), its K4 phase 11's table.
+K1_DENSE_TRAIN = {"forward": 7, "remat recompute": 7, "backward": 8, "fp32 recompute": 3,
+                  "fp32 backward": 6}
+K1_GROK_TRAIN = {"forward": 5, "remat recompute": 5, "backward": 8, "fp32 recompute": 1,
+                 "fp32 backward": 2}
 
 # Tuning (phase 13): the cells the tuner times, and its samples a plan.
 TUNE_DENSE_MS = (4, 512)
@@ -677,59 +731,22 @@ def _same_streams(a, b):
     return sum(a.outputs[rid] == b.outputs[rid] for rid in a.outputs) / len(a.outputs)
 
 
-def prompt_phase(torch, np, cfg, params, ops, dev):
-    """Phase 4(e)-(g) on chatglm3-6b's resident weights: chunked prefill
-    against bucketed prefill, the prefix cache, and int8 K/V lanes."""
+def _prefix_gate(torch, np, cfg, params, ops, dev, tag, *, int8_lane=False):
+    """Phase 4(f) on a dense model's resident weights (chatglm3-6b in phase 4,
+    stablelm-12b in 14(a)): the continuous engine with and without chunked
+    prefill and the prefix cache on the reference's prefix-cache trace, every
+    K1 launch counted and on sm90, and the teacher-forced logits of features
+    on against off under PROMPT_LOGIT_FLOOR_FACTOR x the plain GEMM's RMS gap
+    of this run. With ``int8_lane``, 4(g)'s int8 K/V engine on the same
+    trace too. Returns the record and the features-on engine."""
     from repro_torch.kernels.opope_gemm import opope_gemm, opope_gemm_plain
     from repro_torch.models import api
-    from repro_torch.quant.kvcache import _dequant, quantize_kv_rows
-    from repro_torch.serve import (ContinuousEngine, PrefixCache, Scheduler, SlotPool,
-                                   shared_prefix_trace)
+    from repro_torch.serve import ContinuousEngine, Scheduler, SlotPool, shared_prefix_trace
     from repro_torch.serve import continuous as cont_mod
 
     per_forward = 7 * cfg.n_layers
     out = {}
-
-    # (e) a 4 x 200-token prefill in chunks of 32 against the bucketed
-    # prefill of the same prompts (bucket 256), at 4(a)'s tolerance.
-    rows, plen, w, lb = 4, 200, 32, 256
-    tokens = np.random.default_rng(4).integers(0, cfg.vocab, (rows, plen))
-    padded = np.zeros((rows, lb), np.int64)
-    padded[:, :plen] = tokens
-    n_chunks = -(-plen // w)
-    with torch.inference_mode():
-        ref, ref_c = api.prefill_bucketed(cfg, params, torch.from_numpy(padded).to(dev),
-                                          torch.full((rows,), plen, device=dev))
-        caches = api.init_state(cfg, rows, lb, torch.bfloat16, dev)
-        _reset_k1(ops, opope_gemm)
-        for j in range(n_chunks):
-            off, end = j * w, min((j + 1) * w, plen)
-            ctoks = np.zeros((rows, w), np.int64)
-            ctoks[:, : end - off] = tokens[:, off:end]
-            got, caches = api.prefill_chunk(
-                cfg, params, torch.from_numpy(ctoks).to(dev), caches,
-                torch.full((rows,), off, device=dev),
-                torch.full((rows,), end - 1 - off, device=dev))
-    if opope_gemm.launches != per_forward * n_chunks or ops.backend("torch").calls != 0:
-        raise AssertionError(f"4(e) K1 launches {opope_gemm.launches} != {per_forward} * "
-                             f"{n_chunks} chunk steps")
-    check_routes(opope_gemm, opope_gemm.launches, "4(e)")
-    if not torch.isfinite(got).all() or tuple(got.shape) != (rows, cfg.vocab):
-        raise AssertionError(f"4(e) chunked logits {tuple(got.shape)} not finite or misshapen")
-    delta, scale = (got - ref).abs().max().item(), ref.abs().max().item()
-    if delta > 2e-2 * scale:
-        raise AssertionError(f"4(e) chunked logits: max|delta| {delta} > 2e-2 * {scale}")
-    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    dk = max((c.k[:, :plen].float() - r.k[:, :plen].float()).abs().max().item()
-             for c, r in zip(caches, ref_c))
-    log(f"(e) chunked prefill 4 x {plen} in {n_chunks} chunks of {w}: max|dlogits| {delta:.4g} "
-        f"<= 2e-2 * max|logits| {scale:.4g} against bucketed prefill (bucket {lb}); argmax "
-        f"agreement {agree:.2f}; max|dK| over the layers {dk:.4g} (not gated); K1 launches "
-        f"{opope_gemm.launches} = 7 * {cfg.n_layers} * {n_chunks}, all on the sm90 route")
-    out["chunked"] = {"max_abs_dlogits": delta, "max_abs_logits": scale, "argmax_agreement": agree,
-                      "k1_launches": opope_gemm.launches, "chunk_steps": n_chunks}
-
-    # (f) the prefix cache on the reference's bench_prefix_cache trace
+    # The prefix cache on the reference's bench_prefix_cache trace
     # (benchmarks/serving_bench.py): 12 prompts opening with one 192-token
     # system prompt. Each engine serves it once as a warm-up (which fills
     # the trie, as a long-lived server's would be) before the timed serve.
@@ -822,11 +839,11 @@ def prompt_phase(torch, np, cfg, params, ops, dev):
 
     common = dict(cfg=cfg, params=params, n_slots=4, max_len=288)
     off_eng = ContinuousEngine(**common, prefill_chunk=None, prefix_cache=False)
-    off, out["off"] = timed(off_eng, "(f) features off")
+    off, out["off"] = timed(off_eng, f"{tag} features off")
     with _patched(ops.backend("cuda"), "fn", opope_gemm_plain):
         plain = ContinuousEngine(**common, prefill_chunk=None, prefix_cache=False).serve(trace())
     on_eng = ContinuousEngine(**common, prefill_chunk=32, prefix_cache=True, prefix_block=32)
-    on, out["on"] = timed(on_eng, "(f) chunked prefill + prefix cache")
+    on, out["on"] = timed(on_eng, f"{tag} chunked prefill + prefix cache")
     # Greedy agreement of whole streams is printed, not gated: in bf16 a
     # near-tied greedy choice flips under rounding alone (chunk attention
     # and blockwise attention round differently, and K1 runs at other M,
@@ -834,7 +851,7 @@ def prompt_phase(torch, np, cfg, params, ops, dev):
     # the stream, so over 12 requests the share moves by 1/12 steps between
     # equally valid variants. The gate below compares logits instead.
     agree, floor = _same_streams(on, off), _same_streams(off, plain)
-    log(f"(f) greedy streams identical, features on vs off: {agree:.4f} of requests; kernels "
+    log(f"{tag} greedy streams identical, features on vs off: {agree:.4f} of requests; kernels "
         f"vs the plain GEMM, features off: {floor:.4f} (not gated)")
     # The gate: the engine's own join path (prefix attach + suffix chunk,
     # or bucketed prefill), then 7 decode steps over the joined pool fed
@@ -851,16 +868,18 @@ def prompt_phase(torch, np, cfg, params, ops, dev):
     d_on = (got - ref).pow(2).mean().sqrt().item()
     arg_on = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
     arg_floor = (ref_plain.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    log(f"(f) teacher-forced logits, 12 requests x (first token + 7 decode steps): features on "
+    log(f"{tag} teacher-forced logits, 12 requests x (first token + 7 decode steps): features on "
         f"vs off RMS {d_on:.4g} (gated <= {PROMPT_LOGIT_FLOOR_FACTOR} x {d_floor:.4g}, the plain "
         f"GEMM vs the kernels, features off); argmax agreement {arg_on:.4f} (floor "
         f"{arg_floor:.4f}); max|logits| {ref.abs().max().item():.4g}")
     if not d_on <= PROMPT_LOGIT_FLOOR_FACTOR * d_floor:
-        raise AssertionError(f"(f) features on vs off logits RMS {d_on} > "
+        raise AssertionError(f"{tag} features on vs off logits RMS {d_on} > "
                              f"{PROMPT_LOGIT_FLOOR_FACTOR} x {d_floor}")
     out["agreement"] = {"streams_on_vs_off": agree, "streams_kernels_vs_plain": floor,
                         "logit_rms_on_vs_off": d_on, "logit_rms_kernels_vs_plain": d_floor,
                         "argmax_on_vs_off": arg_on, "argmax_kernels_vs_plain": arg_floor}
+    if not int8_lane:
+        return out, on_eng
 
     # (g) int8 K/V lanes with the prefix cache, on a fresh engine.
     q8_eng = ContinuousEngine(**common, prefill_chunk=32, prefix_cache=True, prefix_block=32,
@@ -877,6 +896,61 @@ def prompt_phase(torch, np, cfg, params, ops, dev):
         f"{off.kv_bytes_per_slot:.0f} (gated <= 0.51); against the bf16 pool (both features "
         f"on): greedy streams identical {out['int8']['agreement_vs_bf16_pool']:.4f}, "
         f"teacher-forced logits RMS {d_q8:.4g} (neither gated)")
+    return out, on_eng
+
+
+def prompt_phase(torch, np, cfg, params, ops, dev):
+    """Phase 4(e)-(g) on chatglm3-6b's resident weights: chunked prefill
+    against bucketed prefill, the prefix cache, and int8 K/V lanes."""
+    from repro_torch.kernels.opope_gemm import opope_gemm
+    from repro_torch.models import api
+    from repro_torch.quant.kvcache import _dequant, quantize_kv_rows
+    from repro_torch.serve import PrefixCache
+
+    per_forward = 7 * cfg.n_layers
+    out = {}
+
+    # (e) a 4 x 200-token prefill in chunks of 32 against the bucketed
+    # prefill of the same prompts (bucket 256), at 4(a)'s tolerance.
+    rows, plen, w, lb = 4, 200, 32, 256
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab, (rows, plen))
+    padded = np.zeros((rows, lb), np.int64)
+    padded[:, :plen] = tokens
+    n_chunks = -(-plen // w)
+    with torch.inference_mode():
+        ref, ref_c = api.prefill_bucketed(cfg, params, torch.from_numpy(padded).to(dev),
+                                          torch.full((rows,), plen, device=dev))
+        caches = api.init_state(cfg, rows, lb, torch.bfloat16, dev)
+        _reset_k1(ops, opope_gemm)
+        for j in range(n_chunks):
+            off, end = j * w, min((j + 1) * w, plen)
+            ctoks = np.zeros((rows, w), np.int64)
+            ctoks[:, : end - off] = tokens[:, off:end]
+            got, caches = api.prefill_chunk(
+                cfg, params, torch.from_numpy(ctoks).to(dev), caches,
+                torch.full((rows,), off, device=dev),
+                torch.full((rows,), end - 1 - off, device=dev))
+    if opope_gemm.launches != per_forward * n_chunks or ops.backend("torch").calls != 0:
+        raise AssertionError(f"4(e) K1 launches {opope_gemm.launches} != {per_forward} * "
+                             f"{n_chunks} chunk steps")
+    check_routes(opope_gemm, opope_gemm.launches, "4(e)")
+    if not torch.isfinite(got).all() or tuple(got.shape) != (rows, cfg.vocab):
+        raise AssertionError(f"4(e) chunked logits {tuple(got.shape)} not finite or misshapen")
+    delta, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    if delta > 2e-2 * scale:
+        raise AssertionError(f"4(e) chunked logits: max|delta| {delta} > 2e-2 * {scale}")
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    dk = max((c.k[:, :plen].float() - r.k[:, :plen].float()).abs().max().item()
+             for c, r in zip(caches, ref_c))
+    log(f"(e) chunked prefill 4 x {plen} in {n_chunks} chunks of {w}: max|dlogits| {delta:.4g} "
+        f"<= 2e-2 * max|logits| {scale:.4g} against bucketed prefill (bucket {lb}); argmax "
+        f"agreement {agree:.2f}; max|dK| over the layers {dk:.4g} (not gated); K1 launches "
+        f"{opope_gemm.launches} = 7 * {cfg.n_layers} * {n_chunks}, all on the sm90 route")
+    out["chunked"] = {"max_abs_dlogits": delta, "max_abs_logits": scale, "argmax_agreement": agree,
+                      "k1_launches": opope_gemm.launches, "chunk_steps": n_chunks}
+
+    prefix_out, on_eng = _prefix_gate(torch, np, cfg, params, ops, dev, "(f)", int8_lane=True)
+    out.update(prefix_out)
 
     # (g) on the card, bitwise: a full-precision trie's gather gives back
     # the K/V its path was inserted from (copies, not views), and int8
@@ -1931,11 +2005,11 @@ def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops,
 
         with torch.inference_mode():
             with _patched(moe_mod, "_route", recording):
-                y_k = tf_mod._block_apply(cfg, params["blocks"][0], x, positions=pos, cache=None,
-                                          backend=policy)[0]
+                y_k = tf_mod._block_apply(cfg, cfg.pattern[0], params["blocks"][0], x,
+                                          positions=pos, cache=None, backend=policy)[0]
             with _patched(moe_mod, "_route", lambda *a, **k: rec[0] if rec else orig(*a, **k)):
-                y_p = tf_mod._block_apply(cfg, params["blocks"][0], x, positions=pos, cache=None,
-                                          backend=plain_policy)[0]
+                y_p = tf_mod._block_apply(cfg, cfg.pattern[0], params["blocks"][0], x,
+                                          positions=pos, cache=None, backend=plain_policy)[0]
         delta, scale = (y_k.float() - y_p.float()).abs().max().item(), y_p.float().abs().max().item()
         # K1 and its plain version differ by at most one bf16 ulp; an int8
         # value downstream may round the other way, one quantization step.
@@ -2448,14 +2522,29 @@ def _rms(x):
     return x.double().pow(2).mean().sqrt().item()
 
 
+def _rms_gap(torch, a, b):
+    """RMS of ``a - b`` with fp64 sums, RMS_GAP_SLICE elements at a time
+    (one of grok-1-314b's expert gradients in fp64 would take 12.9 GB); NaN
+    when ``a`` holds a non-finite value."""
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    total = 0.0
+    for i in range(0, fa.numel(), RMS_GAP_SLICE):
+        x = fa[i:i + RMS_GAP_SLICE]
+        if not torch.isfinite(x).all():
+            return math.nan
+        total += (x.double() - fb[i:i + RMS_GAP_SLICE].double()).pow(2).sum().item()
+    return math.sqrt(total / max(fa.numel(), 1))
+
+
 def _floor_gate(torch, got, ref, ref64, what):
     """``got`` (kernels) against ``ref`` (plain) within TRAIN_GRAD_FLOOR_FACTOR
     times the RMS gap of ``ref`` and ``ref64`` (plain, fp64 sums). Returns
     (RMS kernels vs plain, the floor)."""
-    if tuple(got.shape) != tuple(ref.shape) or not torch.isfinite(got.float()).all():
+    d_k = _rms_gap(torch, got, ref) if tuple(got.shape) == tuple(ref.shape) else math.nan
+    if math.isnan(d_k):
         raise AssertionError(f"{what}: shape {tuple(got.shape)} vs {tuple(ref.shape)} or "
                              f"not finite")
-    d_k, d_f = _rms(got.float() - ref.float()), _rms(ref.float() - ref64.float())
+    d_f = _rms_gap(torch, ref, ref64)
     if not d_k <= TRAIN_GRAD_FLOOR_FACTOR * d_f:
         raise AssertionError(f"{what}: kernels vs plain RMS {d_k:.4g} > "
                              f"{TRAIN_GRAD_FLOOR_FACTOR} x floor {d_f:.4g}")
@@ -3899,6 +3988,541 @@ def importlib_k1():
     return importlib.import_module("repro_torch.kernels.opope_gemm")
 
 
+def _grouped_bound(g, m, k, n, out_elem, n_full):
+    """Least time in ms of one bf16 grouped GEMM: A, B, the output and the
+    epilogue's bf16 full operands moved once each, or 2GMNK at the bf16
+    tensor-core rate."""
+    t_bytes = 2 * g * (m * k + k * n + m * n * n_full) + out_elem * g * m * n
+    t_bytes, t_ops = t_bytes / HBM_BYTES_PER_S, 2 * g * m * n * k / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def family_phase(torch, np, cfg, ops, ep, k4, dev, tag):
+    """Phase 14, what every family runs, on its full-width weights drawn from
+    seed 0: (i) the all-layer prefill logits through the kernels against the
+    plain backend within PREFILL_LOGIT_FLOOR_FACTOR x the RMS gap of the
+    plain backend's fp32 and fp64 sums in this run (an MoE model with the
+    kernels' routing replayed on the plain backend, beside 6(a)'s routing
+    agreement), (ii)
+    the continuous engine on 4(b)'s Poisson trace, every K1 and K4 launch
+    counted and on sm90, (iii) a profiled 4-row decode step, and the peak
+    device memory of (i)-(iii). Returns the record and the weights."""
+    from repro_torch.kernels.opope_gemm import opope_gemm
+    from repro_torch.models import api
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve import ContinuousEngine, poisson_trace
+
+    moe, n_layers = cfg.moe, cfg.n_layers
+    n_k1 = (7 if moe is None else 5 + 3 * bool(moe.n_shared)) * n_layers
+    n_k4 = 0 if moe is None else 3 * n_layers
+    kern4 = k4.opope_gemm_grouped
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    sync(torch, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != api.param_count(cfg):
+        raise AssertionError(f"{tag}: {n_params} parameters drawn, {api.param_count(cfg)} counted")
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    log(f"{tag} init {cfg.name} at {n_layers} layers: {n_params / 1e9:.3f} B params "
+        f"({weights_gb:.2f} GB) in {time.perf_counter() - t0:.1f} s")
+    rec = {"name": cfg.name, "layers": n_layers, "params": n_params, "weights_gb": weights_gb}
+
+    # (i) prefill logits, kernels against the plain backend, and the plain
+    # backend's fp32 against its fp64 sums: the floor of the gate.
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(dev)
+    fp64, plain = _fp64_plain(torch, ep), ops.backend("torch")
+    routed, real_route = [], moe_mod._route
+
+    def recording(p, xf, top_k, backend=None):
+        out = real_route(p, xf, top_k, backend)
+        routed.append((p, xf, out))
+        return out
+
+    with torch.inference_mode():
+        with _patched(moe_mod, "_route", recording):
+            got, _ = api.prefill(cfg, params, {"tokens": tokens}, 64, backend="cuda")
+        replays = [iter([o for _, _, o in routed]) for _ in range(2)]
+        with _patched(moe_mod, "_route", lambda *a, **k: next(replays[0])):
+            ref, _ = api.prefill(cfg, params, {"tokens": tokens}, 64, backend="torch")
+        with _patched(moe_mod, "_route", lambda *a, **k: next(replays[1])), \
+                _patched(plain, "fn", fp64), _patched(plain, "grouped_fn", fp64):
+            ref64, _ = api.prefill(cfg, params, {"tokens": tokens}, 64, backend="torch")
+    if not (torch.isfinite(ref).all() and torch.isfinite(got).all()):
+        raise AssertionError(f"{tag} (i) prefill logits not finite")
+    if tuple(got.shape) != (2, cfg.vocab):
+        raise AssertionError(f"{tag} (i) prefill logits shape {tuple(got.shape)}")
+    delta, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    d_k, d_f = _rms(got - ref), _rms(ref - ref64)
+    rec["prefill"] = {"max_abs_dlogits": delta, "max_abs_logits": scale,
+                      "rms_kernels_vs_plain": d_k, "rms_plain_fp32_vs_fp64": d_f,
+                      "argmax_agreement": (got.argmax(-1) == ref.argmax(-1)).float().mean().item()}
+    log(f"{tag} (i) prefill 2x64" + (" (the kernels' routing replayed on the plain backend)"
+                                     if moe else "")
+        + f": RMS kernels vs plain {d_k:.4g} (gated <= {PREFILL_LOGIT_FLOOR_FACTOR} x {d_f:.4g}, "
+        f"the plain backend's fp32 vs fp64 sums); max|dlogits| {delta:.4g} of max|logits| "
+        f"{scale:.4g}; argmax agreement {rec['prefill']['argmax_agreement']:.2f}")
+    if not d_k <= PREFILL_LOGIT_FLOOR_FACTOR * d_f:
+        raise AssertionError(f"{tag} (i) prefill logits: kernels vs plain RMS {d_k} > "
+                             f"{PREFILL_LOGIT_FLOOR_FACTOR} x floor {d_f}")
+    if moe is not None:
+        # 6(a): the plain router on the kernel run's layer inputs, and two
+        # free-running prefills against the floor of two plain sum orders.
+        with torch.inference_mode():
+            idx_k = torch.stack([o[2] for _, _, o in routed])
+            idx_same = torch.stack([real_route(p, xf, moe.top_k, "torch")[2]
+                                    for p, xf, _ in routed])
+            _, rec_t = _routed_prefill(api, moe_mod, cfg, params, tokens, "torch")
+            with _patched(plain, "fn", fp64), _patched(plain, "grouped_fn", fp64):
+                _, rec_64 = _routed_prefill(api, moe_mod, cfg, params, tokens, "torch")
+            idx_t, idx_64 = (torch.stack([r[2] for r in x]) for x in (rec_t, rec_64))
+        same = _agreement(idx_k, idx_same).mean().item()
+        free, free_64 = _agreement(idx_k, idx_t).mean().item(), _agreement(idx_t, idx_64).mean().item()
+        free_min = max(free_64 - FREE_ROUTING_MARGIN, FREE_ROUTING_FLOOR)
+        rec["routing_agreement"] = {"same_input": same, "free_running": free,
+                                    "free_running_plain_fp32_vs_fp64": free_64}
+        log(f"{tag} (i) routing, {idx_k.numel()} assignments: the plain router on the kernel "
+            f"run's inputs agrees on {same:.5f} (gated >= 0.99); free-running kernels vs plain "
+            f"{free:.5f} (gated >= {free_min:.5f}), plain fp32 vs fp64 sums {free_64:.5f}")
+        if same < 0.99 or free < free_min:
+            raise AssertionError(f"{tag} (i) routing agreement {rec['routing_agreement']}")
+        del rec_t, rec_64
+    del routed, got, ref, ref64
+
+    # (ii) the continuous engine on 4(b)'s Poisson trace.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        eng = ContinuousEngine(cfg=cfg, params=params, n_slots=4, max_len=256)
+    for w in caught:
+        log(f"{tag} (ii) warning: {w.message}")
+    eng.serve(poisson_trace(2, seed=1, vocab=cfg.vocab, prompt_lens=(32,), gen_lens=(4,)))
+    trace = poisson_trace(8, seed=0, vocab=cfg.vocab, prompt_lens=(32, 64, 128),
+                          gen_lens=(8, 16, 32))
+    _reset_k1(ops, opope_gemm)
+    kern4.launches = 0
+    kern4.launches_by_route.update(sm90=0, tile=0)
+    report = eng.timed_serve(trace)
+    launches = {"K1": opope_gemm.launches, "K4": kern4.launches}
+    forwards = report.decode_steps + report.prefill_batches
+    want = {"K1": n_k1 * forwards, "K4": n_k4 * forwards}
+    if launches != want or plain.calls or plain.grouped_calls:
+        raise AssertionError(f"{tag} (ii) launches {launches} != {want} (plain calls "
+                             f"{plain.calls}, {plain.grouped_calls} grouped)")
+    check_routes(opope_gemm, launches["K1"], f"{tag} (ii)")
+    check_routes(kern4, launches["K4"], f"{tag} (ii)", name="K4")
+    _valid_outputs(report, trace, cfg.vocab, f"{tag} (ii)")
+    rec["serve"] = {"requests": len(trace), "generated_tokens": report.generated_tokens,
+                    "decode_steps": report.decode_steps,
+                    "prefill_batches": report.prefill_batches, "wall_s": report.wall_time_s,
+                    "tokens_per_s": report.tokens_per_sec, "ttft_p50_s": report.ttft_p50,
+                    "itl_p50_s": report.itl_p50, "launches": launches}
+    log(f"{tag} (ii) continuous: {len(trace)} requests, {report.generated_tokens} tokens, "
+        f"decode_steps {report.decode_steps}, prefill_batches {report.prefill_batches}, wall "
+        f"{report.wall_time_s:.3f} s, {report.tokens_per_sec:.1f} tokens/s, TTFT p50 "
+        f"{report.ttft_p50 * 1e3:.1f} ms, ITL p50 {report.itl_p50 * 1e3:.1f} ms (host-issue "
+        f"times); launches K1 {launches['K1']} = {n_k1 // n_layers} * {n_layers} * {forwards}"
+        + (f", K4 {launches['K4']} = 3 * {n_layers} * {forwards}" if moe else "")
+        + ", all on sm90")
+    del eng
+
+    # (iii) one lockstep decode step at 4 rows: wall, device busy, K1 and K4.
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))).to(dev)
+    with torch.inference_mode():
+        logits, caches = api.prefill(cfg, params, {"tokens": prompts}, 96)
+        tok = logits.argmax(-1)[:, None]
+        for i in range(3):
+            logits, caches = api.decode(cfg, params, tok, caches, 64 + i)
+        sync(torch, dev)
+        n_steps = 8
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            logits, caches = api.decode(cfg, params, tok, caches, 67 + i)
+        sync(torch, dev)
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        prof = None
+        if dev.type == "cuda":
+            prof = decode_profile(torch, lambda i: api.decode(cfg, params, tok, caches, 75 + i),
+                                  step_ms, tag=f"{tag} (iii)")
+    del caches, logits
+    bound_ms = {"k1": 0.0, "k4": 0.0}
+    for t in _leaves(params["blocks"]):
+        if t.ndim >= 2:  # every weight read once; the 3-D ones are the experts' (K4)
+            bound_ms["k4" if t.ndim == 3 else "k1"] += (
+                1e3 * t.numel() * t.element_size() / HBM_BYTES_PER_S)
+    dev_ms = None
+    if prof is not None:
+        dev_ms = {name: sum(ms for key, ms, _ in prof if kernel in key)
+                  for name, kernel in (("k1", "opope_gemm_kernel"),
+                                       ("k4", "opope_grouped_kernel"))}
+        dev_ms["busy"] = sum(ms for _, ms, _ in prof)
+        dev_ms.update({f"{k}_byte_bound": v for k, v in bound_ms.items()})
+        if not dev_ms["k1"] or (moe is not None and not dev_ms["k4"]):
+            raise AssertionError(f"{tag} (iii) the profiled step books no device time to a "
+                                 f"kernel it launches: {dev_ms}")
+    rec["decode_step"] = {"wall_ms": step_ms, "device_ms": dev_ms,
+                          "launches": {"K1": n_k1, "K4": n_k4}}
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{tag} (iii) decode step, 4 rows: {step_ms:.3f} ms wall"
+        + ("" if dev_ms is None else
+           f"; device busy {dev_ms['busy']:.3f} ms ({100 * dev_ms['busy'] / step_ms:.1f}%), K1 "
+           f"{dev_ms['k1']:.3f} ms ({n_k1} launches, byte bound {bound_ms['k1']:.3f} ms)"
+           + (f", K4 {dev_ms['k4']:.3f} ms ({n_k4} launches, byte bound "
+              f"{bound_ms['k4']:.3f} ms)" if moe else ""))
+        + f"; peak device memory of (i)-(iii) {rec['peak_memory_gb']:.2f} GB")
+    return rec, params
+
+
+def long_prompt_phase(torch, np, cfg, params, ops, dev, tag):
+    """14(b): one prompt of GEMMA2_LONG_PROMPT tokens, past the local layers'
+    window, prefilled and decoded GEMMA2_LONG_STEPS steps fed the kernels'
+    greedy tokens. The logits of a chunked prefill (chunk_attention's
+    window) against the monolithic one (blockwise_attention's) within
+    PROMPT_LOGIT_FLOOR_FACTOR x the plain GEMM's RMS gap on the monolithic
+    path, as 4(f) gates; the plain GEMM's own gap at 4(a)'s gate; and the
+    window must move the logits by more than that gate (every layer global
+    instead), so the path past the window is the one checked."""
+    import dataclasses
+
+    from repro_torch.kernels.opope_gemm import opope_gemm, opope_gemm_plain
+    from repro_torch.models import api
+
+    n, w, steps = GEMMA2_LONG_PROMPT, GEMMA2_LONG_CHUNK, GEMMA2_LONG_STEPS
+    if not (n > cfg.window and n % w == 0):
+        raise AssertionError(f"{tag}: prompt {n} must pass the window {cfg.window} in chunks of {w}")
+    max_len = n + steps
+    toks = torch.from_numpy(np.random.default_rng(14).integers(0, cfg.vocab, (1, n))).to(dev)
+
+    def run(mcfg, chunked, stream=None):
+        """fp32 logits [1 + steps, V] and the tokens fed (greedy without
+        ``stream``)."""
+        at = lambda x: torch.tensor([x], device=dev)  # noqa: E731
+        with torch.inference_mode():
+            if chunked:
+                caches = api.init_state(mcfg, 1, max_len, torch.bfloat16, dev)
+                for off in range(0, n, w):
+                    logits, caches = api.prefill_chunk(mcfg, params, toks[:, off:off + w], caches,
+                                                       at(off), at(w - 1))
+            else:
+                logits, caches = api.prefill(mcfg, params, {"tokens": toks}, max_len)
+            rows, fed = [logits.float()], []
+            for j in range(steps):
+                tok = logits.argmax(-1)[:, None] if stream is None else stream[j]
+                fed.append(tok)
+                logits, caches = api.decode_at(mcfg, params, tok, caches, at(n + j))
+                rows.append(logits.float())
+        return torch.cat(rows), fed
+
+    per_forward = 7 * cfg.n_layers
+    _reset_k1(ops, opope_gemm)
+    ref, stream = run(cfg, False)
+    sync(torch, dev)
+    mono_launches = opope_gemm.launches
+    check_routes(opope_gemm, mono_launches, f"{tag} monolithic")
+    with _patched(ops.backend("cuda"), "fn", opope_gemm_plain):
+        ref_plain, _ = run(cfg, False, stream)
+    _reset_k1(ops, opope_gemm)
+    got, _ = run(cfg, True, stream)
+    sync(torch, dev)
+    chunk_launches = opope_gemm.launches
+    check_routes(opope_gemm, chunk_launches, f"{tag} chunked")
+    glob, _ = run(dataclasses.replace(cfg, window=10 ** 9), False, stream)
+    want = (per_forward * (1 + steps), per_forward * (n // w + steps))
+    if (mono_launches, chunk_launches) != want:
+        raise AssertionError(f"{tag} K1 launches {mono_launches}, {chunk_launches} != {want}")
+    if not all(torch.isfinite(x).all() for x in (ref, ref_plain, got, glob)):
+        raise AssertionError(f"{tag} logits not finite")
+    delta, scale = (ref - ref_plain).abs().max().item(), ref_plain.abs().max().item()
+    d_floor, d_chunk, d_window = _rms(ref_plain - ref), _rms(got - ref), _rms(glob - ref)
+    gate = PROMPT_LOGIT_FLOOR_FACTOR * d_floor
+    out = {"prompt": n, "chunk": w, "decode_steps": steps, "window": cfg.window,
+           "max_abs_dlogits_plain": delta, "max_abs_logits": scale,
+           "rms_kernels_vs_plain": d_floor, "rms_chunked_vs_monolithic": d_chunk,
+           "rms_window_vs_global": d_window,
+           "argmax_chunked_vs_monolithic": (got.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+           "launches": {"monolithic": mono_launches, "chunked": chunk_launches}}
+    log(f"{tag} one {n}-token prompt (window {cfg.window}) + {steps} decode steps, teacher-forced "
+        f"logits: chunked ({n // w} chunks of {w}) vs monolithic prefill RMS {d_chunk:.4g} (gated "
+        f"<= {PROMPT_LOGIT_FLOOR_FACTOR} x {d_floor:.4g}, the plain GEMM vs the kernels); the "
+        f"plain GEMM max|dlogits| {delta:.4g} <= 2e-2 * {scale:.4g}; every layer global instead "
+        f"moves them by RMS {d_window:.4g} (gated > {gate:.4g}); K1 launches {mono_launches} "
+        f"monolithic, {chunk_launches} chunked, all on sm90")
+    if not (d_chunk <= gate and delta <= 2e-2 * scale and d_window > gate):
+        raise AssertionError(f"{tag} long prompt gates: {out}")
+    return out
+
+
+def grok_expert_phase(torch, k4, q8mod, q8b, ep, cfg, params, dev, tag):
+    """14(d): K4 and K5 at grok-1-314b's expert GEMMs (G 8) on layer 0's
+    resident weights, at a 4-row decode step's capacity (2) and a 512-token
+    group's (160), with the chains the model runs: each against its plain
+    version (K4 within one bf16 ulp, K5 bitwise but silu's one ulp), timed
+    by device time (queued_ms) beside torch.bmm (K4) and the bound."""
+    from repro_torch.kernels.opope_gemm import full_fp32
+
+    p = params["blocks"][0]["moe"]
+    g, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows, err4, err5 = [], 0.0, 0.0
+    kern4, kern5 = k4.opope_gemm_grouped, q8mod.opope_gemm_q8_grouped
+    for m in GROK_EXPERT_MS:
+        x = torch.randn((g, m, d), generator=gen, device=dev).to(bf16)
+        up = torch.randn((g, m, f), generator=gen, device=dev).to(bf16)
+        h = torch.randn((g, m, f), generator=gen, device=dev).to(bf16)
+        for name, a, steps, ops_, out_dtype in (("w_up", x, (), (), bf16),
+                                                ("w_gate", x, ("silu", "mul"), (up,), bf16),
+                                                ("w_down", h, (), (), f32)):
+            b = p[name]
+            k, n = b.shape[1], b.shape[2]
+            out = kern4(a, b, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ops_)
+            err4 = max(err4, check_close(torch, out, lambda dt: k4.opope_gemm_grouped_plain(
+                a, b, out_dtype=dt, epilogue=steps, epilogue_operands=ops_), out_dtype,
+                f"{tag} K4 {name} M={m}"))
+            aq, bq = q8b.quantize_grouped_operands(a, b)
+            out5 = kern5(aq.q, aq.scale, bq.q, bq.scale, out_dtype=out_dtype, epilogue=steps,
+                         epilogue_operands=ops_)
+            want5 = q8mod.opope_gemm_q8_grouped_plain(aq.q, aq.scale, bq.q, bq.scale,
+                                                      out_dtype=out_dtype, epilogue=steps,
+                                                      epilogue_operands=ops_)
+            err5 = max(err5, q8_check(torch, out5, want5, bool(steps), f"{tag} K5 {name} M={m}"))
+            ms = queued_ms(torch, lambda i: kern4(a, b, out_dtype=out_dtype, epilogue=steps,
+                                                  epilogue_operands=ops_), 5)
+            with full_fp32():
+                lib_ms = queued_ms(torch, lambda i: torch.bmm(a, b), 5)
+            ms5 = queued_ms(torch, lambda i: kern5(aq.q, aq.scale, bq.q, bq.scale,
+                                                   out_dtype=out_dtype, epilogue=steps,
+                                                   epilogue_operands=ops_), 5)
+            out_elem = torch.empty((), dtype=out_dtype).element_size()
+            bound, by = _grouped_bound(g, m, k, n, out_elem, len(ops_))
+            bound5, by5 = q8_bound(g, m, k, n, out_elem, len(ops_))
+            rows.append({"gemm": name, "g": g, "m": m, "k": k, "n": n, "chain": "+".join(steps)
+                         or "none", "k4_ms": ms, "bmm_ms": lib_ms, "bound_ms": bound,
+                         "bound_by": by, "k5_ms": ms5, "k5_bound_ms": bound5, "k5_bound_by": by5})
+            log(f"{tag} grok {name} [{g} x {m} x {k}] @ [{g} x {k} x {n}] ({rows[-1]['chain']}, "
+                f"{str(out_dtype).removeprefix('torch.')} out): K4 {ms:.4f} ms, torch.bmm "
+                f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); K5 {ms5:.4f} ms, bound "
+                f"{bound5:.4f} ms ({by5})")
+            del aq, bq, out, out5, want5
+    for m in GROK_EXPERT_MS:
+        sel = [r for r in rows if r["m"] == m]
+        log(f"{tag} grok's 3 expert GEMMs at M={m}: K4 {sum(r['k4_ms'] for r in sel):.4f} ms, "
+            f"torch.bmm {sum(r['bmm_ms'] for r in sel):.4f} ms, bound "
+            f"{sum(r['bound_ms'] for r in sel):.4f} ms; K5 {sum(r['k5_ms'] for r in sel):.4f} ms, "
+            f"bound {sum(r['k5_bound_ms'] for r in sel):.4f} ms")
+    return {"rows": rows, "k4_max_abs_err": err4, "k5_max_abs_err": err5,
+            "timing": "device time (queued_ms), layer 0's resident weights"}
+
+
+def _dense_first_step(torch, ops, ep, tcfg, params, first, kernels, tables, tag):
+    """A dense train step's loss and gradients on the kernels, every K1
+    launch counted by role and route against ``tables``
+    (:func:`_check_role_counts`), then on the plain backend (fp32 and fp64
+    sums), held under :func:`_gate_first_step`."""
+    from repro_torch.models import api
+    from repro_torch.tree import leaves, map_leaves
+
+    fp64, plain = _fp64_plain(torch, ep), ops.backend("torch")
+    counts, state, installed = _role_counter(torch, ops, kernels, (("cuda", "fn", "K1"),))
+
+    def loss_grads(backend):
+        live = map_leaves(lambda p: p.detach().requires_grad_(), params)
+        state["phase"] = "forward"
+        loss = api.loss_fn(tcfg, live, first, backend=backend)
+        state["phase"] = "remat recompute"
+        return loss.detach().float(), torch.autograd.grad(loss, list(leaves(live)))
+
+    with installed():
+        loss_k, g_k = loss_grads("cuda")
+        sync(torch, first["tokens"].device)
+    loss_p, g_p = loss_grads("torch")
+    with _patched(plain, "fn", fp64):
+        loss_64, g_64 = loss_grads("torch")
+    losses = (loss_k, loss_p, loss_64)
+    leaf_gaps, worst_leaf = _gate_first_step(torch, params, losses, (g_k, g_p, g_64), tag)
+    log(f"{tag} first step: loss kernels {loss_k.item():.6f}, plain {loss_p.item():.6f}, plain "
+        f"fp64 sums {loss_64.item():.6f}; {len(leaf_gaps)} gradient leaves within "
+        f"{TRAIN_GRAD_FLOOR_FACTOR} x floor (worst {worst_leaf}: RMS "
+        f"{leaf_gaps[worst_leaf][0]:.3g}, floor {leaf_gaps[worst_leaf][1]:.3g})")
+    return {"losses": losses, "leaf_gaps": leaf_gaps, "worst_leaf": worst_leaf,
+            "by_role": _check_role_counts(counts, tables, tcfg.n_layers, tag)}
+
+
+def family_train_phase(torch, np, cfg, ops, ep, k4mod, dev, *, layers, batch, seq, tag,
+                       steps=FAMILY_TRAIN_STEPS):
+    """14(e) for one family: its full width cut to ``layers`` layers, bf16,
+    remat "full", with the config's ``grad_accum`` and moment dtype, on the
+    Markov stream at ``batch`` x ``seq`` tokens a step. The first step (its
+    first microbatch) on the kernels against the plain backend under
+    10(a)'s floor gate, every launch counted by role and route (an MoE
+    model teacher-forced on the kernels' routing, as 11(b)); then ``steps``
+    steps through ``repro_torch.train.train`` with exact launch counts,
+    finite losses, step time, tokens/s and peak memory. The whole phase,
+    its first-step gate too, runs under the training loop's own allocator
+    setting (``repro_torch.train.expandable_segments``)."""
+    from repro_torch.train import expandable_segments
+
+    with expandable_segments(dev):
+        return _family_train(torch, np, cfg, ops, ep, k4mod, dev, layers=layers, batch=batch,
+                             seq=seq, tag=tag, steps=steps)
+
+
+def _family_train(torch, np, cfg, ops, ep, k4mod, dev, *, layers, batch, seq, tag, steps):
+    import dataclasses
+
+    from repro_torch import obs
+    from repro_torch.data import MarkovLMDataset, make_batch_fn
+    from repro_torch.kernels.opope_gemm import opope_gemm
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainLoopConfig, train
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    tcfg = dataclasses.replace(cfg, n_layers=layers)
+    moe = tcfg.moe is not None
+    if moe and tcfg.moe.n_shared:
+        raise AssertionError(f"{tag}: the launch tables here have no shared expert")
+    kernels = {"K1": opope_gemm, "K4": k4mod.opope_gemm_grouped}
+    tables = ({"K1": K1_GROK_TRAIN, "K4": K4_MOE_TRAIN} if moe else {"K1": K1_DENSE_TRAIN})
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(tcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    batch_fn = make_batch_fn(MarkovLMDataset(tcfg.vocab, seq, batch, seed=0), dev)
+    micro = batch // tcfg.grad_accum
+    first = {k: v[:micro] for k, v in batch_fn(0).items()}
+    if moe:
+        fs = _moe_first_step(torch, ops, ep, tcfg, params, first, kernels,
+                             (("cuda", "fn", "K1"), ("cuda", "grouped_fn", "K4")), tables,
+                             "cuda", "torch", f"{tag} {tcfg.name}")
+    else:
+        fs = _dense_first_step(torch, ops, ep, tcfg, params, first, kernels, tables,
+                               f"{tag} {tcfg.name}")
+    first_peak = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    obs.clear_events()
+    _reset_k1(ops, opope_gemm)
+    kernels["K4"].launches_by_route.update(sm90=0, tile=0)
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
+    t0 = time.perf_counter()
+    res = train(tcfg, opt, TrainLoopConfig(total_steps=steps, log_every=1), batch_fn,
+                params=params, log=lambda msg: log(f"{tag} {msg}"))
+    sync(torch, dev)
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    routes = {name: dict(kernels[name].launches_by_route) for name in tables}
+    want = {name: _want_routes(table, layers, steps * tcfg.grad_accum)
+            for name, table in tables.items()}
+    if routes != want:
+        raise AssertionError(f"{tag} launches by route {routes} != {want}")
+    moment_dtypes = {str(x.dtype).removeprefix("torch.") for x in leaves(res.opt_state.mu)}
+    if moment_dtypes != {tcfg.moment_dtype}:
+        raise AssertionError(f"{tag} moments in {moment_dtypes}, config {tcfg.moment_dtype}")
+    if len(res.losses) != steps or not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"{tag} losses {res.losses}")
+    walls = [e["wall_s"] for e in obs.recent_events(steps, kind="train_step")]
+    step_s = sum(walls[1:]) / max(1, len(walls) - 1)
+    phase_s = time.perf_counter() - t_phase
+    log(f"{tag} {tcfg.name} at {layers} layers ({n_params / 1e9:.3f} B params), {batch} x {seq} "
+        f"tokens a step in {tcfg.grad_accum} microbatches, {tcfg.moment_dtype} moments: {steps} "
+        f"steps in {train_s:.2f} s, losses {[round(x, 4) for x in res.losses]}; step wall "
+        f"{step_s * 1e3:.1f} ms (steps 2..{steps}; the first {walls[0] * 1e3:.1f} ms), "
+        f"{batch * seq / step_s:.1f} tokens/s; peak device memory {peak_gb:.2f} GB (the "
+        f"first-step gate's {first_peak:.2f} GB); launches by route {routes}; {phase_s:.1f} s")
+    del res, params
+    return {"name": tcfg.name, "layers": layers, "params": n_params, "batch": batch, "seq": seq,
+            "grad_accum": tcfg.grad_accum, "moment_dtype": tcfg.moment_dtype, "steps": steps,
+            "first_step_loss": {k: v.item() for k, v in zip(("kernels", "plain", "plain_fp64"),
+                                                             fs["losses"])},
+            "worst_leaf": fs["worst_leaf"], "worst_leaf_gap": fs["leaf_gaps"][fs["worst_leaf"]],
+            "first_step_by_role": fs["by_role"], "step_ms": step_s * 1e3,
+            "first_step_ms": walls[0] * 1e3, "tokens_per_sec": batch * seq / step_s,
+            "peak_memory_gb": peak_gb, "first_step_gate_peak_memory_gb": first_peak,
+            "launches_by_route": routes, "seconds": phase_s}
+
+
+def families_phase(torch, np, get_config, ops, ep, k4mod, q8mod, q8b, qz, kernels, dev):
+    """Phase 14 (ROADMAP A.8): stablelm-12b, gemma2-9b, qwen2.5-32b and
+    grok-1-314b (cut to GROK_SERVE_LAYERS layers) one at a time, each freed
+    before the next, through :func:`family_phase` and its own extra: (a)
+    4(f)'s prefix-cache gate, (b) :func:`long_prompt_phase`, (c) phase 8
+    under ``mlp_q8_policy()``, (d) phase 8 under ``{"moe": "q8"}`` and
+    :func:`grok_expert_phase`; then (e) training gemma2-9b and grok-1-314b
+    (:func:`family_train_phase`). Returns the records."""
+    import dataclasses
+
+    t_phase = time.perf_counter()
+    out = {}
+    for letter, name in zip("abcd", FAMILIES):
+        tag = f"14({letter}) {name}"
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, n_layers=GROK_SERVE_LAYERS)
+        rec, params = family_phase(torch, np, cfg, ops, ep, k4mod, dev, tag)
+        if name == "stablelm-12b":
+            rec["prefix_cache"] = _prefix_gate(torch, np, cfg, params, ops, dev, tag)[0]
+        elif name == "gemma2-9b":
+            rec["long_prompt"] = long_prompt_phase(torch, np, cfg, params, ops, dev, tag)
+        elif name == "qwen2.5-32b":
+            rec["q8"] = q8_model_phase(
+                torch, np, cfg, params, qz.mlp_q8_policy(),
+                qz.PrecisionPolicy(rules={"mlp": "torch_q8", "moe": "torch_q8"}, default="torch"),
+                {"K1": 4, "K2": 3}, ops, ep, kernels, dev, f"{tag} q8")
+        else:
+            rec["q8"] = q8_model_phase(
+                torch, np, cfg, params, qz.PrecisionPolicy(rules={"moe": "q8"}),
+                qz.PrecisionPolicy(rules={"moe": "torch_q8"}, default="torch"),
+                {"K1": 5, "K5": 3}, ops, ep, kernels, dev, f"{tag} q8")
+            rec["experts"] = grok_expert_phase(torch, k4mod, q8mod, q8b, ep, cfg, params, dev, tag)
+        rec["phase_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["seconds"] = time.perf_counter() - t0
+        log(f"{tag}: peak device memory {rec['phase_peak_memory_gb']:.2f} GB over the family's "
+            f"phase ({rec['peak_memory_gb']:.2f} GB over (i)-(iii)); {rec['seconds']:.1f} s")
+        del params
+        out[name] = rec
+    out["train"] = {name: family_train_phase(torch, np, get_config(name), ops, ep, k4mod, dev,
+                                             layers=layers, batch=batch, seq=seq,
+                                             tag=f"14(e) {name}")
+                    for name, layers, batch, seq in FAMILY_TRAIN}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
+def family_launch_paths(fam):
+    """Each GEMM kernel's phase-14 launches by path and route (every serving
+    path's held to sm90 there, training's to its exact split)."""
+    paths = {"K1": {}, "K4": {}, "K2": {}, "K5": {}}
+    for name in FAMILIES:
+        r = fam[name]
+        for kname, n in r["serve"]["launches"].items():
+            if n:
+                paths[kname][f"{name} (14)"] = {"sm90": n, "tile": 0}
+        if "prefix_cache" in r:
+            pc = r["prefix_cache"]
+            paths["K1"][f"{name} prefix cache (14(a))"] = {
+                "sm90": pc["off"]["k1_launches"] + pc["on"]["k1_launches"], "tile": 0}
+        if "long_prompt" in r:
+            paths["K1"][f"{name} long prompt (14(b))"] = {
+                "sm90": sum(r["long_prompt"]["launches"].values()), "tile": 0}
+        for kname, n in r.get("q8", {}).get("launches", {}).items():
+            if n:
+                paths[kname][f"{name} q8 (14)"] = {"sm90": n, "tile": 0}
+    for name, t in fam["train"].items():
+        for kname, routes in t["launches_by_route"].items():
+            paths[kname][f"{name} train ({t['layers']} layers, 14(e))"] = routes
+    return paths
+
+
 def decode_profile(torch, step, step_ms, n_steps: int = 4, tag: str = "(d)",
                    what: str = "decode step"):
     """Device time by kernel over ``n_steps`` decode steps (torch.profiler),
@@ -4073,6 +4697,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     ckpt_record = checkpoint_phase(torch, cfg, dev)
     train_record["cli"] = ckpt_record["cli"][0]  # 10(c): 12(e)'s first run
+    # Phase 14: the families of ROADMAP A.8, one at a time.
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam = families_phase(torch, np, get_config, ops, ep, k4mod, q8mod, q8b, qz, kernels, dev)
     # One MoE layer's 3 grouped GEMMs of a 4-slot decode step (capacity 1).
     g_decode = [r for r in g_rows if r["m"] == 1]
     g_sums = {key: sum(r[key] for r in g_decode)
@@ -4310,6 +4938,15 @@ def main() -> int:
     record["launches_by_path"][f"{cfg.name} tuned decode (13(c))"] = tune_record["tuned_launches"]
     record["launches"] += tune_record["tuned_launches"]
     record["launches_by_route"]["sm90"] += tune_record["tuned_launches"]
+    # Phase 14's paths beside the earlier ones, for each GEMM kernel.
+    for rec, kname in ((record, "K1"), (g_record, "K4"), (q8_records[0], "K2"),
+                       (q8_records[1], "K5")):
+        for path, routes in family_launch_paths(fam)[kname].items():
+            rec["launches_by_path"][path] = sum(routes.values())
+            rec["launches"] += sum(routes.values())
+            for route, n in routes.items():
+                rec["launches_by_route"][route] += n
+    record["families"] = fam
     log(f"the whole script took {time.perf_counter() - t_script:.1f} s (builds "
         f"{sum(kbuild.BUILD_SECONDS.values()):.1f} s summed over sources, run together)")
     print(smi, flush=True)

@@ -805,9 +805,16 @@ def _bwd_gemm(fn, x: torch.Tensor, y: torch.Tensor, out_dtype) -> torch.Tensor:
     fp32 cotangent of an epilogue'd product against a bf16 operand) are
     both cast to the wider one, exactly, as the reference's ``jnp.dot``
     promotes them: the kernels take one input dtype. Transposed operands
-    are copied contiguous (the kernels take contiguous operands)."""
+    are copied contiguous (the kernels take contiguous operands), cast and
+    copied in one pass: a transposed grok-1-314b expert weight in fp32 is
+    6.4 GB."""
     dt = torch.promote_types(x.dtype, y.dtype)
-    return fn(x.to(dt).contiguous(), y.to(dt).contiguous(), None, out_dtype=out_dtype)
+
+    def operand(t):
+        # .to returns a same-dtype tensor as it is, whatever its layout.
+        return t.to(dt, memory_format=torch.contiguous_format).contiguous()
+
+    return fn(operand(x), operand(y), None, out_dtype=out_dtype)
 
 
 def _forward(ctx, grouped, name, out_dtype, steps, a, b, c, ep_ops):

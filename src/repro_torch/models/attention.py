@@ -2,7 +2,9 @@
 
 The port of :mod:`repro.models.attention` for the serving path: projections
 on the O-POPE GEMM, RoPE, and the attention core in plain PyTorch — as in
-the reference, where attention is jnp and not a Pallas kernel. Scores and
+the reference, where attention is jnp and not a Pallas kernel. The core
+takes a sliding window (gemma2's local layers) and score soft-capping in
+each mode, in the reference's order: scale, cap, then the masks. Scores and
 softmax are fp32; the probabilities are rounded to the value dtype and the PV
 product accumulates in fp32. Masks use the finite ``NEG_INF``, so a fully
 masked row gives uniform weights, not NaN.
@@ -72,9 +74,14 @@ def attention_init(
     }
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
-    """[B, qc, Hkv, G, D] x [B, kc, Hkv, D] -> fp32 [B, Hkv, G, qc, kc]."""
-    return torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+def _scores(q: torch.Tensor, k: torch.Tensor, scale: float,
+            cap: Optional[float] = None) -> torch.Tensor:
+    """[B, qc, Hkv, G, D] x [B, kc, Hkv, D] -> fp32 [B, Hkv, G, qc, kc]:
+    scaled, then soft-capped to ``cap * tanh(s / cap)`` when ``cap`` is set."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    if cap is not None:
+        s = cap * torch.tanh(s / cap)
+    return s
 
 
 def _pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -88,6 +95,8 @@ def blockwise_attention(
     v: torch.Tensor,
     *,
     causal: bool = True,
+    window: Optional[int] = None,
+    attn_softcap: Optional[float] = None,
     q_chunk: int = 512,
     kv_chunk: int = 1024,
     scale: Optional[float] = None,
@@ -95,8 +104,10 @@ def blockwise_attention(
     """Online-softmax attention. q: [B,S,Hq,D]; k/v: [B,T,Hkv,D] -> [B,S,Hq,D].
 
     Query blocks of ``q_chunk`` rows stream KV panels of ``kv_chunk`` keys,
-    keeping the softmax state ``(m, l, acc)`` in fp32; causality prunes
-    whole panels.
+    keeping the softmax state ``(m, l, acc)`` in fp32; causality and a
+    sliding ``window`` (key ``kp`` is seen by query ``q`` iff
+    ``kp > q - window``) prune whole panels. ``attn_softcap`` caps the
+    scaled scores before the masks.
     """
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -119,13 +130,14 @@ def blockwise_attention(
         q_i = qg[:, i]
         q_pos = i * qc + torch.arange(qc, device=q.device)
         hi = nkv if not causal else min(nkv, math.ceil((i + 1) * qc / kc))
+        lo = 0 if window is None else max(0, (i * qc - window) // kc)
         m = torch.full((b, hkv, g, qc), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((b, hkv, g, qc), dtype=torch.float32, device=q.device)
         acc = torch.zeros((b, hkv, g, qc, d), dtype=torch.float32, device=q.device)
-        for j in range(hi):
-            s_ij = _scores(q_i, kr[:, j], scale)
-            if causal:
-                mask = k_pos[j][None, :] <= q_pos[:, None]
+        for j in range(lo, hi):
+            s_ij = _scores(q_i, kr[:, j], scale, attn_softcap)
+            mask = _panel_mask(k_pos[j], q_pos, causal, window)
+            if mask is not None:
                 s_ij = torch.where(mask, s_ij, NEG_INF)
             m_new = torch.maximum(m, s_ij.amax(dim=-1))
             p = torch.exp(s_ij - m_new[..., None])
@@ -138,15 +150,31 @@ def blockwise_attention(
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def _panel_mask(k_pos: torch.Tensor, q_pos: torch.Tensor, causal: bool,
+                window: Optional[int]) -> Optional[torch.Tensor]:
+    """[qc, kc] validity of a panel's keys for a block's queries, or None
+    when every key is valid."""
+    mask = None
+    if causal:
+        mask = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        in_window = k_pos[None, :] > q_pos[:, None] - window
+        mask = in_window if mask is None else mask & in_window
+    return mask
+
+
 def decode_attention(
     q: torch.Tensor,
     cache: KVCache,
     *,
     n_kv: int,
+    window: Optional[int] = None,
+    attn_softcap: Optional[float] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Single-token attention against the cache. q: [B,1,Hq,D] -> [B,1,Hq,D].
-    Row ``b`` attends over positions ``< length[b]`` (or ``< length``)."""
+    Row ``b`` attends over positions ``< length[b]`` (or ``< length``), and
+    with a ``window`` only over the last ``window`` of them."""
     b, _, hq, d = q.shape
     t = cache.k.shape[1]
     g = hq // n_kv
@@ -154,10 +182,12 @@ def decode_attention(
     qg = q.reshape(b, 1, n_kv, g, d)
     k = cache.k.reshape(b, t, n_kv, d)
     v = cache.v.reshape(b, t, n_kv, d)
-    s = _scores(qg, k, scale)  # [B, Hkv, G, 1, T]
+    s = _scores(qg, k, scale, attn_softcap)  # [B, Hkv, G, 1, T]
     kp = torch.arange(t, device=q.device)
     ln = torch.as_tensor(cache.length, device=q.device).reshape(-1)
     valid = kp[None, :] < ln[:, None]
+    if window is not None:
+        valid = valid & (kp[None, :] > ln[:, None] - 1 - window)
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = _pv(p, v)
@@ -170,15 +200,17 @@ def chunk_attention(
     q_pos: torch.Tensor,
     *,
     n_kv: int,
+    window: Optional[int] = None,
+    attn_softcap: Optional[float] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Chunked-prefill attention: C query tokens per row, each at its own
     absolute position, against the row's cache. q: [B,C,Hq,D]; q_pos: [B,C]
     -> [B,C,Hq,D]. Token ``(b, j)`` attends over every cache position
-    ``<= q_pos[b, j]``: the chunk's own K/V is already in the cache, so
-    causality inside the chunk and attention over earlier chunks (or an
-    attached cached prefix) are one mask, and rows may sit at different
-    offsets."""
+    ``<= q_pos[b, j]`` (and ``> q_pos[b, j] - window`` with a window): the
+    chunk's own K/V is already in the cache, so causality inside the chunk
+    and attention over earlier chunks (or an attached cached prefix) are
+    one mask, and rows may sit at different offsets."""
     b, c, hq, d = q.shape
     t = cache.k.shape[1]
     g = hq // n_kv
@@ -186,9 +218,11 @@ def chunk_attention(
     qg = q.reshape(b, c, n_kv, g, d)
     k = cache.k.reshape(b, t, n_kv, d)
     v = cache.v.reshape(b, t, n_kv, d)
-    s = _scores(qg, k, scale)  # [B, Hkv, G, C, T]
+    s = _scores(qg, k, scale, attn_softcap)  # [B, Hkv, G, C, T]
     kp = torch.arange(t, device=q.device)
     valid = kp[None, None, :] <= q_pos[:, :, None]  # [B, C, T]
+    if window is not None:
+        valid = valid & (kp[None, None, :] > q_pos[:, :, None] - window)
     s = torch.where(valid[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = _pv(p, v)
@@ -244,6 +278,8 @@ def attention_apply(
     rotary_frac: float = 1.0,
     rope_theta: float = 10000.0,
     causal: bool = True,
+    window: Optional[int] = None,
+    attn_softcap: Optional[float] = None,
     cache: Optional[KVCache] = None,
     q_chunk: int = 512,
     kv_chunk: int = 1024,
@@ -262,7 +298,8 @@ def attention_apply(
     prefill that fills and returns the cache. A ``QuantKVCache`` takes the
     decode step only: chunks and prefills fill full-precision caches, which
     the slot pool's join quantizes. The projections take the policy roles
-    ``attn_qkv`` and ``attn_out``.
+    ``attn_qkv`` and ``attn_out``. ``window`` (a local layer's sliding
+    window) and ``attn_softcap`` reach the attention core in every mode.
     """
     b, s, _ = x.shape
     qkv_be = role_backend(backend, "attn_qkv")
@@ -288,7 +325,8 @@ def attention_apply(
             )
         _scatter_chunk(cache, k.reshape(b, s, -1), v.reshape(b, s, -1), positions)
         new_cache = KVCache(cache.k, cache.v, positions[:, -1] + 1)
-        o = chunk_attention(q, new_cache, positions, n_kv=n_kv)
+        o = chunk_attention(q, new_cache, positions, n_kv=n_kv, window=window,
+                            attn_softcap=attn_softcap)
     elif cache is not None and s == 1:
         if isinstance(cache, QuantKVCache):
             # The appended token quantizes through the slot's fixed scales;
@@ -299,7 +337,8 @@ def attention_apply(
                                   new_cache.length)
         else:
             new_cache = attend_over = _append(cache, k, v)
-        o = decode_attention(q, attend_over, n_kv=n_kv)
+        o = decode_attention(q, attend_over, n_kv=n_kv, window=window,
+                             attn_softcap=attn_softcap)
     else:
         if isinstance(cache, QuantKVCache):
             raise NotImplementedError(
@@ -308,7 +347,8 @@ def attention_apply(
                 "(serve.cache.scatter_slots)"
             )
         o = blockwise_attention(
-            q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk
+            q, k, v, causal=causal, window=window, attn_softcap=attn_softcap,
+            q_chunk=q_chunk, kv_chunk=kv_chunk,
         )
         if cache is not None:
             cache.k[:, :s] = k.reshape(b, s, n_kv * head_dim).to(cache.k.dtype)

@@ -1,11 +1,14 @@
 """Decoder-only LM assembly: a Python loop over layers.
 
-The port of :mod:`repro.models.transformer` for the ``("attn", "mlp")``
-block pattern (the dense decoders such as chatglm3-6b) and the
-``("attn", "moe")`` pattern (the MoE decoders such as deepseek-moe-16b).
+The port of :mod:`repro.models.transformer` for the attention-only
+decoders: dense periods of ``("attn" | "attn_local", "mlp")`` blocks
+(chatglm3-6b, qwen2.5-32b; stablelm-12b's parallel block; gemma2-9b's
+``(attn_local, attn)`` period with its sliding window and soft-capping) and
+MoE periods of ``("attn", "moe")`` blocks (deepseek-moe-16b, grok-1-314b).
 Parameters are a dict; ``params["blocks"]`` is a list with one dict per
-layer, in place of the reference's per-period stacks under ``lax.scan``.
-Caches are a list of one :class:`KVCache` per layer.
+layer, in place of the reference's per-period stacks under ``lax.scan``:
+layer ``i`` is the block ``cfg.pattern[i % len(cfg.pattern)]``, periods
+one after another. Caches are a list of one :class:`KVCache` per layer.
 
 Modes: ``train`` (full sequence, no caches, positions ``0..S-1``; each
 block under ``torch.utils.checkpoint`` when ``cfg.remat`` asks for the
@@ -17,7 +20,7 @@ without caches a prefill returns hidden states only. ``lm_forward`` also
 returns the MoE router's load-balancing loss, summed over layers, as the
 reference does. :func:`lm_loss` is the training loss: the chunked
 cross-entropy of :func:`_chunked_ce` plus ``0.01`` times that loss. Other
-block patterns raise ``NotImplementedError``.
+families and mixers (vlm, audio, mamba, xLSTM) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,24 +60,25 @@ __all__ = [
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
 
-_PORTED = {
-    "dense": (BlockDef("attn", "mlp"),),
-    "moe": (BlockDef("attn", "moe"),),
+# The (mixer, ffn) blocks each ported family may have in its period.
+_PORTED_BLOCKS = {
+    "dense": {("attn", "mlp"), ("attn_local", "mlp")},
+    "moe": {("attn", "moe")},
 }
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice of the port lacks."""
-    if _PORTED.get(cfg.family) != cfg.pattern or (cfg.family == "moe") != (cfg.moe is not None):
+    blocks = _PORTED_BLOCKS.get(cfg.family)
+    if (blocks is None or (cfg.moe is not None) != (cfg.family == "moe")
+            or any((bd.mixer, bd.ffn) not in blocks for bd in cfg.pattern)):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense ('attn', 'mlp') and MoE ('attn', 'moe') "
-            f"patterns are ported; got family {cfg.family!r}, pattern {cfg.pattern}"
+            f"{cfg.name}: only dense ('attn' | 'attn_local', 'mlp') and MoE "
+            f"('attn', 'moe') periods are ported; got family {cfg.family!r}, "
+            f"pattern {cfg.pattern}"
         )
-    if cfg.parallel_block or cfg.window or cfg.attn_softcap:
-        raise NotImplementedError(
-            f"{cfg.name}: parallel blocks, sliding windows and attention "
-            f"soft-capping are not ported yet"
-        )
+    if cfg.parallel_block and cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: a parallel MoE block is not ported")
 
 
 def param_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -102,7 +106,8 @@ def init_lm_params(
     if not cfg.tie_embeddings:
         params["lm_head"] = init((cfg.vocab, cfg.d_model))
     blocks: List[Dict[str, Any]] = []
-    for _ in range(cfg.n_layers):
+    for layer in range(cfg.n_layers):
+        bd = _block_def(cfg, layer)
         block = {
             "norm_mixer": _norm_init(cfg, cfg.d_model, device),
             "attn": attn_mod.attention_init(
@@ -111,7 +116,7 @@ def init_lm_params(
             ),
             "norm_ffn": _norm_init(cfg, cfg.d_model, device),
         }
-        if cfg.moe is None:
+        if bd.ffn == "mlp":
             block["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, init)
         else:
             block["moe"] = moe_init(
@@ -123,10 +128,16 @@ def init_lm_params(
     return params
 
 
+def _block_def(cfg: ArchConfig, layer: int) -> BlockDef:
+    """The block of layer ``layer``: periods of ``cfg.pattern`` in order."""
+    return cfg.pattern[layer % len(cfg.pattern)]
+
+
 def init_caches(
     cfg: ArchConfig, batch: int, max_len: int, dtype, device
 ) -> List[KVCache]:
-    """One zeroed KV cache per layer."""
+    """One zeroed KV cache per layer (every ported block attends; a local
+    layer's cache spans ``max_len`` too, as the reference's)."""
     check_supported(cfg)
     return [
         KVCache.zeros(batch, max_len, cfg.n_kv, cfg.head_dim_, dtype, device)
@@ -134,20 +145,27 @@ def init_caches(
     ]
 
 
-def _block_apply(cfg: ArchConfig, p, x, *, positions, cache, backend, chunk=False):
-    """One layer: attention with its skip connection fused into the output
-    projection, then the pre-norm MLP with its skip fused into w_down, or
-    the pre-norm MoE with a plain skip add. Returns (x, new_cache, aux loss
-    or None)."""
+def _block_apply(cfg: ArchConfig, bd: BlockDef, p, x, *, positions, cache, backend,
+                 chunk=False):
+    """One layer ``bd``: attention (sliding-window for ``attn_local``) with
+    its skip connection fused into the output projection, then the pre-norm
+    MLP with its skip fused into w_down, or the pre-norm MoE with a plain
+    skip add. A parallel block's MLP reads the attention's normed input and
+    takes the attention's stream as its w_down residual; its ``norm_ffn`` is
+    carried unused, as in the reference. Returns (x, new_cache, aux loss or
+    None)."""
+    h = _norm(cfg, p["norm_mixer"], x)
     stream, new_cache = attn_mod.attention_apply(
         p["attn"],
-        _norm(cfg, p["norm_mixer"], x),
+        h,
         n_heads=cfg.n_heads,
         n_kv=cfg.n_kv,
         head_dim=cfg.head_dim_,
         positions=positions,
         rotary_frac=cfg.rope_frac,
         rope_theta=cfg.rope_theta,
+        window=cfg.window if bd.mixer == "attn_local" else None,
+        attn_softcap=cfg.attn_softcap,
         cache=cache,
         q_chunk=cfg.q_chunk,
         kv_chunk=cfg.kv_chunk,
@@ -155,8 +173,9 @@ def _block_apply(cfg: ArchConfig, p, x, *, positions, cache, backend, chunk=Fals
         residual=x,
         chunk=chunk,
     )
-    h = _norm(cfg, p["norm_ffn"], stream)
-    if "mlp" in p:
+    if not cfg.parallel_block:
+        h = _norm(cfg, p["norm_ffn"], stream)
+    if bd.ffn == "mlp":
         return mlp_apply(p["mlp"], h, backend=backend, residual=stream), new_cache, None
     moe = cfg.moe
     y, aux = moe_apply(
@@ -203,14 +222,15 @@ def lm_forward(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, p in enumerate(params["blocks"]):
         cache = caches[layer] if caches is not None else None
+        bd = _block_def(cfg, layer)
         if remat:
             # Full remat: keep the block's input, recompute the rest in the
             # backward (its GEMMs run twice a step).
             x, nc, a = torch.utils.checkpoint.checkpoint(
-                _block_apply, cfg, p, x, positions=positions, cache=None,
+                _block_apply, cfg, bd, p, x, positions=positions, cache=None,
                 backend=backend, use_reentrant=False)
         else:
-            x, nc, a = _block_apply(cfg, p, x, positions=positions, cache=cache,
+            x, nc, a = _block_apply(cfg, bd, p, x, positions=positions, cache=cache,
                                     backend=backend, chunk=chunk)
         if a is not None:
             aux = aux + a

@@ -10,7 +10,11 @@ bias corrections ``1 - b**step`` in fp32, decay on matrices only
 :func:`apply_updates` writes the new parameters and moments into the
 tensors it is given and returns them: the reference's jitted train step
 donates both, and a second copy of 1.35 G parameters' fp32 moments would
-cost 10.8 GB of device memory.
+cost 10.8 GB of device memory. For the same reason it updates each leaf
+(the clip scale included) in flat slices of at most :data:`UPDATE_SLICE`
+elements: the arithmetic is elementwise, so the result is the same bits,
+and its fp32 temporaries stay a slice's size (one of grok-1's
+``[8, 6144, 32768]`` expert leaves would take 6.4 GB each).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from repro_torch.tree import leaves, map_leaves
 __all__ = ["AdamWConfig", "OptState", "init_opt_state", "apply_updates", "cosine_lr"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+UPDATE_SLICE = 1 << 26  # elements of a leaf updated at a time
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,27 +87,37 @@ def apply_updates(
     """One AdamW step, in place: returns ``params`` and the state's moment
     tensors updated, a new step count and ``{"lr", "grad_norm"}``."""
     gnorm = _global_norm(grads)
+    scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-        grads = map_leaves(lambda g: g * scale.to(g.dtype), grads)
 
     step = state.step + 1
     lr = cosine_lr(cfg, step)
     b1c = 1 - torch.pow(cfg.b1, step.to(torch.float32))
     b2c = 1 - torch.pow(cfg.b2, step.to(torch.float32))
 
-    def upd(p, g, m, v):
+    def upd_slice(p, g, m, v, decay):
+        if scale is not None:
+            g = g * scale.to(g.dtype)
         gf = g.to(torch.float32)
         m32 = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * gf
         v32 = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * gf * gf
         mhat = m32 / b1c
         vhat = v32 / b2c
         delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if p.ndim >= 2:
+        if decay:
             delta = delta + cfg.weight_decay * p.to(torch.float32)
         p.copy_(p.to(torch.float32) - lr * delta)
         m.copy_(m32)
         v.copy_(v32)
+
+    def upd(p, g, m, v):
+        decay = p.ndim >= 2
+        if not all(x.is_contiguous() for x in (p, g, m, v)):
+            return upd_slice(p, g, m, v, decay)
+        flat = [x.view(-1) for x in (p, g, m, v)]
+        for i in range(0, p.numel(), UPDATE_SLICE):
+            upd_slice(*(x[i:i + UPDATE_SLICE] for x in flat), decay)
 
     map_leaves(upd, params, grads, state.mu, state.nu)
     return params, OptState(step=step, mu=state.mu, nu=state.nu), {"lr": lr, "grad_norm": gnorm}

@@ -34,7 +34,9 @@ into ``train.stragglers`` and emits a ``straggler`` event.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import statistics
 import time
 from typing import Any, Callable, Dict, Optional
@@ -105,7 +107,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, policy=None) -> Ca
         # Leaves that require grad, sharing storage with the caller's.
         live = map_leaves(lambda p: p.detach().requires_grad_(), params)
         loss = model_api.loss_fn(cfg, live, batch, backend=policy)
-        grads = torch.autograd.grad(loss, list(leaves(live)))
+        # A leaf the loss does not read (a parallel block's norm_ffn) gets
+        # a zero gradient, as jax.grad gives it.
+        grads = torch.autograd.grad(loss, list(leaves(live)), allow_unused=True,
+                                    materialize_grads=True)
         it = iter(grads)
         return loss.detach(), map_leaves(lambda _p: next(it), params)
 
@@ -119,10 +124,11 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, policy=None) -> Ca
             loss = torch.zeros((), dtype=torch.float32, device=next(leaves(params)).device)
             for micro in zip(*(torch.chunk(v, n_micro) for v in batch.values())):
                 li, gi = value_and_grad(params, dict(zip(batch, micro)))
-                map_leaves(lambda a, b: a.add_(b.to(torch.float32)), grads, gi)
+                # add_ widens b exactly inside the add: no fp32 copy of it.
+                map_leaves(lambda a, b: a.add_(b), grads, gi)
                 loss = loss + li
             loss = loss / n_micro
-            grads = map_leaves(lambda g: g / n_micro, grads)
+            map_leaves(lambda g: g.div_(n_micro), grads)  # in place: no second fp32 copy
         _, new_state, metrics = apply_updates(
             _stacked(params), _stacked(grads),
             OptState(opt_state.step, _stacked(opt_state.mu), _stacked(opt_state.nu)), opt_cfg)
@@ -161,6 +167,42 @@ class _Watchdog:
         return slow
 
 
+def _allocator_settings() -> str:
+    get = getattr(torch._C, "_accelerator_getAllocatorSettings", None)
+    if get is not None:
+        return get()
+    return os.environ.get("PYTORCH_ALLOC_CONF") or os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "")
+
+
+def _set_allocator(settings: str) -> None:
+    # The accelerator-wide setter replaces the CUDA one in newer PyTorch.
+    setter = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (setter or torch.cuda.memory._set_allocator_settings)(settings)
+
+
+@contextlib.contextmanager
+def expandable_segments(device):
+    """Inside the block the CUDA caching allocator grows its segments in
+    place (``expandable_segments``), so the pages of freed blocks serve a
+    later, larger request; the setting found on entry is restored on exit.
+    Without it a large model's step can fail on a fragmented pool with
+    memory reserved but unused: grok-1-314b's one-layer step peaks within a
+    few GB of the H100's memory, and a fragmented pool refused it a 6 GiB
+    fp32 weight copy. Nothing changes off CUDA, or where the process runs
+    with the setting already (``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``)."""
+    found = dict(kv.split(":", 1) for kv in _allocator_settings().split(",") if ":" in kv)
+    if torch.device(device).type != "cuda" or found.get("expandable_segments") == "True":
+        yield
+        return
+    torch.cuda.empty_cache()
+    _set_allocator("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        _set_allocator("expandable_segments:" + found.get("expandable_segments", "False"))
+
+
 def train(
     cfg: ArchConfig,
     opt_cfg: AdamWConfig,
@@ -179,10 +221,15 @@ def train(
     ``device`` (default ``cuda``) from ``generator`` (seed 0 when omitted).
     With ``loop.ckpt_dir`` a complete checkpoint there is restored into
     them and training resumes at its step; the final state comes back in
-    the result."""
+    the result. On the card it runs under :func:`expandable_segments`."""
+    device = model_api.resolve_device(device) if params is None else next(leaves(params)).device
+    with expandable_segments(device):
+        return _train(cfg, opt_cfg, loop, batch_fn, generator, params, device, log, policy)
+
+
+def _train(cfg, opt_cfg, loop, batch_fn, generator, params, device, log, policy) -> TrainResult:
     if params is None:
         params = model_api.init_params(cfg, generator, device)
-    device = next(leaves(params)).device
     opt_cfg = dataclasses.replace(opt_cfg, moment_dtype=cfg.moment_dtype)
     opt_state = init_opt_state(params, opt_cfg)
 

@@ -1688,3 +1688,121 @@ def test_a_tuned_table_serves_the_card_members(cuda_device, tmp_path, monkeypatc
         monkeypatch.delenv("REPRO_TUNE_TABLE")
         ops.clear_tile_cache()
     assert ops.tile_source("cuda", 4, 1024, 512) == "heuristic"
+
+
+# The families served and trained since the sixteenth slice (ROADMAP A.8),
+# at their published widths: K1 at every distinct projection shape of
+# qwen2.5-32b, stablelm-12b and gemma2-9b at a 4-row decode step, and
+# grok-1-314b's router (N = 8) at 4 and 512 rows; K4 and K5 at grok's expert
+# GEMMs (G 8, 6144 -> 32768 and 32768 -> 6144) at a 4-row decode step's
+# capacity (2), a 2 x 64 prefill's (40) and a 512-token group's (160); K2 at
+# qwen2.5's MLP at 4 and 512 rows. Each runs the chains the model runs there.
+def _family_k1_shapes():
+    shapes = {(4, 6144, 8), (512, 6144, 8)}
+    for arch in ("qwen2.5-32b", "stablelm-12b", "gemma2-9b"):
+        c = get_config(arch)
+        d, hq, hkv, f = c.d_model, c.n_heads * c.head_dim_, c.n_kv * c.head_dim_, c.d_ff
+        shapes |= {(4, d, hq), (4, d, hkv), (4, hq, d), (4, d, f), (4, f, d)}
+    return sorted(shapes)
+
+
+FAMILY_K1_SHAPES = _family_k1_shapes()
+GROK_EXPERT_SHAPES = [(8, m, k, n) for m in (2, 40, 160) for k, n in ((6144, 32768),
+                                                                       (32768, 6144))]
+QWEN_MLP_SHAPES = [(m, k, n) for m in (4, 512) for k, n in ((5120, 27648), (27648, 5120))]
+
+
+@pytest.mark.parametrize("shape", FAMILY_K1_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k1_at_the_new_families_shapes_matches_plain(cuda_device, shape):
+    """Plain, with qwen2.5's QKV bias as C, with the residual (wo, w_down)
+    and with silu·mul (w_gate), every launch on sm90."""
+    k1 = _k1_module()
+    m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=gen, device=cuda_device).bfloat16()
+    b = (torch.randn((k, n), generator=gen, device=cuda_device) * k ** -0.5).bfloat16()
+    assert k1._plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr()).route == "sm90"
+    bias = torch.randn((n,), generator=gen, device=cuda_device).bfloat16()
+    full = torch.randn((m, n), generator=gen, device=cuda_device).bfloat16()
+    for c, steps, operands in ((None, (), ()), (bias, (), ()), (None, ("residual",), (full,)),
+                               (None, ("silu", "mul"), (full,))):
+        before = dict(opope_gemm.launches_by_route)
+        got = opope_gemm(a, b, c, epilogue=steps, epilogue_operands=operands)
+        torch.cuda.synchronize()
+        assert opope_gemm.launches_by_route == dict(before, sm90=before["sm90"] + 1)
+        _check(got, a, b, c, torch.bfloat16, steps, operands)
+
+
+def _grok_expert_chains(k, up):
+    """The chains grok's experts run at a shape: w_up (bf16 out) and w_gate
+    with silu·mul (bf16 out) at 6144 -> 32768; w_down at 32768 -> 6144 in
+    fp32 out, as the dispatch combines in fp32."""
+    if k == 32768:
+        return (((), (), torch.float32),)
+    return (((), (), torch.bfloat16), (("silu", "mul"), (up,), torch.bfloat16))
+
+
+@pytest.mark.parametrize("shape", GROK_EXPERT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k4_at_groks_expert_shapes_matches_plain(cuda_device, shape):
+    """Each expert GEMM's chain (:func:`_grok_expert_chains`), every launch
+    on sm90, bitwise on repeat."""
+    g, m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(g + m + k + n)
+    a = torch.randn((g, m, k), generator=gen, device=cuda_device).bfloat16()
+    b = (torch.randn((g, k, n), generator=gen, device=cuda_device) * k ** -0.5).bfloat16()
+    assert tg._plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr()).route == "sm90"
+    up = torch.randn((g, m, n), generator=gen, device=cuda_device).bfloat16()
+    for steps, operands, out_dtype in _grok_expert_chains(k, up):
+        before = dict(tg.opope_gemm_grouped.launches_by_route)
+        got = tg.opope_gemm_grouped(a, b, out_dtype=out_dtype, epilogue=steps,
+                                    epilogue_operands=operands)
+        again = tg.opope_gemm_grouped(a, b, out_dtype=out_dtype, epilogue=steps,
+                                      epilogue_operands=operands)
+        torch.cuda.synchronize()
+        assert tg.opope_gemm_grouped.launches_by_route == dict(before, sm90=before["sm90"] + 2)
+        assert torch.equal(got, again)
+        _check(got, a, b, None, out_dtype, steps, operands, plain=tg.opope_gemm_grouped_plain)
+
+
+@pytest.mark.parametrize("shape", GROK_EXPERT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k5_at_groks_expert_shapes_matches_plain(cuda_device, shape):
+    """grok under {"moe": "q8"}: each expert GEMM's chain, bitwise against
+    the plain version but the transcendental op (one ulp), every launch on
+    sm90."""
+    q8 = _q8_module()
+    g, m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(g + m + k + n)
+    a, sa, b, sb = _q8_operands(gen, cuda_device, (g, m), k, n)
+    assert _k5_route(a, b) == "sm90"
+    up = torch.randn((g, m, n), generator=gen, device=cuda_device).bfloat16()
+    kern = q8.opope_gemm_q8_grouped
+    for steps, operands, out_dtype in _grok_expert_chains(k, up):
+        before = dict(kern.launches_by_route)
+        got = kern(a, sa, b, sb, out_dtype=out_dtype, epilogue=steps, epilogue_operands=operands)
+        torch.cuda.synchronize()
+        assert kern.launches_by_route == dict(before, sm90=before["sm90"] + 1)
+        want = q8.opope_gemm_q8_grouped_plain(a, sa, b, sb, out_dtype=out_dtype, epilogue=steps,
+                                              epilogue_operands=operands)
+        _check_q8(got, want, steps[0] if steps else "none")
+
+
+@pytest.mark.parametrize("shape", QWEN_MLP_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k2_at_qwens_mlp_shapes_matches_plain(cuda_device, shape):
+    """qwen2.5-32b under mlp_q8_policy(): w_up, w_gate with silu·mul and
+    w_down with the residual, bitwise against the plain version but the
+    transcendental op (one ulp), every launch on sm90."""
+    q8 = _q8_module()
+    m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a, sa, b, sb = _q8_operands(gen, cuda_device, (m,), k, n)
+    assert _k2_route(a, b) == "sm90"
+    full = torch.randn((m, n), generator=gen, device=cuda_device).bfloat16()
+    for steps, operands in (((), ()), (("silu", "mul"), (full,)), (("residual",), (full,))):
+        before = dict(q8.opope_gemm_q8.launches_by_route)
+        got = q8.opope_gemm_q8(a, sa, b, sb, out_dtype=torch.bfloat16, epilogue=steps,
+                               epilogue_operands=operands)
+        torch.cuda.synchronize()
+        assert q8.opope_gemm_q8.launches_by_route == dict(before, sm90=before["sm90"] + 1)
+        want = q8.opope_gemm_q8_plain(a, sa, b, sb, out_dtype=torch.bfloat16, epilogue=steps,
+                                      epilogue_operands=operands)
+        _check_q8(got, want, steps[0] if steps else "none")
