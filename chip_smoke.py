@@ -183,6 +183,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     bf16 moments), 3 steps each: the first step's gradients under 10(a)'s
     floor gate, launches by role and route, step time, tokens/s and peak
     memory.
+15. llava-next-mistral-7b (32 layers, 2880 image rows) and whisper-base
+    (6 + 6 layers, 1500 frames) at their published widths, one at a time
+    (after phase 14), each freed before the next, on the static engine
+    (ROADMAP A.8b), with bf16 inputs drawn from the seed: (i) the prefill
+    logits through the kernels against the plain GEMM (llava's image
+    projector included) under 14(i)'s same-run floor, (ii) the static
+    engine, 4 rows of 32-token prompts, 32 tokens each, every K1 launch
+    counted and on sm90, and its decoded logits teacher-forced against one
+    full forward over the image rows or frames, the prompt and the tokens
+    fed at 4(f)'s same-run floor (llava decoding from its true position,
+    2880 + 32), (iii) the 4-row prefill's time, a profiled 4-row decode
+    step and the peak device memory; then (c) one ``loss_fn`` value and
+    every gradient leaf of each family (llava cut to 2 layers) on the
+    kernels against the plain backend under 10(a)'s floor gate.
 
 The last lines are a JSON ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
@@ -323,6 +337,18 @@ K1_DENSE_TRAIN = {"forward": 7, "remat recompute": 7, "backward": 8, "fp32 recom
                   "fp32 backward": 6}
 K1_GROK_TRAIN = {"forward": 5, "remat recompute": 5, "backward": 8, "fp32 recompute": 1,
                  "fp32 backward": 2}
+
+# Phase 15 (ROADMAP A.8b): llava-next-mistral-7b (32 layers, 14.55 GB of
+# bf16 weights) and whisper-base (6 + 6 layers) at their published widths
+# on the static engine: A8B_ROWS rows of A8B_PROMPT-token prompts (after
+# llava's 2880 image rows, or against whisper's 1500 frames), A8B_GEN tokens
+# each; the prefill gate at A8B_ROWS_GATE rows; the loss of A8B_LOSS_ROWS
+# rows, llava cut to A8B_LOSS_LAYERS layers. A 32-token prompt puts llava's
+# prefill at 2912 positions, whose blockwise attention takes blocks of
+# 416 x 728 (a 31-token one, 2911 = 41 x 71, would take 71 x 41).
+A8B_FAMILIES = ("llava-next-mistral-7b", "whisper-base")
+A8B_ROWS, A8B_ROWS_GATE, A8B_PROMPT, A8B_GEN = 4, 2, 32, 32
+A8B_LOSS_LAYERS, A8B_LOSS_ROWS = 2, 2
 
 # Tuning (phase 13): the cells the tuner times, and its samples a plan.
 TUNE_DENSE_MS = (4, 512)
@@ -983,6 +1009,11 @@ def prompt_phase(torch, np, cfg, params, ops, dev):
     return out, on_eng
 
 
+# Profiler sessions 4(h) makes at most for one comparison: a session whose
+# trace lacks a marker that cuts its runs apart is made again.
+TRACE_SESSIONS = 3
+
+
 def _device_traces(torch, fns, what):
     """Each of ``fns`` in turn inside one torch.profiler session (CUDA
     activity only): for each, (device activity names in launch order,
@@ -992,40 +1023,57 @@ def _device_traces(torch, fns, what):
     runtime calls (launches, copies, syncs) and tags each device event with
     its launch's: by start time, one fill and one sin kernel of a
     151358-kernel serve traded places between two runs on an H100. The runs
-    are compared inside one session, cut apart by marker kernels (an int16
-    fill: the port launches no int16 kernel), because the profiler drops
-    the first device events of a session, more in each later session of a
-    process (on an H100: a serve's first 7 to 29 kernels, later the marker
-    itself); 64 markers pad the session's start. Events come from
-    the Kineto results directly (``prof.events()`` takes minutes at 10^5
-    kernels)."""
+    are compared inside one session, cut apart by marker kernels (a
+    complex64 fill: the port launches no complex kernel). The profiler
+    drops the first device events of a session, more in each later session
+    of a process (on an H100: a serve's first 7 to 29 kernels), so 64 int16
+    fills, another kernel than the cuts', pad the session's start. The
+    session ends on a synchronize after the last cut. A cut can still be
+    missing: on an H100 a session's start has dropped more than the
+    padding, and a cut past the start was lost with the synchronize in
+    place and without it (cut apart then by the last markers of one kind,
+    the runs began at the padding and the first read as empty). So a
+    session whose trace lacks a cut is profiled again, TRACE_SESSIONS
+    times in all, and says so. Events come from the Kineto results
+    directly (``prof.events()`` takes minutes at 10^5 kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def marker():
+    def pad():
         torch.full((1,), 7, dtype=torch.int16, device="cuda")
 
-    results = []
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(64):
-            marker()
-        torch.cuda.synchronize()
-        for fn in fns:
-            marker()
-            results.append(fn())
+    def cut():
+        torch.full((1,), 7, dtype=torch.complex64, device="cuda")
+
+    for attempt in range(1, TRACE_SESSIONS + 1):
+        results = []
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                pad()
             torch.cuda.synchronize()
-        marker()
-        t1 = time.perf_counter()
-    raw = prof.profiler.kineto_results.events()
-    device = sorted((e.correlation_id(), e.start_ns(), e.name()) for e in raw
-                    if e.device_type() == DeviceType.CUDA)
+            for fn in fns:
+                cut()
+                results.append(fn())
+                torch.cuda.synchronize()
+            cut()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        raw = prof.profiler.kineto_results.events()
+        device = sorted((e.correlation_id(), e.start_ns(), e.name()) for e in raw
+                        if e.device_type() == DeviceType.CUDA)
+        cuts = [c for c, _, n in device if "FillFunctor<c10::complex" in n]
+        if len(cuts) == len(fns) + 1:
+            break
+        log(f"(h) {what}: the profiler recorded {len(cuts)} of the {len(fns) + 1} markers "
+            f"that cut the runs apart (session {attempt} of at most {TRACE_SESSIONS}; "
+            f"{len(device)} device events)"
+            + ("; profiling again" if attempt < TRACE_SESSIONS else ""))
+    else:
+        raise AssertionError(f"4(h) {what}: in {TRACE_SESSIONS} sessions the profiler never "
+                             f"recorded all {len(fns) + 1} markers that cut the runs apart")
     syncs = [e.correlation_id() for e in raw
              if e.device_type() != DeviceType.CUDA and "Synchronize" in e.name()]
-    cuts = [c for c, _, n in device if "FillFunctor<short>" in n][-(len(fns) + 1):]
-    if len(cuts) != len(fns) + 1:
-        raise AssertionError(f"4(h) {what}: the profiler recorded {len(cuts)} of the "
-                             f"{len(fns) + 1} markers that cut the runs apart")
     out = []
     for i, result in enumerate(results):
         dev = [n for c, _, n in device if cuts[i] < c < cuts[i + 1]]
@@ -3997,6 +4045,71 @@ def _grouped_bound(g, m, k, n, out_elem, n_full):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _family_params(torch, api, cfg, dev, tag):
+    """A family's weights drawn from seed 0 on the card, after freeing the
+    last family's and resetting the peak memory; their count held to
+    ``api.param_count``. Returns (params, its record)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    sync(torch, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != api.param_count(cfg):
+        raise AssertionError(f"{tag}: {n_params} parameters drawn, {api.param_count(cfg)} counted")
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    log(f"{tag} init {cfg.name} at {cfg.n_layers} layers: {n_params / 1e9:.4f} B params "
+        f"({weights_gb:.3f} GB) in {time.perf_counter() - t0:.1f} s")
+    return params, {"name": cfg.name, "layers": cfg.n_layers, "params": n_params,
+                    "weights_gb": weights_gb}
+
+
+# The kernels a decode step's device time is booked to: (a substring of the
+# kernel's name, the number of dims of the weights it reads).
+STEP_KERNELS = {"k1": ("opope_gemm_kernel", 2), "k4": ("opope_grouped_kernel", 3)}
+
+
+def _decode_step_times(torch, dev, step, caches, pos, weights, tag, *, kernels=("k1",),
+                       required=("k1",)):
+    """(iii) of phases 14 and 15: a lockstep decode step, ``step(caches,
+    pos) -> caches``, from position ``pos``: 3 warm-up steps, 8 timed, 4
+    profiled (each of these writing one position). Each of ``kernels``'
+    byte bound is every leaf of ``weights`` of its dims
+    (:data:`STEP_KERNELS`) read once. Returns (wall ms a step, device ms
+    by kernel with ``busy`` and the ``<kernel>_byte_bound``s, or None where
+    the trace holds no device time; the bounds); raises when a kernel of
+    ``required`` books no device time."""
+    with torch.inference_mode():
+        for i in range(3):
+            caches = step(caches, pos + i)
+        sync(torch, dev)
+        n_steps = 8
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            caches = step(caches, pos + 3 + i)
+        sync(torch, dev)
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        prof = None
+        if dev.type == "cuda":
+            prof = decode_profile(torch, lambda i: step(caches, pos + 11 + i), step_ms,
+                                  tag=f"{tag} (iii)")
+    del caches
+    bound_ms = {name: sum(1e3 * t.numel() * t.element_size() / HBM_BYTES_PER_S
+                          for t in _leaves(weights) if t.ndim == STEP_KERNELS[name][1])
+                for name in kernels}
+    if prof is None:
+        return step_ms, None, bound_ms
+    dev_ms = {name: sum(ms for key, ms, _ in prof if STEP_KERNELS[name][0] in key)
+              for name in kernels}
+    dev_ms["busy"] = sum(ms for _, ms, _ in prof)
+    dev_ms.update({f"{k}_byte_bound": v for k, v in bound_ms.items()})
+    if not all(dev_ms[name] for name in required):
+        raise AssertionError(f"{tag} (iii) the profiled step books no device time to a "
+                             f"kernel it launches: {dev_ms}")
+    return step_ms, dev_ms, bound_ms
+
+
 def family_phase(torch, np, cfg, ops, ep, k4, dev, tag):
     """Phase 14, what every family runs, on its full-width weights drawn from
     seed 0: (i) the all-layer prefill logits through the kernels against the
@@ -4016,19 +4129,7 @@ def family_phase(torch, np, cfg, ops, ep, k4, dev, tag):
     n_k1 = (7 if moe is None else 5 + 3 * bool(moe.n_shared)) * n_layers
     n_k4 = 0 if moe is None else 3 * n_layers
     kern4 = k4.opope_gemm_grouped
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    sync(torch, dev)
-    n_params = sum(t.numel() for t in _leaves(params))
-    if n_params != api.param_count(cfg):
-        raise AssertionError(f"{tag}: {n_params} parameters drawn, {api.param_count(cfg)} counted")
-    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
-    log(f"{tag} init {cfg.name} at {n_layers} layers: {n_params / 1e9:.3f} B params "
-        f"({weights_gb:.2f} GB) in {time.perf_counter() - t0:.1f} s")
-    rec = {"name": cfg.name, "layers": n_layers, "params": n_params, "weights_gb": weights_gb}
+    params, rec = _family_params(torch, api, cfg, dev, tag)
 
     # (i) prefill logits, kernels against the plain backend, and the plain
     # backend's fp32 against its fp64 sums: the floor of the gate.
@@ -4132,36 +4233,14 @@ def family_phase(torch, np, cfg, ops, ep, k4, dev, tag):
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))).to(dev)
     with torch.inference_mode():
         logits, caches = api.prefill(cfg, params, {"tokens": prompts}, 96)
-        tok = logits.argmax(-1)[:, None]
-        for i in range(3):
-            logits, caches = api.decode(cfg, params, tok, caches, 64 + i)
-        sync(torch, dev)
-        n_steps = 8
-        t0 = time.perf_counter()
-        for i in range(n_steps):
-            logits, caches = api.decode(cfg, params, tok, caches, 67 + i)
-        sync(torch, dev)
-        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-        prof = None
-        if dev.type == "cuda":
-            prof = decode_profile(torch, lambda i: api.decode(cfg, params, tok, caches, 75 + i),
-                                  step_ms, tag=f"{tag} (iii)")
-    del caches, logits
-    bound_ms = {"k1": 0.0, "k4": 0.0}
-    for t in _leaves(params["blocks"]):
-        if t.ndim >= 2:  # every weight read once; the 3-D ones are the experts' (K4)
-            bound_ms["k4" if t.ndim == 3 else "k1"] += (
-                1e3 * t.numel() * t.element_size() / HBM_BYTES_PER_S)
-    dev_ms = None
-    if prof is not None:
-        dev_ms = {name: sum(ms for key, ms, _ in prof if kernel in key)
-                  for name, kernel in (("k1", "opope_gemm_kernel"),
-                                       ("k4", "opope_grouped_kernel"))}
-        dev_ms["busy"] = sum(ms for _, ms, _ in prof)
-        dev_ms.update({f"{k}_byte_bound": v for k, v in bound_ms.items()})
-        if not dev_ms["k1"] or (moe is not None and not dev_ms["k4"]):
-            raise AssertionError(f"{tag} (iii) the profiled step books no device time to a "
-                                 f"kernel it launches: {dev_ms}")
+    tok = logits.argmax(-1)[:, None]
+    del logits
+    # Every block weight read once; the 3-D ones are the experts' (K4).
+    step_ms, dev_ms, bound_ms = _decode_step_times(
+        torch, dev, lambda c, pos: api.decode(cfg, params, tok, c, pos)[1], caches, 64,
+        params["blocks"], tag, kernels=("k1", "k4"),
+        required=("k1",) if moe is None else ("k1", "k4"))
+    del caches
     rec["decode_step"] = {"wall_ms": step_ms, "device_ms": dev_ms,
                           "launches": {"K1": n_k1, "K4": n_k4}}
     rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -4523,6 +4602,281 @@ def family_launch_paths(fam):
     return paths
 
 
+def _a8b_k1_per_forward(cfg, kind):
+    """K1 launches of one forward: a vlm's prefill adds the projector's 2 to
+    the backbone's 7 a layer; whisper's prefill runs the encoder (6 a
+    layer), the cross K/V (2 a decoder layer) and the decoder (8 a layer:
+    4 self-attention, the cross q and o, 2 MLP), its decode step the
+    decoder alone; a loss forward is a prefill's."""
+    if cfg.family == "vlm":
+        return 7 * cfg.n_layers + (2 if kind != "decode" else 0)
+    if kind == "decode":
+        return 8 * cfg.n_layers
+    return 6 * cfg.n_enc_layers + 2 * cfg.n_layers + 8 * cfg.n_layers
+
+
+def _a8b_full_logits(torch, cfg, params, batch, tokens, n_last):
+    """fp32 logits [B, n_last, V] at the last ``n_last`` positions of one
+    full forward (no caches) over ``batch``'s image rows or frames and
+    ``tokens``, on the default backend."""
+    from repro_torch.models import encdec, transformer, vlm
+
+    with torch.inference_mode():
+        if cfg.family == "vlm":
+            hidden, _, _ = vlm.vlm_forward(params, tokens, batch["patch_embeds"], cfg,
+                                           mode="prefill")
+        else:
+            enc = encdec.encode(params, batch["frames"], cfg)
+            hidden, _ = encdec.decoder_forward(params, tokens, cfg, enc_out=enc, mode="prefill")
+        return transformer.lm_logits(params, hidden[:, -n_last:], cfg)
+
+
+def a8b_family_phase(torch, np, cfg, ops, ep, dev, tag):
+    """Phase 15 for one family of ROADMAP A.8b at its published width, on
+    weights drawn from seed 0 and bf16 inputs drawn from the seed
+    (``launch.serve.static_batch``): (i) the prefill logits of A8B_ROWS_GATE
+    rows through the kernels against the plain GEMM (the ``cuda`` backend's
+    function swapped for K1's plain version, so a vlm's projector, which
+    the prefill runs on the default backend, is held too) within
+    PREFILL_LOGIT_FLOOR_FACTOR x the RMS gap of the plain version's fp32
+    and fp64 sums in this run; (ii) the static engine, A8B_ROWS rows,
+    A8B_GEN tokens, every K1 launch counted and on sm90, and its decoded
+    logits teacher-forced against one full forward over the image rows or
+    frames, the prompt and the tokens fed, within PROMPT_LOGIT_FLOOR_FACTOR
+    x the kernels-vs-plain-GEMM RMS of that forward (4(f)'s floor): a vlm's
+    decode runs at the true position; (iii) the prefill time, a profiled
+    A8B_ROWS-row decode step and the peak device memory. Returns the
+    record and the weights."""
+    from repro_torch.kernels.opope_gemm import opope_gemm, opope_gemm_plain
+    from repro_torch.launch.serve import static_batch
+    from repro_torch.models import api
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import engine as engine_mod
+
+    n_img = cfg.n_img_tokens
+    per_prefill, per_decode = (_a8b_k1_per_forward(cfg, k) for k in ("prefill", "decode"))
+    params, rec = _family_params(torch, api, cfg, dev, tag)
+    rec.update(encoder_layers=cfg.n_enc_layers, image_rows=n_img)
+    cuda_be, fp64 = ops.backend("cuda"), _fp64_plain(torch, ep)
+
+    # (i) prefill logits: kernels, plain GEMM (fp32 sums), plain GEMM (fp64).
+    gate_batch = static_batch(cfg, A8B_ROWS_GATE, A8B_PROMPT, 0, dev)
+    max_len = n_img + A8B_PROMPT
+    _reset_k1(ops, opope_gemm)
+    with torch.inference_mode():
+        got, _ = api.prefill(cfg, params, gate_batch, max_len)
+        sync(torch, dev)
+        gate_launches = opope_gemm.launches
+        with _patched(cuda_be, "fn", opope_gemm_plain):
+            ref, _ = api.prefill(cfg, params, gate_batch, max_len)
+        with _patched(cuda_be, "fn", fp64):
+            ref64, _ = api.prefill(cfg, params, gate_batch, max_len)
+    if gate_launches != per_prefill:
+        raise AssertionError(f"{tag} (i) K1 launches {gate_launches} != {per_prefill}")
+    check_routes(opope_gemm, gate_launches, f"{tag} (i)")
+    if not all(torch.isfinite(x).all() for x in (got, ref, ref64)):
+        raise AssertionError(f"{tag} (i) prefill logits not finite")
+    if tuple(got.shape) != (A8B_ROWS_GATE, cfg.vocab):
+        raise AssertionError(f"{tag} (i) prefill logits shape {tuple(got.shape)}")
+    d_k, d_f = _rms(got - ref), _rms(ref - ref64)
+    rec["prefill_gate"] = {
+        "rows": A8B_ROWS_GATE, "positions": max_len, "max_abs_dlogits": (got - ref).abs().max().item(),
+        "max_abs_logits": ref.abs().max().item(), "rms_kernels_vs_plain": d_k,
+        "rms_plain_fp32_vs_fp64": d_f, "launches": gate_launches,
+        "argmax_agreement": (got.argmax(-1) == ref.argmax(-1)).float().mean().item()}
+    log(f"{tag} (i) prefill {A8B_ROWS_GATE} x ({n_img or cfg.enc_seq} "
+        f"{'image rows' if n_img else 'frames'} + {A8B_PROMPT} tokens): RMS kernels vs plain "
+        f"{d_k:.4g} (gated <= {PREFILL_LOGIT_FLOOR_FACTOR} x {d_f:.4g}, the plain GEMM's fp32 vs "
+        f"fp64 sums); max|dlogits| {rec['prefill_gate']['max_abs_dlogits']:.4g} of max|logits| "
+        f"{rec['prefill_gate']['max_abs_logits']:.4g}; {gate_launches} K1 launches, all on sm90")
+    if not d_k <= PREFILL_LOGIT_FLOOR_FACTOR * d_f:
+        raise AssertionError(f"{tag} (i) prefill logits: kernels vs plain RMS {d_k} > "
+                             f"{PREFILL_LOGIT_FLOOR_FACTOR} x floor {d_f}")
+    del got, ref, ref64, gate_batch
+
+    # (ii) the static engine, its logits recorded where it samples.
+    batch = static_batch(cfg, A8B_ROWS, A8B_PROMPT, 0, dev)
+    max_len = n_img + A8B_PROMPT + A8B_GEN
+    eng = ServeEngine(cfg=cfg, params=params, max_len=max_len)
+    eng.generate(static_batch(cfg, A8B_ROWS, A8B_PROMPT, 1, dev), 2)  # warm-up
+    seen, real_sample = [], engine_mod.sample_token
+
+    def recording(logits, generator=None, temperature=0.0):
+        seen.append(logits.float())
+        return real_sample(logits, generator, temperature)
+
+    _reset_k1(ops, opope_gemm)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    with _patched(engine_mod, "sample_token", recording):
+        toks = eng.generate(batch, A8B_GEN)
+    toks_host = toks.cpu()
+    serve_s = time.perf_counter() - t0
+    serve_launches = opope_gemm.launches
+    want = per_prefill + (A8B_GEN - 1) * per_decode
+    if serve_launches != want:
+        raise AssertionError(f"{tag} (ii) K1 launches {serve_launches} != {want}")
+    check_routes(opope_gemm, serve_launches, f"{tag} (ii)")
+    if tuple(toks_host.shape) != (A8B_ROWS, A8B_GEN) or not (
+            (toks_host >= 0) & (toks_host < cfg.vocab)).all():
+        raise AssertionError(f"{tag} (ii) engine output {tuple(toks_host.shape)}")
+    engine_logits = torch.stack(seen, dim=1)  # [B, GEN, V]
+    fed = torch.cat([batch["tokens"], toks[:, :-1]], dim=1)
+    full = _a8b_full_logits(torch, cfg, params, batch, fed, A8B_GEN)
+    with _patched(cuda_be, "fn", opope_gemm_plain):
+        full_plain = _a8b_full_logits(torch, cfg, params, batch, fed, A8B_GEN)
+    d_floor, d_tf = _rms(full_plain - full), _rms(engine_logits - full)
+    agree = (engine_logits.argmax(-1) == full.argmax(-1)).float().mean().item()
+    rec["serve"] = {"rows": A8B_ROWS, "prompt": A8B_PROMPT, "generated": A8B_GEN,
+                    "max_len": max_len, "wall_s": serve_s,
+                    "tokens_per_s": A8B_ROWS * A8B_GEN / serve_s, "launches": serve_launches,
+                    "teacher_forced": {"rms_engine_vs_full_forward": d_tf,
+                                       "rms_kernels_vs_plain_full_forward": d_floor,
+                                       "argmax_agreement": agree}}
+    log(f"{tag} (ii) static engine, {A8B_ROWS} rows x {A8B_PROMPT}-token prompts"
+        + (f" after {n_img} image rows (decoding from position {n_img + A8B_PROMPT})" if n_img
+           else f" against {cfg.enc_seq} frames")
+        + f", {A8B_GEN} tokens each in {serve_s:.3f} s ({A8B_ROWS * A8B_GEN / serve_s:.1f} tokens/s); "
+        f"K1 {serve_launches} = {per_prefill} + {A8B_GEN - 1} x {per_decode} launches, all on sm90; "
+        f"teacher-forced logits vs one full forward over the prompt and the {A8B_GEN - 1} tokens "
+        f"fed: RMS {d_tf:.4g} (gated <= {PROMPT_LOGIT_FLOOR_FACTOR} x {d_floor:.4g}, the plain "
+        f"GEMM vs the kernels on that forward), argmax agreement {agree:.4f}")
+    if not d_tf <= PROMPT_LOGIT_FLOOR_FACTOR * d_floor:
+        raise AssertionError(f"{tag} (ii) teacher-forced logits RMS {d_tf} > "
+                             f"{PROMPT_LOGIT_FLOOR_FACTOR} x {d_floor}")
+    del seen, engine_logits, full, full_plain, eng
+
+    # (iii) the prefill's time, then a decode step's wall and device time.
+    with torch.inference_mode():
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, caches = api.prefill(cfg, params, batch, n_img + A8B_PROMPT + 12)
+        sync(torch, dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = logits.argmax(-1)[:, None]
+    del logits
+    # The weights a decode step's K1 GEMMs read: the backbone's, or the
+    # decoder's but its cross K and V projections (run once, at prefill).
+    blocks = params["blocks"] if cfg.family == "vlm" else [
+        {k: v for k, v in b.items() if k != "cross_attn"} | {"cross_attn": {
+            k: v for k, v in b["cross_attn"].items() if k in ("wq", "wo")}}
+        for b in params["dec_blocks"]]
+    step_ms, dev_ms, bound_ms = _decode_step_times(
+        torch, dev, lambda c, pos: api.decode(cfg, params, tok, c, pos)[1], caches,
+        n_img + A8B_PROMPT, blocks, tag)
+    del caches
+    bound_ms = bound_ms["k1"]
+    rec["prefill_ms"] = prefill_ms
+    rec["decode_step"] = {"rows": A8B_ROWS, "wall_ms": step_ms, "device_ms": dev_ms,
+                          "launches": per_decode}
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{tag} (iii) prefill {A8B_ROWS} x {n_img + A8B_PROMPT if n_img else A8B_PROMPT} "
+        f"positions{'' if n_img else f' after {cfg.enc_seq} frames'}: {prefill_ms:.2f} ms wall; "
+        f"decode step, {A8B_ROWS} rows: {step_ms:.3f} ms wall"
+        + ("" if dev_ms is None else
+           f"; device busy {dev_ms['busy']:.3f} ms ({100 * dev_ms['busy'] / step_ms:.1f}%), K1 "
+           f"{dev_ms['k1']:.3f} ms ({per_decode} launches, byte bound {bound_ms:.3f} ms)")
+        + f"; peak device memory of (i)-(iii) {rec['peak_memory_gb']:.2f} GB")
+    return rec, params
+
+
+def a8b_loss_phase(torch, np, cfg, ops, ep, dev, tag, *, batch, prompt):
+    """15(c): one ``loss_fn`` value and every gradient leaf on the kernels
+    against the plain backend (fp32 and fp64 sums), under 10(a)'s floor
+    gate (:func:`_gate_first_step`), on weights drawn from seed 0 and a
+    batch drawn from the seed; K1's launches counted by route (the fp32
+    backward GEMMs on the tile route)."""
+    from repro_torch.kernels.opope_gemm import opope_gemm
+    from repro_torch.launch.serve import static_batch
+    from repro_torch.models import api
+    from repro_torch.tree import leaves, map_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    data = static_batch(cfg, batch, prompt + 1, 0, dev)
+    tokens = data.pop("tokens")
+    data.update(tokens=tokens[:, :-1], labels=tokens[:, 1:])
+    fp64, plain = _fp64_plain(torch, ep), ops.backend("torch")
+
+    def loss_grads(backend):
+        live = map_leaves(lambda p: p.detach().requires_grad_(), params)
+        loss = api.loss_fn(cfg, live, data, backend=backend)
+        return loss.detach().float(), torch.autograd.grad(loss, list(leaves(live)))
+
+    _reset_k1(ops, opope_gemm)
+    loss_k, g_k = loss_grads("cuda")
+    sync(torch, dev)
+    routes = dict(opope_gemm.launches_by_route)
+    loss_p, g_p = loss_grads("torch")
+    with _patched(plain, "fn", fp64):
+        loss_64, g_64 = loss_grads("torch")
+    leaf_gaps, worst = _gate_first_step(torch, params, (loss_k, loss_p, loss_64),
+                                        (g_k, g_p, g_64), tag)
+    if not routes["sm90"] or not routes["tile"]:
+        raise AssertionError(f"{tag} K1 launches by route {routes}: the forward and bf16 "
+                             f"backward on sm90, the fp32 backward on tile")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = {"name": cfg.name, "layers": cfg.n_layers, "batch": batch, "prompt": prompt,
+           "loss": {"kernels": loss_k.item(), "plain": loss_p.item(), "plain_fp64": loss_64.item()},
+           "worst_leaf": worst, "worst_leaf_gap": leaf_gaps[worst], "leaves": len(leaf_gaps),
+           "launches_by_route": routes, "peak_memory_gb": peak,
+           "seconds": time.perf_counter() - t0}
+    log(f"{tag} at {cfg.n_layers} layers, {batch} x {prompt} tokens: loss kernels "
+        f"{loss_k.item():.6f}, plain {loss_p.item():.6f}, plain fp64 sums {loss_64.item():.6f}; "
+        f"{len(leaf_gaps)} gradient leaves within {TRAIN_GRAD_FLOOR_FACTOR} x floor (worst {worst}:"
+        f" RMS {leaf_gaps[worst][0]:.3g}, floor {leaf_gaps[worst][1]:.3g}); K1 launches by route "
+        f"{routes}; peak device memory {peak:.2f} GB; {out['seconds']:.1f} s")
+    del params, g_k, g_p, g_64
+    return out
+
+
+def a8b_phase(torch, np, get_config, ops, ep, dev):
+    """Phase 15 (ROADMAP A.8b): (a) llava-next-mistral-7b and (b)
+    whisper-base at their published widths through :func:`a8b_family_phase`,
+    one at a time, each freed before the next; then (c) each family's loss
+    and gradients (:func:`a8b_loss_phase`): llava cut to A8B_LOSS_LAYERS
+    layers, whisper uncut. Returns the records."""
+    import dataclasses
+
+    t_phase = time.perf_counter()
+    out = {}
+    for letter, name in zip("ab", A8B_FAMILIES):
+        t0 = time.perf_counter()
+        rec, params = a8b_family_phase(torch, np, get_config(name), ops, ep, dev,
+                                       f"15({letter}) {name}")
+        del params
+        rec["seconds"] = time.perf_counter() - t0
+        log(f"15({letter}) {name}: {rec['seconds']:.1f} s")
+        out[name] = rec
+    out["loss"] = {}
+    for name in A8B_FAMILIES:
+        cfg = get_config(name)
+        if cfg.family == "vlm":
+            cfg = dataclasses.replace(cfg, n_layers=A8B_LOSS_LAYERS)
+        out["loss"][name] = a8b_loss_phase(torch, np, cfg, ops, ep, dev, f"15(c) {name}",
+                                           batch=A8B_LOSS_ROWS, prompt=A8B_PROMPT)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15 took {out['seconds']:.1f} s")
+    return out
+
+
+def a8b_launch_paths(rec):
+    """K1's phase-15 launches by path and route."""
+    paths = {}
+    for name in A8B_FAMILIES:
+        r = rec[name]
+        paths[f"{name} prefill gate (15(i))"] = {"sm90": r["prefill_gate"]["launches"], "tile": 0}
+        paths[f"{name} static engine (15(ii))"] = {"sm90": r["serve"]["launches"], "tile": 0}
+        loss = rec["loss"][name]
+        paths[f"{name} loss ({loss['layers']} layers, 15(c))"] = loss["launches_by_route"]
+    return paths
+
+
 def decode_profile(torch, step, step_ms, n_steps: int = 4, tag: str = "(d)",
                    what: str = "decode step"):
     """Device time by kernel over ``n_steps`` decode steps (torch.profiler),
@@ -4701,6 +5055,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fam = families_phase(torch, np, get_config, ops, ep, k4mod, q8mod, q8b, qz, kernels, dev)
+    # Phase 15: llava-next-mistral-7b and whisper-base on the static engine.
+    gc.collect()
+    torch.cuda.empty_cache()
+    a8b = a8b_phase(torch, np, get_config, ops, ep, dev)
     # One MoE layer's 3 grouped GEMMs of a 4-slot decode step (capacity 1).
     g_decode = [r for r in g_rows if r["m"] == 1]
     g_sums = {key: sum(r[key] for r in g_decode)
@@ -4947,6 +5305,12 @@ def main() -> int:
             for route, n in routes.items():
                 rec["launches_by_route"][route] += n
     record["families"] = fam
+    for path, routes in a8b_launch_paths(a8b).items():
+        record["launches_by_path"][path] = sum(routes.values())
+        record["launches"] += sum(routes.values())
+        for route, n in routes.items():
+            record["launches_by_route"][route] += n
+    record["a8b"] = a8b
     log(f"the whole script took {time.perf_counter() - t_script:.1f} s (builds "
         f"{sum(kbuild.BUILD_SECONDS.values()):.1f} s summed over sources, run together)")
     print(smi, flush=True)

@@ -4,8 +4,10 @@
 pytree with every leaf already a numpy array (``jax.tree.map(np.asarray,
 params)``, built by the caller) and returns the port's dict: the same keys,
 with the per-period stacks of ``tree["blocks"]`` unstacked into one dict per
-layer. bf16 leaves (numpy dtype name ``bfloat16``) travel as their raw 16-bit
-patterns, so no bf16-aware numpy extension is needed here.
+layer (and an encoder-decoder's ``enc_blocks`` and ``dec_blocks``, each one
+dict stacked over layers, unstacked the same way with a period of 1). bf16
+leaves (numpy dtype name ``bfloat16``) travel as their raw 16-bit patterns,
+so no bf16-aware numpy extension is needed here.
 
 ``params_to_numpy(cfg, params)`` goes the other way, for any tree in the
 port's layout (parameters, gradients, optimizer moments): every leaf to
@@ -42,15 +44,24 @@ def tensor_from_numpy(x, device) -> torch.Tensor:
     return torch.from_numpy(x).to(device)
 
 
+def _layer_stacks(cfg: ArchConfig) -> Dict[str, int]:
+    """An encoder-decoder's ``enc_blocks`` and ``dec_blocks``, each one dict
+    stacked over its layers, with their numbers of layers."""
+    return {"enc_blocks": cfg.n_enc_layers, "dec_blocks": cfg.n_layers} if cfg.is_encdec else {}
+
+
 def params_from_numpy(cfg: ArchConfig, tree: Dict[str, Any], device) -> Dict[str, Any]:
     """The reference's numpy parameter tree as the port's parameters."""
     check_supported(cfg)
     device = torch.device(device)
+    stacks = _layer_stacks(cfg)
+    take = lambda x, period: tensor_from_numpy(np.asarray(x)[period], device)  # noqa: E731
     out = {k: map_leaves(lambda x: tensor_from_numpy(x, device), v)
-           for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = unstack_blocks(
-        tree["blocks"], cfg.n_periods,
-        lambda x, period: tensor_from_numpy(np.asarray(x)[period], device))
+           for k, v in tree.items() if k != "blocks" and k not in stacks}
+    if "blocks" in tree:
+        out["blocks"] = unstack_blocks(tree["blocks"], cfg.n_periods, take)
+    for k, n_layers in stacks.items():
+        out[k] = unstack_blocks((tree[k],), n_layers, take)
     return out
 
 
@@ -63,9 +74,14 @@ def params_to_numpy(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:
     """A tree in the port's layout as the reference's numpy tree: the
     inverse of :func:`params_from_numpy` (bf16 leaves widened to fp32)."""
     check_supported(cfg)
-    out = {k: map_leaves(_to_numpy, v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = stack_blocks(params["blocks"], len(cfg.pattern),
-                                 lambda xs: np.stack([_to_numpy(t) for t in xs]))
+    stacks = _layer_stacks(cfg)
+    stack = lambda xs: np.stack([_to_numpy(t) for t in xs])  # noqa: E731
+    out = {k: map_leaves(_to_numpy, v) for k, v in params.items()
+           if k != "blocks" and k not in stacks}
+    if "blocks" in params:
+        out["blocks"] = stack_blocks(params["blocks"], len(cfg.pattern), stack)
+    for k in stacks:
+        out[k] = stack_blocks(params[k], 1, stack)[0]
     return out
 
 

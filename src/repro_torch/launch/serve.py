@@ -3,7 +3,11 @@
 * ``--engine continuous`` (default): the continuous-batching engine over a
   Poisson-ish arrival trace; requests join and leave mid-flight.
 * ``--engine static``: the lockstep ``ServeEngine``; one batch enters and
-  exits together.
+  exits together. The vlm and audio families are served only here (their
+  image rows or audio frames do not fit a token-prompt request): asked for
+  the continuous engine, they fall back to this one with an
+  ``engine_fallback`` log line. Their ``patch_embeds`` or ``frames`` are
+  drawn from ``--seed`` in the parameters' dtype.
 
 Runs on ``--device cuda`` (default) or ``cpu``. Parameters are random, drawn
 from ``--seed``. ``--reduced`` serves the tiny same-family config.
@@ -36,18 +40,33 @@ from repro_torch.models.transformer import param_dtype
 from repro_torch.serve import ContinuousEngine, ServeEngine, gen_len_spread, poisson_trace
 
 
+def static_batch(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
+    """A static-engine batch drawn from ``seed`` with numpy, in
+    :func:`api.input_specs`' layout: ``tokens`` [batch, prompt_len] and,
+    for a vlm or audio model, standard-normal ``patch_embeds`` or
+    ``frames`` in the parameters' dtype."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    specs = api.input_specs(cfg, batch=batch, seq=cfg.n_img_tokens + prompt_len,
+                            kind="prefill")
+    for key, spec in specs.items():
+        if spec.is_floating_point():
+            x = torch.from_numpy(rng.standard_normal(tuple(spec.shape), dtype=np.float32))
+            out[key] = x.to(device=device, dtype=param_dtype(cfg))
+        else:
+            out[key] = torch.from_numpy(rng.integers(0, cfg.vocab, tuple(spec.shape))).to(device)
+    return out
+
+
 def _static(cfg, params, device, args) -> dict:
-    rng = np.random.default_rng(args.seed)
-    tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
-    ).to(device)
     eng = ServeEngine(
-        cfg=cfg, params=params, max_len=args.prompt_len + args.gen,
+        cfg=cfg, params=params, max_len=cfg.n_img_tokens + args.prompt_len + args.gen,
         cache_dtype=param_dtype(cfg), temperature=args.temperature,
     )
+    batch = static_batch(cfg, args.batch, args.prompt_len, args.seed, device)
     t0 = time.perf_counter()
     toks = eng.generate(
-        {"tokens": tokens}, args.gen,
+        batch, args.gen,
         generator=torch.Generator(device=device).manual_seed(args.seed),
     )
     first = toks[0].tolist()  # host fetch: the device has finished
@@ -134,6 +153,9 @@ def main(argv=None) -> dict:
         cfg, torch.Generator(device=device).manual_seed(args.seed), device
     )
     run = _static if args.engine == "static" else _continuous
+    if args.engine == "continuous" and not api.takes_token_prompt(cfg):
+        log.info("engine_fallback", family=cfg.family, engine="static")
+        run = _static
     out = {"arch": cfg.name, "device": str(device), **run(cfg, params, device, args)}
     print(json.dumps(out), flush=True)
     if args.linger_seconds > 0 and server is not None:

@@ -44,7 +44,7 @@ def main(argv=None) -> TrainResult:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.family in ("vlm", "audio"):
+    if not api.takes_token_prompt(cfg):
         raise SystemExit("the train launcher drives LM-family archs")
     device = api.resolve_device(args.device)
 

@@ -4,7 +4,9 @@ The port of :mod:`repro.models.transformer` for the attention-only
 decoders: dense periods of ``("attn" | "attn_local", "mlp")`` blocks
 (chatglm3-6b, qwen2.5-32b; stablelm-12b's parallel block; gemma2-9b's
 ``(attn_local, attn)`` period with its sliding window and soft-capping) and
-MoE periods of ``("attn", "moe")`` blocks (deepseek-moe-16b, grok-1-314b).
+MoE periods of ``("attn", "moe")`` blocks (deepseek-moe-16b, grok-1-314b),
+and the vlm family's dense backbone (llava-next-mistral-7b), whose image
+rows come in as ``extra_embeds`` prepended to the token embeddings.
 Parameters are a dict; ``params["blocks"]`` is a list with one dict per
 layer, in place of the reference's per-period stacks under ``lax.scan``:
 layer ``i`` is the block ``cfg.pattern[i % len(cfg.pattern)]``, periods
@@ -19,8 +21,9 @@ over each row's history) and ``decode`` (one token against the caches);
 without caches a prefill returns hidden states only. ``lm_forward`` also
 returns the MoE router's load-balancing loss, summed over layers, as the
 reference does. :func:`lm_loss` is the training loss: the chunked
-cross-entropy of :func:`_chunked_ce` plus ``0.01`` times that loss. Other
-families and mixers (vlm, audio, mamba, xLSTM) raise ``NotImplementedError``.
+cross-entropy of :func:`_chunked_ce` plus ``0.01`` times that loss. The
+audio family is an encoder-decoder (:mod:`.encdec`) and is refused here;
+the recurrent mixers (mamba, xLSTM) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,6 +67,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torc
 _PORTED_BLOCKS = {
     "dense": {("attn", "mlp"), ("attn_local", "mlp")},
     "moe": {("attn", "moe")},
+    "vlm": {("attn", "mlp")},
+    "audio": {("attn", "mlp")},
 }
 
 
@@ -73,12 +78,18 @@ def check_supported(cfg: ArchConfig) -> None:
     if (blocks is None or (cfg.moe is not None) != (cfg.family == "moe")
             or any((bd.mixer, bd.ffn) not in blocks for bd in cfg.pattern)):
         raise NotImplementedError(
-            f"{cfg.name}: only dense ('attn' | 'attn_local', 'mlp') and MoE "
-            f"('attn', 'moe') periods are ported; got family {cfg.family!r}, "
-            f"pattern {cfg.pattern}"
+            f"{cfg.name}: only dense ('attn' | 'attn_local', 'mlp'), MoE "
+            f"('attn', 'moe'), vlm and audio ('attn', 'mlp') periods are ported; "
+            f"got family {cfg.family!r}, pattern {cfg.pattern}"
         )
     if cfg.parallel_block and cfg.family != "dense":
         raise NotImplementedError(f"{cfg.name}: a parallel MoE block is not ported")
+
+
+def _check_decoder_only(cfg: ArchConfig) -> None:
+    check_supported(cfg)
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: see repro_torch.models.encdec")
 
 
 def param_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -97,7 +108,7 @@ def init_lm_params(
     cfg: ArchConfig, generator: Optional[torch.Generator], device: torch.device
 ) -> Dict[str, Any]:
     """Random parameters, drawn on ``device`` in ``cfg.param_dtype``."""
-    check_supported(cfg)
+    _check_decoder_only(cfg)
     init = Initializer(dtype=param_dtype(cfg), device=device, generator=generator)
     params: Dict[str, Any] = {
         "embed": embedding_init(cfg.vocab, cfg.d_model, init),
@@ -138,7 +149,7 @@ def init_caches(
 ) -> List[KVCache]:
     """One zeroed KV cache per layer (every ported block attends; a local
     layer's cache spans ``max_len`` too, as the reference's)."""
-    check_supported(cfg)
+    _check_decoder_only(cfg)
     return [
         KVCache.zeros(batch, max_len, cfg.n_kv, cfg.head_dim_, dtype, device)
         for _ in range(cfg.n_layers)
@@ -196,13 +207,17 @@ def lm_forward(
     mode: str = "prefill",
     caches: Optional[List[KVCache]] = None,
     positions: Optional[torch.Tensor] = None,
+    extra_embeds: Optional[torch.Tensor] = None,
     backend=None,
 ) -> Tuple[torch.Tensor, Optional[List[KVCache]], torch.Tensor]:
-    """Run the backbone. tokens: [B, S] -> (final-normed hidden [B, S, D],
+    """Run the backbone. tokens: [B, S] -> (final-normed hidden [B, S', D],
     new caches or None, the MoE load-balancing loss summed over layers as a
-    0-d fp32 tensor, zero without MoE layers). ``backend`` is a backend name
-    or a precision policy; each GEMM site resolves its own role."""
-    check_supported(cfg)
+    0-d fp32 tensor, zero without MoE layers). ``extra_embeds`` [B, n, D]
+    (the vlm family's projected image) are cast to the embeddings' dtype and
+    prepended, so S' = n + S and the default positions run over image and
+    text rows alike. ``backend`` is a backend name or a precision policy;
+    each GEMM site resolves its own role."""
+    _check_decoder_only(cfg)
     if mode not in ("train", "prefill", "chunk", "decode"):
         raise ValueError(f"unknown lm_forward mode {mode!r}")
     if mode == "train" and caches is not None:
@@ -215,6 +230,8 @@ def lm_forward(
         )
     chunk = mode == "chunk"  # chunked prefill: scatter-append at `positions`
     x = params["embed"]["table"][tokens]
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -284,6 +301,11 @@ def lm_loss(
     loss_mask: Optional[torch.Tensor] = None, backend=None,
 ) -> torch.Tensor:
     """Training loss: the train-mode forward, the chunked cross-entropy and
-    ``0.01`` times the MoE load-balancing loss (zero for dense models)."""
+    ``0.01`` times the MoE load-balancing loss (zero for dense models). A
+    config with image rows drops its first ``n_img_tokens`` positions, as
+    the reference does (:func:`repro_torch.models.vlm.vlm_loss` is the vlm
+    family's loss)."""
     hidden, _, aux = lm_forward(params, tokens, cfg, mode="train", backend=backend)
+    if cfg.n_img_tokens:
+        hidden = hidden[:, cfg.n_img_tokens:]
     return _chunked_ce(params, hidden, labels, cfg, loss_mask) + 0.01 * aux

@@ -295,6 +295,12 @@ class ContinuousEngine:
     slo_itl_ms: Optional[float] = None
 
     def __post_init__(self) -> None:
+        if not model_api.takes_token_prompt(self.cfg):
+            # Serving audio or vlm here would drop their non-token inputs.
+            raise NotImplementedError(
+                f"ContinuousEngine serves token-prompt LM families; use "
+                f"ServeEngine for {self.cfg.family}"
+            )
         check_supported(self.cfg)
         if self.cfg.moe is not None and not self.cfg.moe.dropless:
             # Token-choice capacity dropping routes by whole-batch content:

@@ -6,6 +6,12 @@ dispatched through :class:`repro_torch.obs.attr.StepKeys`, whose step
 scope is the analogue of the reference's ``jit`` trace: the prefill per prompt shape and the decode step
 per batch size count their GEMMs into ``gemm.calls`` on their first
 dispatch only.
+
+The batch dict carries a vlm's ``patch_embeds`` or an audio model's
+``frames`` into the prefill beside ``tokens``. A vlm decodes from its true
+position, ``n_img_tokens + prompt_len``, where the reference's engine starts
+at ``prompt_len``; ``max_len`` counts every cache position, the image rows
+included.
 """
 
 from __future__ import annotations
@@ -53,15 +59,16 @@ class ServeEngine:
         *,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """Prefill the prompt batch and decode ``n_tokens``; returns the
-        generated tokens [B, n_tokens]."""
+        """Prefill the prompt batch (with its non-token input, if the family
+        has one) and decode ``n_tokens``; returns the generated tokens
+        [B, n_tokens]."""
         cfg, params = self.cfg, self.params
         with self._steps.dispatch(("prefill", tuple(batch["tokens"].shape))):
             logits, caches = model_api.prefill(
                 cfg, params, batch, self.max_len, self.cache_dtype
             )
         tok = sample_token(logits, generator, self.temperature)
-        pos = batch["tokens"].shape[1]
+        pos = cfg.n_img_tokens + batch["tokens"].shape[1]
         out = [tok]
         for i in range(n_tokens - 1):
             with self._steps.dispatch(("decode", tok.shape[0])):

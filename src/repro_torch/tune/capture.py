@@ -56,8 +56,9 @@ def harvest_model_shapes(
     ``arch`` is a ``configs/`` name or an ``ArchConfig``. ``backend`` is
     threaded through so a :class:`~repro_torch.quant.policy.PrecisionPolicy`
     (or a q8 backend name) captures the quantized routing it would really
-    use. Parameters and the ``tokens``/``labels`` batch live on the meta
-    device: nothing is materialized and nothing runs.
+    use. Parameters and the batch (:func:`~repro_torch.models.api.input_specs`,
+    so a vlm's projector and an audio model's encoder are harvested too)
+    live on the meta device: nothing is materialized and nothing runs.
     """
     from repro_torch.models import api as model_api
 
@@ -69,7 +70,7 @@ def harvest_model_shapes(
         cfg = arch
     meta = torch.device("meta")
     params = model_api.init_params(cfg, torch.Generator().manual_seed(0), meta)
-    tokens = torch.empty((batch, seq), dtype=torch.int64, device=meta)
+    specs = model_api.input_specs(cfg, batch=batch, seq=seq, kind="train", device=meta)
     with capture_gemm_shapes() as shapes:
-        model_api.loss_fn(cfg, params, {"tokens": tokens, "labels": tokens}, backend=backend)
+        model_api.loss_fn(cfg, params, specs, backend=backend)
     return shapes

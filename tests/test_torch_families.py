@@ -240,7 +240,7 @@ def test_harvest_equals_the_reference_at_published_widths(arch):
     assert got
 
 
-UNPORTED = ["llava-next-mistral-7b", "whisper-base", "jamba-v0.1-52b", "xlstm-125m"]
+UNPORTED = ["jamba-v0.1-52b", "xlstm-125m"]
 
 
 @pytest.mark.parametrize("arch", UNPORTED)

@@ -1806,3 +1806,48 @@ def test_k2_at_qwens_mlp_shapes_matches_plain(cuda_device, shape):
         want = q8.opope_gemm_q8_plain(a, sa, b, sb, out_dtype=torch.bfloat16, epilogue=steps,
                                       epilogue_operands=operands)
         _check_q8(got, want, steps[0] if steps else "none")
+
+
+# llava-next-mistral-7b and whisper-base (ROADMAP A.8b) at their published
+# widths: K1 at llava's projector over one image's 2880 rows (w1 with the
+# GELU, w2 plain), mistral's 4096 -> 1024 (wk, wv) and 4096 -> 14336 (w_up
+# plain, w_gate with silu·mul) at a 4-row decode step, and whisper's
+# projections (q, k, v plain, wo with the residual), its un-gated MLP (w_up
+# with the GELU, w_down with the residual) at a 4-row decode step and over
+# the encoder's 1500 frames. Each with the chain the model runs there.
+def _a8b_k1_cases():
+    llava, whisper = get_config("llava-next-mistral-7b"), get_config("whisper-base")
+    d, kv, f, n_img = llava.d_model, llava.n_kv * llava.head_dim_, llava.d_ff, llava.n_img_tokens
+    cases = [(n_img, d, d, "gelu"), (n_img, d, d, "none"), (4, d, kv, "none"), (4, d, f, "none"),
+             (4, d, f, "silu_mul")]
+    dw, fw = whisper.d_model, whisper.d_ff
+    for m in (4, whisper.enc_seq):
+        cases += [(m, dw, dw, "none"), (m, dw, dw, "residual"), (m, dw, fw, "gelu"),
+                  (m, fw, dw, "residual")]
+    return cases
+
+
+A8B_K1_CASES = _a8b_k1_cases()
+A8B_CHAINS = {"none": (), "gelu": ("gelu",), "residual": ("residual",), "silu_mul": ("silu", "mul")}
+
+
+@pytest.mark.parametrize("case", A8B_K1_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_k1_at_llava_and_whispers_shapes_matches_plain(cuda_device, case):
+    """Each case's chain on sm90, bitwise on repeat, within the plain
+    version's gate."""
+    k1 = _k1_module()
+    m, k, n, chain = case
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=gen, device=cuda_device).bfloat16()
+    b = (torch.randn((k, n), generator=gen, device=cuda_device) * k ** -0.5).bfloat16()
+    assert k1._plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr()).route == "sm90"
+    steps = A8B_CHAINS[chain]
+    operands = tuple(torch.randn((m, n), generator=gen, device=cuda_device).bfloat16()
+                     for s in steps if s in ("residual", "mul"))
+    before = dict(opope_gemm.launches_by_route)
+    got = opope_gemm(a, b, epilogue=steps, epilogue_operands=operands)
+    again = opope_gemm(a, b, epilogue=steps, epilogue_operands=operands)
+    torch.cuda.synchronize()
+    assert opope_gemm.launches_by_route == dict(before, sm90=before["sm90"] + 2)
+    assert torch.equal(got, again)
+    _check(got, a, b, None, torch.bfloat16, steps, operands)

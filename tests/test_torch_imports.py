@@ -1,7 +1,8 @@
 """Boundaries of the PyTorch/CUDA port.
 
-* No file of the port (``src/repro_torch``) nor ``chip_smoke.py`` imports
-  JAX or the JAX package ``repro``: the port keeps its own copies.
+* No file of the port (``src/repro_torch``) nor ``chip_smoke.py`` nor a
+  tool of the port (``tools/``) imports JAX or the JAX package ``repro``:
+  the port keeps its own copies.
 * Entry points default to ``cuda`` and, without a CUDA device, raise
   instead of running on the CPU.
 * ``chip_smoke.py`` fails without a CUDA device and outside a checkout,
@@ -21,9 +22,11 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import build as kbuild
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import api
+from repro_torch.models.transformer import param_dtype
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+TOOL_FILES = sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
 
 
@@ -37,7 +40,7 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", PORT_FILES + TOOL_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_neither_jax_nor_the_reference(path):
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
@@ -87,6 +90,36 @@ def test_launch_serve_runs_on_the_cpu_when_asked(capsys):
     assert out["device"] == "cpu" and out["requests"] == 3
     assert out["tokens"] > 0 and out["decode_steps"] > 0
     assert '"engine": "continuous"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-base"])
+def test_launch_serve_falls_back_to_static_with_the_non_token_input(arch, monkeypatch, capsys):
+    # Asked for the default (continuous) engine, a vlm or audio model is
+    # served by the static one; its prefill gets the input_specs layout in
+    # the parameters' dtype and a cache that holds the image rows too.
+    cfg = get_config(arch).reduced()
+    seen = []
+    real_prefill = api.prefill
+
+    def prefill(cfg_, params, batch, max_len, *a, **k):
+        seen.append((dict(batch), max_len))
+        return real_prefill(cfg_, params, batch, max_len, *a, **k)
+
+    monkeypatch.setattr(api, "prefill", prefill)
+    out = launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+                             "--gen", "4", "--prompt-len", "8"])
+    assert f"[serve] engine_fallback family={cfg.family} engine=static" in capsys.readouterr().out
+    assert out["engine"] == "static" and out["shape"] == [2, 4]
+    assert all(0 <= t < cfg.vocab for t in out["first_sequence"])
+    (batch, max_len), = seen
+    assert max_len == cfg.n_img_tokens + 8 + 4
+    specs = api.input_specs(cfg, batch=2, seq=cfg.n_img_tokens + 8, kind="prefill")
+    assert sorted(batch) == sorted(specs)
+    for key, spec in specs.items():
+        assert batch[key].shape == spec.shape and batch[key].device.type == "cpu"
+        want = param_dtype(cfg) if spec.is_floating_point() else batch["tokens"].dtype
+        assert batch[key].dtype == want, key
+    assert param_dtype(cfg) != torch.bfloat16  # so the draw did not follow input_specs' bf16
 
 
 def test_kernel_build_dir_lies_in_the_checkout_or_is_named(monkeypatch, tmp_path):
