@@ -197,6 +197,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     step and the peak device memory; then (c) one ``loss_fn`` value and
     every gradient leaf of each family (llava cut to 2 layers) on the
     kernels against the plain backend under 10(a)'s floor gate.
+16. jamba-v0.1-52b cut to JAMBA_SERVE_LAYERS of its 32 layers (two whole
+    periods: seven mamba mixers and one attention layer a period, MLP and
+    16-expert MoE blocks in turn) and xlstm-125m uncut (sLSTM and mLSTM
+    mixers, no FFN) at their published widths, one at a time (after phase
+    15), each freed before the next (ROADMAP A.8c): (i) the all-layer
+    prefill logits through the kernels against the plain backend under
+    14(i)'s same-run floor (jamba's routing replayed and held as 6(a)),
+    (ii) the continuous engine on 4(b)'s Poisson trace with exact-length
+    buckets, constructed with ``prefill_chunk`` set (the warning and both
+    prompt-side features off required), every K1 and K4 launch counted by
+    route, (iii) the static engine's prefill-to-decode handoff: 4 rows of
+    32-token prompts and 16 decode steps, the decoded logits teacher-forced
+    against one full forward at 4(f)'s same-run floor (jamba with
+    ``moe.dropless`` here alone, the full forward on the engine's routing),
+    (iv) the 4-row prefill's time, a profiled decode step and the peak
+    device memory; for jamba, (v) K4 and K5 at its expert GEMMs (G 16)
+    timed beside ``torch.bmm`` and the bound, and (vi) phase 8 under
+    ``{"moe": "q8", "mixer": "q8"}`` with K2 and K5 counted; then (c) one
+    ``loss_fn`` value and every gradient leaf of each family (jamba cut to
+    its first 5 layers, the plain runs on the kernels' routing) under
+    10(a)'s floor gate.
 
 The last lines are a JSON ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
@@ -227,9 +248,20 @@ INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
 L2_BYTES = 50 * 2**20
 # Free-running full-prefill routing, kernels vs plain: at least the share
 # two plain summation orders (fp32, fp64) agree on in the same run, less
-# this margin, and never below the absolute floor.
-FREE_ROUTING_MARGIN = 0.02
+# this margin, and never below the absolute floor. The margin is the
+# largest mean + 3 SD of that difference, pooled as below, that
+# tools/routing_noise_probe.py read on an H100 (48 draws of 2 x 64 tokens):
+# jamba-v0.1-52b at 16 layers 0.0102 + 3 x 0.0056, grok-1-314b at 4 layers
+# 0.0033 + 3 x 0.0017. Its cause is the tensor cores' accumulation:
+# cuBLAS's own bf16 product differs from the plain one by as much (0.0086,
+# 0.0032), a second fp32 order by less (0.0029, 0.0000).
+FREE_ROUTING_MARGIN = 0.03
 FREE_ROUTING_FLOOR = 0.9
+# 14(i) and 16(i) pool that share over this many 2 x 64-token prefills: the
+# logits gate's tokens and numpy seeds 1, 2, ... A flip early in a sequence
+# carries through its later tokens and layers, so one prefill's share moves
+# by a few hundredths between token draws (tools/routing_noise_probe.py).
+FREE_ROUTING_BATCHES = 16
 # All-layer prefill logits under a q8 policy, kernels vs plain: their RMS
 # difference at most this many times that of two plain summation orders
 # (fp32, fp64) in the same run. An int8 value that rounds the other way
@@ -349,6 +381,20 @@ K1_GROK_TRAIN = {"forward": 5, "remat recompute": 5, "backward": 8, "fp32 recomp
 A8B_FAMILIES = ("llava-next-mistral-7b", "whisper-base")
 A8B_ROWS, A8B_ROWS_GATE, A8B_PROMPT, A8B_GEN = 4, 2, 32, 32
 A8B_LOSS_LAYERS, A8B_LOSS_ROWS = 2, 2
+
+# Phase 16 (ROADMAP A.8c): jamba-v0.1-52b cut to JAMBA_SERVE_LAYERS of its
+# 32 layers (two whole periods of 8: 25.79 B parameters, 51.6 GB in bf16;
+# all 32 would need 102.6 GB) and xlstm-125m uncut (12 layers, 77.6 M
+# parameters), at their published widths. The handoff gate (iii): A8C_ROWS
+# rows of A8C_PROMPT-token prompts, A8C_STEPS decode steps. jamba's expert
+# GEMMs (G 16) at a 4-row decode step's capacity (1) and a 512-token group's
+# (80); its loss cut to its first JAMBA_GRAD_LAYERS layers (mamba + MLP,
+# mamba + MoE twice each, attention + MLP: each block kind of the period),
+# A8C_LOSS_ROWS rows.
+A8C_FAMILIES = ("jamba-v0.1-52b", "xlstm-125m")
+JAMBA_SERVE_LAYERS, JAMBA_GRAD_LAYERS = 16, 5
+JAMBA_EXPERT_MS = (1, 80)
+A8C_ROWS, A8C_PROMPT, A8C_STEPS, A8C_LOSS_ROWS = 4, 32, 16, 2
 
 # Tuning (phase 13): the cells the tuner times, and its samples a plan.
 TUNE_DENSE_MS = (4, 512)
@@ -2026,18 +2072,25 @@ def _greedy_decode(torch, api, cfg, params, prompts, gen, policy):
     return torch.cat(out, dim=1)
 
 
-def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops, ep, kernels,
+def every_layer(per_layer, n_layers):
+    """:func:`q8_model_phase`'s ``per_forward`` for a model whose layers all
+    launch ``per_layer`` (kernel name -> launches) in a prefill and in a
+    decode step alike."""
+    return lambda kind: {name: n * n_layers for name, n in per_layer.items()}
+
+
+def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_forward, ops, ep, kernels,
                    dev, tag, audit=False):
     """Phase 8 for one model on its full-width weights, under ``policy`` on
-    the kernels and ``plain_policy`` on the plain versions. ``per_layer``
-    maps each kernel name of ``kernels`` to its launches per layer and
-    forward on the quantized main path. ``audit``: (f), the shadow auditor
-    on direct K2 calls and on a served q8 step."""
+    the kernels and ``plain_policy`` on the plain versions.
+    ``per_forward(kind)`` maps each kernel name of ``kernels`` to its
+    launches in one ``"prefill"`` or ``"decode"`` forward on the quantized
+    main path (:func:`every_layer` where the layers are alike). ``audit``:
+    (f), the shadow auditor on direct K2 calls and on a served q8 step."""
     from repro_torch.models import api
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tf_mod
 
-    L = cfg.n_layers
     gen = torch.Generator(device=dev).manual_seed(4)
     # (a) one layer, both backends, the same input (and, for MoE, the
     # kernel run's routing).
@@ -2118,7 +2171,9 @@ def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops,
         toks_host = toks.cpu()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
-    want = {name: per_layer.get(name, 0) * L * n_fwd for name in kernels}
+    pf, dc = per_forward("prefill"), per_forward("decode")
+    want = {name: pf.get(name, 0) + (n_fwd - 1) * dc.get(name, 0) for name in kernels}
+    counted = f"a prefill's {pf} + {n_fwd - 1} x a decode step's {dc}"
     plain_calls = {name: (ops.backend(name).calls, ops.backend(name).grouped_calls)
                    for name in ("torch", "torch_q8")}
     if launches != want or any(sum(c) for c in plain_calls.values()):
@@ -2128,8 +2183,8 @@ def q8_model_phase(torch, np, cfg, params, policy, plain_policy, per_layer, ops,
     if tuple(toks_host.shape) != (4, n_fwd) or not ((toks_host >= 0) & (toks_host < cfg.vocab)).all():
         raise AssertionError(f"{tag} greedy tokens {tuple(toks_host.shape)}")
     log(f"{tag} (d) greedy 4 x 64 prompt + 16 decode steps in {wall:.3f} s "
-        f"({4 * n_fwd / wall:.1f} tokens/s); launches {launches} = per layer "
-        f"{per_layer} x {L} layers x {n_fwd} forwards, every K1, K2 and K5 launch on sm90; "
+        f"({4 * n_fwd / wall:.1f} tokens/s); launches {launches} = {counted}, every K1, K2 "
+        f"and K5 launch on sm90; "
         f"plain calls 0")
 
     # (e) one decode step at 4 rows: wall time and its kernel split.
@@ -4036,6 +4091,13 @@ def importlib_k1():
     return importlib.import_module("repro_torch.kernels.opope_gemm")
 
 
+def importlib_k4():
+    """The K4 module."""
+    import importlib
+
+    return importlib.import_module("repro_torch.kernels.opope_grouped")
+
+
 def _grouped_bound(g, m, k, n, out_elem, n_full):
     """Least time in ms of one bf16 grouped GEMM: A, B, the output and the
     epilogue's bf16 full operands moved once each, or 2GMNK at the bf16
@@ -4110,30 +4172,23 @@ def _decode_step_times(torch, dev, step, caches, pos, weights, tag, *, kernels=(
     return step_ms, dev_ms, bound_ms
 
 
-def family_phase(torch, np, cfg, ops, ep, k4, dev, tag):
-    """Phase 14, what every family runs, on its full-width weights drawn from
-    seed 0: (i) the all-layer prefill logits through the kernels against the
-    plain backend within PREFILL_LOGIT_FLOOR_FACTOR x the RMS gap of the
-    plain backend's fp32 and fp64 sums in this run (an MoE model with the
-    kernels' routing replayed on the plain backend, beside 6(a)'s routing
-    agreement), (ii)
-    the continuous engine on 4(b)'s Poisson trace, every K1 and K4 launch
-    counted and on sm90, (iii) a profiled 4-row decode step, and the peak
-    device memory of (i)-(iii). Returns the record and the weights."""
+def _prefill_floor_gate(torch, rng, cfg, params, ops, ep, dev, tag, rec):
+    """(i) of phases 14 and 16: the all-layer prefill logits of 2 x 64
+    tokens drawn from ``rng`` through the kernels against the plain backend
+    within PREFILL_LOGIT_FLOOR_FACTOR x the RMS gap of the plain backend's
+    fp32 and fp64 sums in this run; an MoE model replays the kernels'
+    routing on the plain backend, and its routing agreement is held as
+    6(a)'s: the plain router on the kernel run's inputs, and the
+    free-running share pooled over FREE_ROUTING_BATCHES prefills
+    (:func:`free_routing_shares`). Writes ``rec["prefill"]`` (with the
+    kernels' K1 and K4 launches by route) and ``rec["routing_agreement"]``."""
+    import numpy as np
+
     from repro_torch.kernels.opope_gemm import opope_gemm
     from repro_torch.models import api
     from repro_torch.models import moe as moe_mod
-    from repro_torch.serve import ContinuousEngine, poisson_trace
 
-    moe, n_layers = cfg.moe, cfg.n_layers
-    n_k1 = (7 if moe is None else 5 + 3 * bool(moe.n_shared)) * n_layers
-    n_k4 = 0 if moe is None else 3 * n_layers
-    kern4 = k4.opope_gemm_grouped
-    params, rec = _family_params(torch, api, cfg, dev, tag)
-
-    # (i) prefill logits, kernels against the plain backend, and the plain
-    # backend's fp32 against its fp64 sums: the floor of the gate.
-    rng = np.random.default_rng(0)
+    moe, kern4 = cfg.moe, importlib_k4().opope_gemm_grouped
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(dev)
     fp64, plain = _fp64_plain(torch, ep), ops.backend("torch")
     routed, real_route = [], moe_mod._route
@@ -4143,9 +4198,13 @@ def family_phase(torch, np, cfg, ops, ep, k4, dev, tag):
         routed.append((p, xf, out))
         return out
 
+    _reset_k1(ops, opope_gemm)
+    kern4.launches_by_route.update(sm90=0, tile=0)
     with torch.inference_mode():
         with _patched(moe_mod, "_route", recording):
             got, _ = api.prefill(cfg, params, {"tokens": tokens}, 64, backend="cuda")
+        sync(torch, dev)
+        routes = {"K1": dict(opope_gemm.launches_by_route), "K4": dict(kern4.launches_by_route)}
         replays = [iter([o for _, _, o in routed]) for _ in range(2)]
         with _patched(moe_mod, "_route", lambda *a, **k: next(replays[0])):
             ref, _ = api.prefill(cfg, params, {"tokens": tokens}, 64, backend="torch")
@@ -4160,7 +4219,8 @@ def family_phase(torch, np, cfg, ops, ep, k4, dev, tag):
     d_k, d_f = _rms(got - ref), _rms(ref - ref64)
     rec["prefill"] = {"max_abs_dlogits": delta, "max_abs_logits": scale,
                       "rms_kernels_vs_plain": d_k, "rms_plain_fp32_vs_fp64": d_f,
-                      "argmax_agreement": (got.argmax(-1) == ref.argmax(-1)).float().mean().item()}
+                      "argmax_agreement": (got.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+                      "launches_by_route": routes}
     log(f"{tag} (i) prefill 2x64" + (" (the kernels' routing replayed on the plain backend)"
                                      if moe else "")
         + f": RMS kernels vs plain {d_k:.4g} (gated <= {PREFILL_LOGIT_FLOOR_FACTOR} x {d_f:.4g}, "
@@ -4170,28 +4230,92 @@ def family_phase(torch, np, cfg, ops, ep, k4, dev, tag):
         raise AssertionError(f"{tag} (i) prefill logits: kernels vs plain RMS {d_k} > "
                              f"{PREFILL_LOGIT_FLOOR_FACTOR} x floor {d_f}")
     if moe is not None:
-        # 6(a): the plain router on the kernel run's layer inputs, and two
+        # 6(a): the plain router on the kernel run's layer inputs, and
         # free-running prefills against the floor of two plain sum orders.
         with torch.inference_mode():
             idx_k = torch.stack([o[2] for _, _, o in routed])
             idx_same = torch.stack([real_route(p, xf, moe.top_k, "torch")[2]
                                     for p, xf, _ in routed])
-            _, rec_t = _routed_prefill(api, moe_mod, cfg, params, tokens, "torch")
-            with _patched(plain, "fn", fp64), _patched(plain, "grouped_fn", fp64):
-                _, rec_64 = _routed_prefill(api, moe_mod, cfg, params, tokens, "torch")
-            idx_t, idx_64 = (torch.stack([r[2] for r in x]) for x in (rec_t, rec_64))
         same = _agreement(idx_k, idx_same).mean().item()
-        free, free_64 = _agreement(idx_k, idx_t).mean().item(), _agreement(idx_t, idx_64).mean().item()
+        del routed
+        shares = [free_routing_shares(torch, api, moe_mod, ops, cfg, params, tokens,
+                                      {"fp64": fp64}, kernels_idx=idx_k)[0]]
+        for seed in range(1, FREE_ROUTING_BATCHES):
+            more = np.random.default_rng(seed).integers(0, cfg.vocab, (2, 64))
+            shares.append(free_routing_shares(torch, api, moe_mod, ops, cfg, params,
+                                              torch.from_numpy(more).to(dev), {"fp64": fp64})[0])
+        free = sum(x["kernels"] for x in shares) / len(shares)
+        free_64 = sum(x["fp64"] for x in shares) / len(shares)
         free_min = max(free_64 - FREE_ROUTING_MARGIN, FREE_ROUTING_FLOOR)
         rec["routing_agreement"] = {"same_input": same, "free_running": free,
-                                    "free_running_plain_fp32_vs_fp64": free_64}
+                                    "free_running_plain_fp32_vs_fp64": free_64,
+                                    "free_running_by_prefill": shares}
         log(f"{tag} (i) routing, {idx_k.numel()} assignments: the plain router on the kernel "
-            f"run's inputs agrees on {same:.5f} (gated >= 0.99); free-running kernels vs plain "
-            f"{free:.5f} (gated >= {free_min:.5f}), plain fp32 vs fp64 sums {free_64:.5f}")
+            f"run's inputs agrees on {same:.5f} (gated >= 0.99); free-running over "
+            f"{len(shares)} prefills of 2 x 64 ({len(shares) * idx_k.numel()} assignments): "
+            f"kernels vs plain {free:.5f} (gated >= {free_min:.5f} = max(fp64 floor - "
+            f"{FREE_ROUTING_MARGIN}, {FREE_ROUTING_FLOOR})), plain fp32 vs fp64 sums "
+            f"{free_64:.5f}; by prefill "
+            + " ".join(f"{x['kernels']:.4f}/{x['fp64']:.4f}" for x in shares))
         if same < 0.99 or free < free_min:
             raise AssertionError(f"{tag} (i) routing agreement {rec['routing_agreement']}")
-        del rec_t, rec_64
-    del routed, got, ref, ref64
+    else:
+        del routed
+    del got, ref, ref64
+
+
+def free_routing_shares(torch, api, moe_mod, ops, cfg, params, tokens, orders,
+                        kernels_idx=None):
+    """Free-running prefills of ``tokens`` on the kernels, on the plain
+    backend, and on the plain backend under each of ``orders`` (name -> a
+    function in place of the plain versions', as :func:`_fp64_plain`):
+    ``({"kernels" or the order's name: the share of top-k assignments that
+    run makes alike with the plain backend's}, assignments)``.
+    ``kernels_idx``: the kernels' top-k indices, where a recorded run
+    already has them."""
+    plain = ops.backend("torch")
+    idx = {}
+    with torch.inference_mode():
+        if kernels_idx is None:
+            _, rec = _routed_prefill(api, moe_mod, cfg, params, tokens, "cuda")
+            kernels_idx = torch.stack([r[2] for r in rec])
+            del rec
+        for run, fn in {"plain": None, **orders}.items():
+            with _patched(plain, "fn", fn or plain.fn), \
+                    _patched(plain, "grouped_fn", fn or plain.grouped_fn):
+                _, rec = _routed_prefill(api, moe_mod, cfg, params, tokens, "torch")
+            idx[run] = torch.stack([r[2] for r in rec])
+            del rec
+    idx["kernels"] = kernels_idx
+    return ({k: _agreement(idx[k], idx["plain"]).mean().item() for k in ("kernels", *orders)},
+            kernels_idx.numel())
+
+
+def family_phase(torch, np, cfg, ops, ep, k4, dev, tag):
+    """Phase 14, what every family runs, on its full-width weights drawn from
+    seed 0: (i) the all-layer prefill logits through the kernels against the
+    plain backend within PREFILL_LOGIT_FLOOR_FACTOR x the RMS gap of the
+    plain backend's fp32 and fp64 sums in this run (an MoE model with the
+    kernels' routing replayed on the plain backend, beside 6(a)'s routing
+    agreement), (ii)
+    the continuous engine on 4(b)'s Poisson trace, every K1 and K4 launch
+    counted and on sm90, (iii) a profiled 4-row decode step, and the peak
+    device memory of (i)-(iii). Returns the record and the weights."""
+    from repro_torch.kernels.opope_gemm import opope_gemm
+    from repro_torch.models import api
+    from repro_torch.serve import ContinuousEngine, poisson_trace
+
+    moe, n_layers = cfg.moe, cfg.n_layers
+    n_k1 = (7 if moe is None else 5 + 3 * bool(moe.n_shared)) * n_layers
+    n_k4 = 0 if moe is None else 3 * n_layers
+    kern4 = k4.opope_gemm_grouped
+    params, rec = _family_params(torch, api, cfg, dev, tag)
+
+    # (i) prefill logits, kernels against the plain backend, and the plain
+    # backend's fp32 against its fp64 sums: the floor of the gate.
+    rng = np.random.default_rng(0)
+    plain = ops.backend("torch")
+    _prefill_floor_gate(torch, rng, cfg, params, ops, ep, dev, tag, rec)
 
     # (ii) the continuous engine on 4(b)'s Poisson trace.
     with warnings.catch_warnings(record=True) as caught:
@@ -4333,21 +4457,24 @@ def long_prompt_phase(torch, np, cfg, params, ops, dev, tag):
     return out
 
 
-def grok_expert_phase(torch, k4, q8mod, q8b, ep, cfg, params, dev, tag):
-    """14(d): K4 and K5 at grok-1-314b's expert GEMMs (G 8) on layer 0's
-    resident weights, at a 4-row decode step's capacity (2) and a 512-token
-    group's (160), with the chains the model runs: each against its plain
+def expert_gemm_phase(torch, k4, q8mod, q8b, ep, cfg, params, dev, tag, *,
+                      expert_rows=GROK_EXPERT_MS, layer=0):
+    """14(d) and 16(a)(v): K4 and K5 at an MoE model's expert GEMMs on
+    layer ``layer``'s resident weights, at ``expert_rows`` rows an expert (a
+    4-row decode step's capacity and a 512-token group's: grok-1-314b's 2
+    and 160 at G 8), with the chains the model runs: each against its plain
     version (K4 within one bf16 ulp, K5 bitwise but silu's one ulp), timed
     by device time (queued_ms) beside torch.bmm (K4) and the bound."""
     from repro_torch.kernels.opope_gemm import full_fp32
 
-    p = params["blocks"][0]["moe"]
+    p = params["blocks"][layer]["moe"]
+    short = cfg.name.split("-")[0]
     g, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
     gen = torch.Generator(device=dev).manual_seed(15)
     bf16, f32 = torch.bfloat16, torch.float32
     rows, err4, err5 = [], 0.0, 0.0
     kern4, kern5 = k4.opope_gemm_grouped, q8mod.opope_gemm_q8_grouped
-    for m in GROK_EXPERT_MS:
+    for m in expert_rows:
         x = torch.randn((g, m, d), generator=gen, device=dev).to(bf16)
         up = torch.randn((g, m, f), generator=gen, device=dev).to(bf16)
         h = torch.randn((g, m, f), generator=gen, device=dev).to(bf16)
@@ -4380,19 +4507,19 @@ def grok_expert_phase(torch, k4, q8mod, q8b, ep, cfg, params, dev, tag):
             rows.append({"gemm": name, "g": g, "m": m, "k": k, "n": n, "chain": "+".join(steps)
                          or "none", "k4_ms": ms, "bmm_ms": lib_ms, "bound_ms": bound,
                          "bound_by": by, "k5_ms": ms5, "k5_bound_ms": bound5, "k5_bound_by": by5})
-            log(f"{tag} grok {name} [{g} x {m} x {k}] @ [{g} x {k} x {n}] ({rows[-1]['chain']}, "
+            log(f"{tag} {short} {name} [{g} x {m} x {k}] @ [{g} x {k} x {n}] ({rows[-1]['chain']}, "
                 f"{str(out_dtype).removeprefix('torch.')} out): K4 {ms:.4f} ms, torch.bmm "
                 f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); K5 {ms5:.4f} ms, bound "
                 f"{bound5:.4f} ms ({by5})")
             del aq, bq, out, out5, want5
-    for m in GROK_EXPERT_MS:
+    for m in expert_rows:
         sel = [r for r in rows if r["m"] == m]
-        log(f"{tag} grok's 3 expert GEMMs at M={m}: K4 {sum(r['k4_ms'] for r in sel):.4f} ms, "
+        log(f"{tag} {short}'s 3 expert GEMMs at M={m}: K4 {sum(r['k4_ms'] for r in sel):.4f} ms, "
             f"torch.bmm {sum(r['bmm_ms'] for r in sel):.4f} ms, bound "
             f"{sum(r['bound_ms'] for r in sel):.4f} ms; K5 {sum(r['k5_ms'] for r in sel):.4f} ms, "
             f"bound {sum(r['k5_bound_ms'] for r in sel):.4f} ms")
     return {"rows": rows, "k4_max_abs_err": err4, "k5_max_abs_err": err5,
-            "timing": "device time (queued_ms), layer 0's resident weights"}
+            "timing": f"device time (queued_ms), layer {layer}'s resident weights"}
 
 
 def _dense_first_step(torch, ops, ep, tcfg, params, first, kernels, tables, tag):
@@ -4532,7 +4659,7 @@ def families_phase(torch, np, get_config, ops, ep, k4mod, q8mod, q8b, qz, kernel
     before the next, through :func:`family_phase` and its own extra: (a)
     4(f)'s prefix-cache gate, (b) :func:`long_prompt_phase`, (c) phase 8
     under ``mlp_q8_policy()``, (d) phase 8 under ``{"moe": "q8"}`` and
-    :func:`grok_expert_phase`; then (e) training gemma2-9b and grok-1-314b
+    :func:`expert_gemm_phase`; then (e) training gemma2-9b and grok-1-314b
     (:func:`family_train_phase`). Returns the records."""
     import dataclasses
 
@@ -4553,13 +4680,13 @@ def families_phase(torch, np, get_config, ops, ep, k4mod, q8mod, q8b, qz, kernel
             rec["q8"] = q8_model_phase(
                 torch, np, cfg, params, qz.mlp_q8_policy(),
                 qz.PrecisionPolicy(rules={"mlp": "torch_q8", "moe": "torch_q8"}, default="torch"),
-                {"K1": 4, "K2": 3}, ops, ep, kernels, dev, f"{tag} q8")
+                every_layer({"K1": 4, "K2": 3}, cfg.n_layers), ops, ep, kernels, dev, f"{tag} q8")
         else:
             rec["q8"] = q8_model_phase(
                 torch, np, cfg, params, qz.PrecisionPolicy(rules={"moe": "q8"}),
                 qz.PrecisionPolicy(rules={"moe": "torch_q8"}, default="torch"),
-                {"K1": 5, "K5": 3}, ops, ep, kernels, dev, f"{tag} q8")
-            rec["experts"] = grok_expert_phase(torch, k4mod, q8mod, q8b, ep, cfg, params, dev, tag)
+                every_layer({"K1": 5, "K5": 3}, cfg.n_layers), ops, ep, kernels, dev, f"{tag} q8")
+            rec["experts"] = expert_gemm_phase(torch, k4mod, q8mod, q8b, ep, cfg, params, dev, tag)
         rec["phase_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         rec["seconds"] = time.perf_counter() - t0
         log(f"{tag}: peak device memory {rec['phase_peak_memory_gb']:.2f} GB over the family's "
@@ -4781,25 +4908,42 @@ def a8b_family_phase(torch, np, cfg, ops, ep, dev, tag):
 
 
 def a8b_loss_phase(torch, np, cfg, ops, ep, dev, tag, *, batch, prompt):
-    """15(c): one ``loss_fn`` value and every gradient leaf on the kernels
-    against the plain backend (fp32 and fp64 sums), under 10(a)'s floor
-    gate (:func:`_gate_first_step`), on weights drawn from seed 0 and a
-    batch drawn from the seed; K1's launches counted by route (the fp32
-    backward GEMMs on the tile route)."""
+    """15(c) and 16(c): one ``loss_fn`` value and every gradient leaf on the
+    kernels against the plain backend (fp32 and fp64 sums), under 10(a)'s
+    floor gate (:func:`_gate_first_step`), on weights drawn from seed 0 and
+    a batch drawn from the seed; an MoE model's plain runs teacher-forced on
+    the kernels' routing (as 11(b)). K1's and K4's launches counted by
+    route: the forward and the bf16 backward on sm90, the fp32 backward of
+    an epilogue'd GEMM on tile (a model without one, xlstm, has none)."""
     from repro_torch.kernels.opope_gemm import opope_gemm
     from repro_torch.launch.serve import static_batch
     from repro_torch.models import api
+    from repro_torch.models import moe as moe_mod
     from repro_torch.tree import leaves, map_leaves
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    kern4 = importlib_k4().opope_gemm_grouped
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in _leaves(params))
     data = static_batch(cfg, batch, prompt + 1, 0, dev)
     tokens = data.pop("tokens")
     data.update(tokens=tokens[:, :-1], labels=tokens[:, 1:])
     fp64, plain = _fp64_plain(torch, ep), ops.backend("torch")
+    forced, real_route = {}, moe_mod._route  # router leaf's storage -> the kernels' top_idx
+
+    def recording(p, xf, top_k, backend=None):
+        out = real_route(p, xf, top_k, backend)
+        forced.setdefault(p["router"].data_ptr(), out[2].clone())
+        return out
+
+    def replay(p, xf, top_k, backend=None):
+        gates, _, _ = real_route(p, xf, top_k, backend)
+        top_vals = torch.gather(gates, 1, forced[p["router"].data_ptr()])
+        return (gates, top_vals / torch.clamp_min(top_vals.sum(-1, keepdim=True), 1e-9),
+                forced[p["router"].data_ptr()])
 
     def loss_grads(backend):
         live = map_leaves(lambda p: p.detach().requires_grad_(), params)
@@ -4807,28 +4951,38 @@ def a8b_loss_phase(torch, np, cfg, ops, ep, dev, tag, *, batch, prompt):
         return loss.detach().float(), torch.autograd.grad(loss, list(leaves(live)))
 
     _reset_k1(ops, opope_gemm)
-    loss_k, g_k = loss_grads("cuda")
+    kern4.launches_by_route.update(sm90=0, tile=0)
+    with _patched(moe_mod, "_route", recording):
+        loss_k, g_k = loss_grads("cuda")
     sync(torch, dev)
-    routes = dict(opope_gemm.launches_by_route)
-    loss_p, g_p = loss_grads("torch")
-    with _patched(plain, "fn", fp64):
-        loss_64, g_64 = loss_grads("torch")
+    routes = {"K1": dict(opope_gemm.launches_by_route), "K4": dict(kern4.launches_by_route)}
+    with _patched(moe_mod, "_route", replay):
+        loss_p, g_p = loss_grads("torch")
+        with _patched(plain, "fn", fp64), _patched(plain, "grouped_fn", fp64):
+            loss_64, g_64 = loss_grads("torch")
     leaf_gaps, worst = _gate_first_step(torch, params, (loss_k, loss_p, loss_64),
                                         (g_k, g_p, g_64), tag)
-    if not routes["sm90"] or not routes["tile"]:
-        raise AssertionError(f"{tag} K1 launches by route {routes}: the forward and bf16 "
+    epilogued = any(bd.mixer in ("attn", "attn_local") or bd.ffn != "none"
+                    for bd in cfg.pattern)
+    if (not routes["K1"]["sm90"] or bool(routes["K1"]["tile"]) != epilogued
+            or bool(routes["K4"]["sm90"]) != (cfg.moe is not None)):
+        raise AssertionError(f"{tag} launches by route {routes}: the forward and bf16 "
                              f"backward on sm90, the fp32 backward on tile")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    out = {"name": cfg.name, "layers": cfg.n_layers, "batch": batch, "prompt": prompt,
+    out = {"name": cfg.name, "layers": cfg.n_layers, "params": n_params, "batch": batch,
+           "prompt": prompt,
            "loss": {"kernels": loss_k.item(), "plain": loss_p.item(), "plain_fp64": loss_64.item()},
            "worst_leaf": worst, "worst_leaf_gap": leaf_gaps[worst], "leaves": len(leaf_gaps),
-           "launches_by_route": routes, "peak_memory_gb": peak,
+           "launches_by_route": routes["K1"], "k4_launches_by_route": routes["K4"],
+           "routing_replayed": cfg.moe is not None, "peak_memory_gb": peak,
            "seconds": time.perf_counter() - t0}
-    log(f"{tag} at {cfg.n_layers} layers, {batch} x {prompt} tokens: loss kernels "
-        f"{loss_k.item():.6f}, plain {loss_p.item():.6f}, plain fp64 sums {loss_64.item():.6f}; "
-        f"{len(leaf_gaps)} gradient leaves within {TRAIN_GRAD_FLOOR_FACTOR} x floor (worst {worst}:"
-        f" RMS {leaf_gaps[worst][0]:.3g}, floor {leaf_gaps[worst][1]:.3g}); K1 launches by route "
-        f"{routes}; peak device memory {peak:.2f} GB; {out['seconds']:.1f} s")
+    log(f"{tag} at {cfg.n_layers} layers ({n_params / 1e9:.4f} B params), {batch} x {prompt} "
+        f"tokens: loss kernels {loss_k.item():.6f}, plain {loss_p.item():.6f}, plain fp64 sums "
+        f"{loss_64.item():.6f}" + (" (the plain runs on the kernels' routing)" if cfg.moe else "")
+        + f"; {len(leaf_gaps)} gradient leaves within {TRAIN_GRAD_FLOOR_FACTOR} x floor (worst "
+        f"{worst}: RMS {leaf_gaps[worst][0]:.3g}, floor {leaf_gaps[worst][1]:.3g}); K1 launches "
+        f"by route {routes['K1']}" + (f", K4 {routes['K4']}" if cfg.moe else "")
+        + f"; peak device memory {peak:.2f} GB; {out['seconds']:.1f} s")
     del params, g_k, g_p, g_64
     return out
 
@@ -4874,6 +5028,337 @@ def a8b_launch_paths(rec):
         paths[f"{name} static engine (15(ii))"] = {"sm90": r["serve"]["launches"], "tile": 0}
         loss = rec["loss"][name]
         paths[f"{name} loss ({loss['layers']} layers, 15(c))"] = loss["launches_by_route"]
+    return paths
+
+
+def a8c_launches(cfg, kind, q8=False):
+    """GEMM launches of one ``"prefill"`` or ``"decode"`` forward of a
+    phase-16 model, by kernel: a mamba mixer's 4 projections, an mLSTM's 6
+    and an sLSTM's 2 on K1 (under the q8 ``mixer`` rule, a mamba's 4 on K2
+    at prefill, and at decode its in and out projections on K2 and
+    ``x_proj``, ``dt_proj`` on K1: the reference's decode step runs those on
+    the default backend), attention's 4 and an MLP's 3 on K1, an MoE
+    block's router on K1 and its 3 expert GEMMs on K4 (K5 under q8)."""
+    n = {"K1": 0, "K4": 0, "K2": 0, "K5": 0}
+    for layer in range(cfg.n_layers):
+        bd = cfg.pattern[layer % len(cfg.pattern)]
+        if bd.mixer == "mamba":
+            on_k2 = (2 if kind == "decode" else 4) if q8 else 0
+            n["K2"] += on_k2
+            n["K1"] += 4 - on_k2
+        else:
+            n["K1"] += {"mlstm": 6, "slstm": 2}.get(bd.mixer, 4)
+        if bd.ffn == "mlp":
+            n["K1"] += 3
+        elif bd.ffn == "moe":
+            n["K1"] += 1
+            n["K5" if q8 else "K4"] += 3
+    return n
+
+
+def _gemm_weights(blocks):
+    """The block leaves the GEMMs of a decode step read: every leaf but a
+    mamba mixer's ``A_log`` and ``conv_w`` and an sLSTM's recurrent ``r``
+    (plain PyTorch, not a GEMM kernel's operand)."""
+    skip = {"A_log", "conv_w", "r"}
+    return [{k: {n: w for n, w in v.items() if n not in skip} if isinstance(v, dict) else v
+             for k, v in b.items()} for b in blocks]
+
+
+def a8c_k1_shapes(torch, cfg, params, dev, tag):
+    """16(0): K1 at each distinct GEMM weight of the family's first period
+    (mamba's x_proj N = 288, the mLSTM's w_if N = 8 among them) at a 4-row
+    decode step and a 128-row prefill, on the route its plan gives, against
+    its plain version (check_close). Returns (max abs err, launches by
+    route, the shapes)."""
+    from repro_torch.kernels.opope_gemm import opope_gemm, opope_gemm_plain
+
+    weights = {}
+    for b in _gemm_weights(params["blocks"][:len(cfg.pattern)]):
+        for w in _leaves(b):
+            if w.ndim == 2:
+                weights.setdefault(tuple(w.shape), w)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    before, err = dict(opope_gemm.launches_by_route), 0.0
+    for m in (A8C_ROWS, 128):
+        for (k, n), w in sorted(weights.items()):
+            a = torch.randn((m, k), generator=gen, device=dev).to(w.dtype)
+            out = opope_gemm(a, w)
+            err = max(err, check_close(torch, out, lambda dt: opope_gemm_plain(a, w, out_dtype=dt),
+                                       w.dtype, f"{tag} (0) K1 [{m} x {k}] @ [{k} x {n}]"))
+    routes = {r: opope_gemm.launches_by_route[r] - before[r] for r in before}
+    log(f"{tag} (0) K1 at {len(weights)} weight shapes {sorted(weights)} x M = {A8C_ROWS}, 128: "
+        f"max|err| {err:.4g} against its plain version (within one bf16 ulp); by route {routes}")
+    return err, routes, sorted(weights)
+
+
+def a8c_family_phase(torch, np, cfg, ops, ep, k4, dev, tag):
+    """Phase 16 for one family of ROADMAP A.8c on weights drawn from seed 0:
+    (0) K1 at the family's weight shapes against its plain version
+    (:func:`a8c_k1_shapes`); (i) the all-layer prefill logits through the
+    kernels against the plain backend under 14(i)'s same-run floor
+    (:func:`_prefill_floor_gate`: jamba's routing replayed, its routing
+    agreement held as 6(a)'s, the free-running share pooled); (ii)
+    the continuous engine on 4(b)'s Poisson trace with exact-length buckets,
+    constructed with ``prefill_chunk`` set: the warning and both prompt-side
+    features off are required, every K1 and K4 launch counted by route;
+    (iii) the prefill-to-decode handoff: the static engine, A8C_ROWS rows of
+    A8C_PROMPT-token prompts and A8C_STEPS decode steps, its logits
+    teacher-forced against one full forward over prompt and tokens fed
+    within PROMPT_LOGIT_FLOOR_FACTOR x the kernels-vs-plain-GEMM RMS of that
+    forward (4(f)'s floor); jamba with ``moe.dropless`` here alone (capacity
+    dropping depends on the batch's token count) and the full forward on
+    the engine's routing; (iv) the prefill's time, a profiled decode step
+    and the peak device memory. Returns the record and the weights."""
+    import dataclasses
+
+    from repro_torch.kernels.opope_gemm import opope_gemm, opope_gemm_plain
+    from repro_torch.models import api
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+    from repro_torch.serve import ContinuousEngine, ServeEngine, poisson_trace
+    from repro_torch.serve import engine as engine_mod
+
+    moe, kern4, cuda_be = cfg.moe, k4.opope_gemm_grouped, ops.backend("cuda")
+    per = a8c_launches(cfg, "decode")  # a prefill's are the same without q8
+    params, rec = _family_params(torch, api, cfg, dev, tag)
+    err, routes0, shapes0 = a8c_k1_shapes(torch, cfg, params, dev, tag)
+    rec["k1_shapes"] = {"max_abs_err": err, "launches_by_route": routes0,
+                        "shapes": [list(x) for x in shapes0]}
+    rng = np.random.default_rng(0)
+    _prefill_floor_gate(torch, rng, cfg, params, ops, ep, dev, tag, rec)
+
+    # (ii) the continuous engine: exact buckets, the prompt-side features off.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        eng = ContinuousEngine(cfg=cfg, params=params, n_slots=4, max_len=256, prefill_chunk=32)
+    msgs = [str(w.message) for w in caught]
+    for m in msgs:
+        log(f"{tag} (ii) warning: {m}")
+    if (not any("attention-only" in m for m in msgs) or eng.prefill_chunk is not None
+            or eng.prefix_cache):
+        raise AssertionError(f"{tag} (ii) chunked prefill and the prefix cache must be turned "
+                             f"off with a warning: {msgs}, chunk {eng.prefill_chunk}, prefix "
+                             f"cache {eng.prefix_cache}")
+    eng.serve(poisson_trace(2, seed=1, vocab=cfg.vocab, prompt_lens=(32,), gen_lens=(4,)))
+    trace = poisson_trace(8, seed=0, vocab=cfg.vocab, prompt_lens=(32, 64, 128),
+                          gen_lens=(8, 16, 32))
+    _reset_k1(ops, opope_gemm)
+    kern4.launches = 0
+    kern4.launches_by_route.update(sm90=0, tile=0)
+    plain = ops.backend("torch")
+    report = eng.timed_serve(trace)
+    launches = {"K1": opope_gemm.launches, "K4": kern4.launches}
+    forwards = report.decode_steps + report.prefill_batches
+    want = {"K1": per["K1"] * forwards, "K4": per["K4"] * forwards}
+    if launches != want or plain.calls or plain.grouped_calls:
+        raise AssertionError(f"{tag} (ii) launches {launches} != {want} (plain calls "
+                             f"{plain.calls}, {plain.grouped_calls} grouped)")
+    _valid_outputs(report, trace, cfg.vocab, f"{tag} (ii)")
+    routes = {"K1": dict(opope_gemm.launches_by_route), "K4": dict(kern4.launches_by_route)}
+    rec["serve"] = {"requests": len(trace), "generated_tokens": report.generated_tokens,
+                    "decode_steps": report.decode_steps,
+                    "prefill_batches": report.prefill_batches, "wall_s": report.wall_time_s,
+                    "tokens_per_s": report.tokens_per_sec, "ttft_p50_s": report.ttft_p50,
+                    "itl_p50_s": report.itl_p50, "launches": launches,
+                    "launches_by_route": routes, "warnings": msgs,
+                    "kv_bytes_per_slot": report.kv_bytes_per_slot}
+    log(f"{tag} (ii) continuous, exact-length buckets, chunked prefill and prefix cache off: "
+        f"{len(trace)} requests, {report.generated_tokens} tokens, decode_steps "
+        f"{report.decode_steps}, prefill_batches {report.prefill_batches}, wall "
+        f"{report.wall_time_s:.3f} s, {report.tokens_per_sec:.1f} tokens/s, TTFT p50 "
+        f"{report.ttft_p50 * 1e3:.1f} ms, ITL p50 {report.itl_p50 * 1e3:.1f} ms (host-issue "
+        f"times); launches K1 {launches['K1']} = {per['K1']} x {forwards} forwards"
+        + (f", K4 {launches['K4']} = {per['K4']} x {forwards}" if moe else "")
+        + f"; by route {routes if moe else routes['K1']}; K/V bytes a slot "
+        f"{report.kv_bytes_per_slot:.0f}")
+    del eng
+
+    # (iii) the handoff: the static engine's logits against one full forward.
+    gcfg = dataclasses.replace(cfg, moe=dataclasses.replace(moe, dropless=True)) if moe else cfg
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (A8C_ROWS, A8C_PROMPT))).to(dev)
+    n_tok = A8C_STEPS + 1
+    eng = ServeEngine(cfg=gcfg, params=params, max_len=A8C_PROMPT + n_tok)
+    eng.generate({"tokens": prompts[:, :8]}, 2)  # warm-up
+    seen, engine_routes = [], {}
+    real_sample, real_route = engine_mod.sample_token, moe_mod._route
+
+    def sampling(logits, generator=None, temperature=0.0):
+        seen.append(logits.float())
+        return real_sample(logits, generator, temperature)
+
+    def routing(p, xf, top_k, backend=None):
+        out = real_route(p, xf, top_k, backend)
+        engine_routes.setdefault(p["router"].data_ptr(), []).append(out[2])
+        return out
+
+    _reset_k1(ops, opope_gemm)
+    kern4.launches = 0
+    kern4.launches_by_route.update(sm90=0, tile=0)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    with _patched(engine_mod, "sample_token", sampling), _patched(moe_mod, "_route", routing):
+        toks = eng.generate({"tokens": prompts}, n_tok)
+    toks_host = toks.cpu()
+    serve_s = time.perf_counter() - t0
+    launches3 = {"K1": opope_gemm.launches, "K4": kern4.launches}
+    want3 = {k: per[k] * n_tok for k in ("K1", "K4")}
+    if launches3 != want3:
+        raise AssertionError(f"{tag} (iii) launches {launches3} != {want3}")
+    routes3 = {"K1": dict(opope_gemm.launches_by_route), "K4": dict(kern4.launches_by_route)}
+    if tuple(toks_host.shape) != (A8C_ROWS, n_tok) or not (
+            (toks_host >= 0) & (toks_host < cfg.vocab)).all():
+        raise AssertionError(f"{tag} (iii) engine output {tuple(toks_host.shape)}")
+    engine_logits = torch.stack(seen, dim=1)  # [B, n_tok, V]
+    fed = torch.cat([prompts, toks[:, :-1]], dim=1)  # [B, prompt + steps]
+    # The engine's routing of every position of ``fed``, per MoE layer: the
+    # prefill's rows, then one row a decode step.
+    forced = {ptr: torch.cat([calls[0].reshape(A8C_ROWS, A8C_PROMPT, -1)]
+                             + [c.reshape(A8C_ROWS, 1, -1) for c in calls[1:]], dim=1)
+              .reshape(A8C_ROWS * fed.shape[1], -1) for ptr, calls in engine_routes.items()}
+    free = []
+
+    def replay(p, xf, top_k, backend=None):
+        gates, _, idx = real_route(p, xf, top_k, backend)
+        free.append((idx, forced[p["router"].data_ptr()]))
+        top_vals = torch.gather(gates, 1, forced[p["router"].data_ptr()])
+        return (gates, top_vals / torch.clamp_min(top_vals.sum(-1, keepdim=True), 1e-9),
+                forced[p["router"].data_ptr()])
+
+    def full_logits():
+        with torch.inference_mode(), _patched(moe_mod, "_route", replay):
+            hidden, _, _ = transformer.lm_forward(params, fed, gcfg, mode="prefill")
+            return transformer.lm_logits(params, hidden[:, -n_tok:], gcfg)
+
+    full = full_logits()
+    with _patched(cuda_be, "fn", opope_gemm_plain), \
+            _patched(cuda_be, "grouped_fn", k4.opope_gemm_grouped_plain):
+        full_plain = full_logits()
+    d_floor, d_tf = _rms(full_plain - full), _rms(engine_logits - full)
+    agree = (engine_logits.argmax(-1) == full.argmax(-1)).float().mean().item()
+    route_agree = (_agreement(torch.stack([a for a, _ in free[:len(forced)]]),
+                              torch.stack([b for _, b in free[:len(forced)]])).mean().item()
+                   if moe else None)
+    rec["handoff"] = {"rows": A8C_ROWS, "prompt": A8C_PROMPT, "decode_steps": A8C_STEPS,
+                      "wall_s": serve_s, "launches": launches3, "launches_by_route": routes3,
+                      "dropless": bool(moe), "rms_engine_vs_full_forward": d_tf,
+                      "rms_kernels_vs_plain_full_forward": d_floor, "argmax_agreement": agree,
+                      "full_forward_free_routing_agreement": route_agree}
+    log(f"{tag} (iii) handoff: static engine, {A8C_ROWS} rows x {A8C_PROMPT}-token prompts, "
+        f"prefill then {A8C_STEPS} decode steps in {serve_s:.3f} s"
+        + (" (moe.dropless=True for this gate alone: capacity dropping depends on the "
+           "batch's token count; the full forward on the engine's routing, its own router "
+           f"agreeing on {route_agree:.5f})" if moe else "")
+        + f"; K1 {launches3['K1']} = {per['K1']} x {n_tok}"
+        + (f", K4 {launches3['K4']} = {per['K4']} x {n_tok}" if moe else "")
+        + f" launches (by route {routes3 if moe else routes3['K1']}); teacher-forced logits vs "
+        f"one full forward over the prompt and the {A8C_STEPS} tokens fed: RMS {d_tf:.4g} (gated "
+        f"<= {PROMPT_LOGIT_FLOOR_FACTOR} x {d_floor:.4g}, the plain GEMMs vs the kernels on "
+        f"that forward), argmax agreement {agree:.4f}")
+    if not (torch.isfinite(engine_logits).all() and d_tf <= PROMPT_LOGIT_FLOOR_FACTOR * d_floor):
+        raise AssertionError(f"{tag} (iii) teacher-forced logits RMS {d_tf} > "
+                             f"{PROMPT_LOGIT_FLOOR_FACTOR} x {d_floor}")
+    del seen, engine_logits, full, full_plain, eng, engine_routes, forced, free
+
+    # (iv) the 4-row prefill's time, then a decode step's wall and device time.
+    with torch.inference_mode():
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, caches = api.prefill(cfg, params, {"tokens": prompts}, A8C_PROMPT + 16)
+        sync(torch, dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = logits.argmax(-1)[:, None]
+    del logits
+    kernels = ("k1", "k4") if moe else ("k1",)
+    step_ms, dev_ms, bound_ms = _decode_step_times(
+        torch, dev, lambda c, pos: api.decode(cfg, params, tok, c, pos)[1], caches, A8C_PROMPT,
+        _gemm_weights(params["blocks"]), tag, kernels=kernels, required=kernels)
+    del caches
+    rec["prefill_ms"] = prefill_ms
+    rec["decode_step"] = {"rows": A8C_ROWS, "wall_ms": step_ms, "device_ms": dev_ms,
+                          "byte_bound_ms": bound_ms, "launches": {k: per[k] for k in ("K1", "K4")}}
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{tag} (iv) prefill {A8C_ROWS} x {A8C_PROMPT}: {prefill_ms:.2f} ms wall; decode step, "
+        f"{A8C_ROWS} rows: {step_ms:.3f} ms wall"
+        + ("" if dev_ms is None else
+           f"; device busy {dev_ms['busy']:.3f} ms ({100 * dev_ms['busy'] / step_ms:.1f}%), K1 "
+           f"{dev_ms['k1']:.3f} ms ({per['K1']} launches, byte bound {bound_ms['k1']:.3f} ms)"
+           + (f", K4 {dev_ms['k4']:.3f} ms ({per['K4']} launches, byte bound "
+              f"{bound_ms['k4']:.3f} ms)" if moe else ""))
+        + f"; peak device memory of (i)-(iv) {rec['peak_memory_gb']:.2f} GB")
+    return rec, params
+
+
+def a8c_phase(torch, np, get_config, ops, ep, k4mod, q8mod, q8b, qz, kernels, dev):
+    """Phase 16 (ROADMAP A.8c): (a) jamba-v0.1-52b cut to
+    JAMBA_SERVE_LAYERS layers and (b) xlstm-125m uncut, one at a time, each
+    freed before the next, through :func:`a8c_family_phase`; jamba also
+    (a)(v) K4 and K5 at its expert GEMMs (:func:`expert_gemm_phase`, G 16,
+    at JAMBA_EXPERT_MS rows) and (a)(vi) phase 8 under ``{"moe": "q8",
+    "mixer": "q8"}`` (:func:`q8_model_phase`, launches by
+    :func:`a8c_launches`); then (c) each family's loss and gradients
+    (:func:`a8b_loss_phase`): jamba cut to its first JAMBA_GRAD_LAYERS
+    layers (one of each block kind of its period), xlstm uncut. Returns
+    the records."""
+    import dataclasses
+
+    t_phase = time.perf_counter()
+    out = {}
+    for letter, name in zip("ab", A8C_FAMILIES):
+        tag = f"16({letter}) {name}"
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, n_layers=JAMBA_SERVE_LAYERS)
+        rec, params = a8c_family_phase(torch, np, cfg, ops, ep, k4mod, dev, tag)
+        if cfg.moe is not None:
+            rec["experts"] = expert_gemm_phase(torch, k4mod, q8mod, q8b, ep, cfg, params, dev,
+                                               f"{tag} (v)", expert_rows=JAMBA_EXPERT_MS, layer=1)
+            rec["q8"] = q8_model_phase(
+                torch, np, cfg, params, qz.PrecisionPolicy(rules={"moe": "q8", "mixer": "q8"}),
+                qz.PrecisionPolicy(rules={"moe": "torch_q8", "mixer": "torch_q8"},
+                                   default="torch"),
+                lambda kind, c=cfg: a8c_launches(c, kind, q8=True), ops, ep, kernels, dev,
+                f"{tag} (vi) q8")
+        rec["phase_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["seconds"] = time.perf_counter() - t0
+        log(f"{tag}: peak device memory {rec['phase_peak_memory_gb']:.2f} GB over the family's "
+            f"phase; {rec['seconds']:.1f} s")
+        del params
+        out[name] = rec
+    out["loss"] = {}
+    for name in A8C_FAMILIES:
+        cfg = get_config(name)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, pattern=cfg.pattern[:JAMBA_GRAD_LAYERS],
+                                      n_layers=JAMBA_GRAD_LAYERS)
+        out["loss"][name] = a8b_loss_phase(torch, np, cfg, ops, ep, dev, f"16(c) {name}",
+                                           batch=A8C_LOSS_ROWS, prompt=A8C_PROMPT)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16 took {out['seconds']:.1f} s")
+    return out
+
+
+def a8c_launch_paths(rec):
+    """Each GEMM kernel's phase-16 launches by path and route."""
+    paths = {"K1": {}, "K4": {}, "K2": {}, "K5": {}}
+    for name in A8C_FAMILIES:
+        r = rec[name]
+        for what, routes in (("prefill gate (16(i))", r["prefill"]["launches_by_route"]),
+                             ("continuous engine (16(ii))", r["serve"]["launches_by_route"]),
+                             ("static engine (16(iii))", r["handoff"]["launches_by_route"])):
+            for kname, by_route in routes.items():
+                if sum(by_route.values()):
+                    paths[kname][f"{name} {what}"] = by_route
+        for kname, n in r.get("q8", {}).get("launches", {}).items():
+            if n:  # phase 8 held each to the sm90 route
+                paths[kname][f"{name} q8 (16(vi))"] = {"sm90": n, "tile": 0}
+        loss = rec["loss"][name]
+        for kname, key in (("K1", "launches_by_route"), ("K4", "k4_launches_by_route")):
+            if sum(loss[key].values()):
+                paths[kname][f"{name} loss ({loss['layers']} layers, 16(c))"] = loss[key]
     return paths
 
 
@@ -5013,7 +5498,8 @@ def main() -> int:
     glm_q8 = q8_model_phase(
         torch, np, cfg, res.pop("params"), qz.mlp_q8_policy(),
         qz.PrecisionPolicy(rules={"mlp": "torch_q8", "moe": "torch_q8"}, default="torch"),
-        {"K1": 4, "K2": 3}, ops, ep, kernels, dev, "8 chatglm3-6b q8", audit=True)
+        every_layer({"K1": 4, "K2": 3}, cfg.n_layers), ops, ep, kernels, dev,
+        "8 chatglm3-6b q8", audit=True)
     # Free chatglm3-6b before deepseek-moe-16b's 33 GB are drawn.
     gc.collect()
     torch.cuda.empty_cache()
@@ -5026,7 +5512,8 @@ def main() -> int:
     ds_q8 = q8_model_phase(
         torch, np, mcfg, mres.pop("params"), qz.PrecisionPolicy(rules={"moe": "q8"}),
         qz.PrecisionPolicy(rules={"moe": "torch_q8"}, default="torch"),
-        {"K1": 5, "K2": 3, "K5": 3}, ops, ep, kernels, dev, "8 deepseek-moe-16b q8")
+        every_layer({"K1": 5, "K2": 3, "K5": 3}, mcfg.n_layers), ops, ep, kernels, dev,
+        "8 deepseek-moe-16b q8")
     # Phase 9 after deepseek-moe-16b's weights are freed: K3 and K6.
     gc.collect()
     torch.cuda.empty_cache()
@@ -5059,6 +5546,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     a8b = a8b_phase(torch, np, get_config, ops, ep, dev)
+    # Phase 16: jamba-v0.1-52b and xlstm-125m, served and their gradients.
+    gc.collect()
+    torch.cuda.empty_cache()
+    a8c = a8c_phase(torch, np, get_config, ops, ep, k4mod, q8mod, q8b, qz, kernels, dev)
     # One MoE layer's 3 grouped GEMMs of a 4-slot decode step (capacity 1).
     g_decode = [r for r in g_rows if r["m"] == 1]
     g_sums = {key: sum(r[key] for r in g_decode)
@@ -5311,6 +5802,16 @@ def main() -> int:
         for route, n in routes.items():
             record["launches_by_route"][route] += n
     record["a8b"] = a8b
+    # Phase 16's paths, for each GEMM kernel, by route as counted there.
+    a8c_paths = a8c_launch_paths(a8c)
+    for rec, kname in ((record, "K1"), (g_record, "K4"), (q8_records[0], "K2"),
+                       (q8_records[1], "K5")):
+        for path, routes in a8c_paths[kname].items():
+            rec["launches_by_path"][path] = sum(routes.values())
+            rec["launches"] += sum(routes.values())
+            for route, n in routes.items():
+                rec["launches_by_route"][route] += n
+    record["a8c"] = a8c
     log(f"the whole script took {time.perf_counter() - t_script:.1f} s (builds "
         f"{sum(kbuild.BUILD_SECONDS.values()):.1f} s summed over sources, run together)")
     print(smi, flush=True)

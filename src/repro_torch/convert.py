@@ -7,7 +7,9 @@ with the per-period stacks of ``tree["blocks"]`` unstacked into one dict per
 layer (and an encoder-decoder's ``enc_blocks`` and ``dec_blocks``, each one
 dict stacked over layers, unstacked the same way with a period of 1). bf16
 leaves (numpy dtype name ``bfloat16``) travel as their raw 16-bit patterns,
-so no bf16-aware numpy extension is needed here.
+so no bf16-aware numpy extension is needed here; every other leaf keeps its
+dtype (a bf16 model's norms, mamba's ``A_log``, ``D`` and ``dt_bias`` and
+the xLSTM gate biases stay fp32).
 
 ``params_to_numpy(cfg, params)`` goes the other way, for any tree in the
 port's layout (parameters, gradients, optimizer moments): every leaf to

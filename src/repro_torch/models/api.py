@@ -7,8 +7,12 @@ dicts (:func:`input_specs` owns the layout):
 * vlm: ``{"tokens", "labels", "patch_embeds"}``
 * audio: ``{"frames", "tokens", "labels"}``
 
-Decode state is a list of per-layer :class:`KVCache` (or, in a quantized
-slot pool, :class:`~repro_torch.quant.kvcache.QuantKVCache`); the audio
+Decode state is a list with one entry per layer: a :class:`KVCache` (or,
+in a quantized slot pool, :class:`~repro_torch.quant.kvcache.QuantKVCache`)
+for an attention layer, a recurrent mixer's state
+(:class:`~repro_torch.models.mamba.MambaState`,
+:class:`~repro_torch.models.xlstm.MLSTMState`,
+:class:`~repro_torch.models.xlstm.SLSTMState`) for the others; the audio
 family's is an :class:`~repro_torch.models.encdec.EncDecCaches`.
 ``init_params`` and ``init_state`` run on ``cuda`` unless the caller passes
 ``device="cpu"``; the other entry points run where their tensors are. Their
@@ -29,6 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.quant.kvcache import QuantKVCache
 from repro_torch.tree import leaves
 from . import encdec as encdec_mod
 from . import transformer as tf_mod
@@ -175,11 +180,12 @@ def decode(
 ):
     """One lockstep decode step at position ``pos`` (an int; a vlm's counts
     its image rows). token: [B, 1] -> (logits [B, V], caches). The token's
-    K/V go to the caches' fill point, which must lie inside them."""
-    kv = caches.self_kv if cfg.family == "audio" else caches
-    fill = kv[0].length
-    if isinstance(fill, int):
-        _check_room(fill + 1, kv[0].k.shape[1], f"{cfg.name}'s decode step")
+    K/V go to the KV caches' fill point, which must lie inside them; a
+    recurrent layer's state takes the token whatever ``pos`` is."""
+    kv = [c for c in (caches.self_kv if cfg.family == "audio" else caches)
+          if isinstance(c, (KVCache, QuantKVCache))]
+    if kv and isinstance(kv[0].length, int):
+        _check_room(kv[0].length + 1, kv[0].k.shape[1], f"{cfg.name}'s decode step")
     if cfg.family == "audio":
         hidden, caches = encdec_mod.decoder_forward(
             params, token, cfg, caches=caches, mode="decode", backend=backend)
@@ -196,11 +202,13 @@ def decode(
 def prefill_bucketed(
     cfg: ArchConfig, params, tokens: torch.Tensor, lengths: torch.Tensor,
     cache_dtype=torch.bfloat16, *, backend=None,
-) -> Tuple[torch.Tensor, List[KVCache]]:
+) -> Tuple[torch.Tensor, List[Any]]:
     """Prefill a right-padded prompt bucket: tokens [B, Lb], lengths [B].
     Causal attention hides the pad from every real token, so the logits read
-    at each row's ``lengths[b] - 1`` are the unpadded prefill logits.
-    Token-prompt LM families only: vlm and audio raise."""
+    at each row's ``lengths[b] - 1`` are the unpadded prefill logits. Pad
+    flows through a recurrent state, so the scheduler gives patterns with
+    recurrent mixers exact-length buckets. Token-prompt LM families only:
+    vlm and audio raise."""
     _token_prompt_only(cfg, "bucketed prefill")
     b, lb = tokens.shape
     caches = tf_mod.init_caches(cfg, b, lb, cache_dtype, tokens.device)
@@ -213,9 +221,9 @@ def prefill_bucketed(
 
 
 def prefill_chunk(
-    cfg: ArchConfig, params, tokens: torch.Tensor, caches: List[KVCache],
+    cfg: ArchConfig, params, tokens: torch.Tensor, caches: List[Any],
     offsets: torch.Tensor, last_idx: torch.Tensor, *, backend=None,
-) -> Tuple[torch.Tensor, List[KVCache]]:
+) -> Tuple[torch.Tensor, List[Any]]:
     """Advance a prompt-chunk window: tokens [B, C] written at per-row
     ``offsets[b]``; returns (logits [B, V], caches).
 
@@ -227,7 +235,8 @@ def prefill_chunk(
     ``>= S_max``: its writes drop and its logits are not read. Logits are
     read at chunk index ``last_idx[b]`` (the row's last prompt token when
     this chunk finishes it; callers mask the others). Token-prompt LM
-    families only: vlm and audio raise."""
+    families with attention-only patterns: vlm and audio raise, and a
+    recurrent mixer raises inside the forward."""
     _token_prompt_only(cfg, "chunked prefill")
     b, c = tokens.shape
     offsets = offsets.to(torch.int64)
@@ -243,9 +252,9 @@ def prefill_chunk(
 
 
 def decode_at(
-    cfg: ArchConfig, params, token: torch.Tensor, caches: List[KVCache],
+    cfg: ArchConfig, params, token: torch.Tensor, caches: List[Any],
     pos: torch.Tensor, *, backend=None,
-) -> Tuple[torch.Tensor, List[KVCache]]:
+) -> Tuple[torch.Tensor, List[Any]]:
     """Slot-indexed decode step: row ``b`` appends at ``pos[b]`` and attends
     over its own history. ``pos`` [B] is the source of truth for every
     layer's fill point. The audio family raises."""
@@ -274,9 +283,11 @@ def _token_prompt_only(cfg: ArchConfig, what: str) -> None:
 
 
 def _with_slot_lengths(caches, pos: torch.Tensor):
-    """Every cache (full-precision or quantized, scales kept) with its fill
-    point set to the per-slot positions ``pos``."""
-    return [dataclasses.replace(c, length=pos) for c in caches]
+    """Every KV cache (full-precision or quantized, scales kept) with its
+    fill point set to the per-slot positions ``pos``; recurrent states
+    untouched."""
+    return [dataclasses.replace(c, length=pos) if isinstance(c, (KVCache, QuantKVCache)) else c
+            for c in caches]
 
 
 def param_count(cfg: ArchConfig) -> int:

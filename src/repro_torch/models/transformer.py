@@ -1,29 +1,37 @@
 """Decoder-only LM assembly: a Python loop over layers.
 
-The port of :mod:`repro.models.transformer` for the attention-only
-decoders: dense periods of ``("attn" | "attn_local", "mlp")`` blocks
+The port of :mod:`repro.models.transformer` for the decoder-only
+families: dense periods of ``("attn" | "attn_local", "mlp")`` blocks
 (chatglm3-6b, qwen2.5-32b; stablelm-12b's parallel block; gemma2-9b's
-``(attn_local, attn)`` period with its sliding window and soft-capping) and
+``(attn_local, attn)`` period with its sliding window and soft-capping),
 MoE periods of ``("attn", "moe")`` blocks (deepseek-moe-16b, grok-1-314b),
-and the vlm family's dense backbone (llava-next-mistral-7b), whose image
-rows come in as ``extra_embeds`` prepended to the token embeddings.
-Parameters are a dict; ``params["blocks"]`` is a list with one dict per
-layer, in place of the reference's per-period stacks under ``lax.scan``:
-layer ``i`` is the block ``cfg.pattern[i % len(cfg.pattern)]``, periods
-one after another. Caches are a list of one :class:`KVCache` per layer.
+the hybrid period of jamba-v0.1-52b (``("mamba", "mlp" | "moe")`` and
+``("attn", "mlp")`` blocks), the ssm period of xlstm-125m (``("slstm",
+"none")`` and ``("mlstm", "none")`` blocks: no FFN), and the vlm family's
+dense backbone (llava-next-mistral-7b), whose image rows come in as
+``extra_embeds`` prepended to the token embeddings. Parameters are a dict;
+``params["blocks"]`` is a list with one dict per layer, in place of the
+reference's per-period stacks under ``lax.scan``: layer ``i`` is the block
+``cfg.pattern[i % len(cfg.pattern)]``, periods one after another. Caches
+are a list with one entry per layer: a :class:`KVCache` for an attention
+layer, a :class:`~.mamba.MambaState`, :class:`~.xlstm.MLSTMState` or
+:class:`~.xlstm.SLSTMState` for a recurrent one.
 
 Modes: ``train`` (full sequence, no caches, positions ``0..S-1``; each
 block under ``torch.utils.checkpoint`` when ``cfg.remat`` asks for the
 ``"full"`` policy, as the reference's ``jax.checkpoint`` of its layer-scan
-body), ``prefill`` (full sequence, fills the caches), ``chunk`` (a chunk of
-prompt tokens written at per-row ``positions`` of the caches and attending
-over each row's history) and ``decode`` (one token against the caches);
-without caches a prefill returns hidden states only. ``lm_forward`` also
-returns the MoE router's load-balancing loss, summed over layers, as the
-reference does. :func:`lm_loss` is the training loss: the chunked
-cross-entropy of :func:`_chunked_ce` plus ``0.01`` times that loss. The
-audio family is an encoder-decoder (:mod:`.encdec`) and is refused here;
-the recurrent mixers (mamba, xLSTM) raise ``NotImplementedError``.
+body), ``prefill`` (full sequence, fills the caches; a recurrent layer
+installs its state after the last token), ``chunk`` (a chunk of prompt
+tokens written at per-row ``positions`` of the caches and attending over
+each row's history; a recurrent layer raises ``NotImplementedError``, as
+its state cannot resume mid-prompt) and ``decode`` (one token against the
+caches). A recurrent layer with a cache and one token takes its decode
+step, a one-token prefill included, as the reference's does. Without caches
+a prefill returns hidden states only. ``lm_forward`` also returns the MoE
+router's load-balancing loss, summed over layers, as the reference does.
+:func:`lm_loss` is the training loss: the chunked cross-entropy of
+:func:`_chunked_ce` plus ``0.01`` times that loss. The audio family is an
+encoder-decoder (:mod:`.encdec`) and is refused here.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig, BlockDef
 from repro_torch.kernels.opope_gemm import full_fp32
 from . import attention as attn_mod
+from . import mamba as mamba_mod
+from . import xlstm as xlstm_mod
 from .attention import KVCache
 from .layers import (
     Initializer,
@@ -46,6 +56,7 @@ from .layers import (
     mlp_init,
     rmsnorm,
     rmsnorm_init,
+    role_backend,
     softcap,
 )
 from .moe import moe_apply, moe_init
@@ -67,20 +78,29 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torc
 _PORTED_BLOCKS = {
     "dense": {("attn", "mlp"), ("attn_local", "mlp")},
     "moe": {("attn", "moe")},
+    "hybrid": {("mamba", "mlp"), ("mamba", "moe"), ("attn", "mlp")},
+    "ssm": {("slstm", "none"), ("mlstm", "none")},
     "vlm": {("attn", "mlp")},
     "audio": {("attn", "mlp")},
 }
+_ATTENTION = ("attn", "attn_local")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice of the port lacks."""
+    """Raise ``NotImplementedError`` for a period the port does not run: a
+    block outside its family's set, an MoE spec without MoE blocks (or
+    the reverse), mamba blocks without a mamba spec, or a parallel block
+    outside the dense family."""
     blocks = _PORTED_BLOCKS.get(cfg.family)
-    if (blocks is None or (cfg.moe is not None) != (cfg.family == "moe")
-            or any((bd.mixer, bd.ffn) not in blocks for bd in cfg.pattern)):
+    has_moe = any(bd.ffn == "moe" for bd in cfg.pattern)
+    if (blocks is None or (cfg.moe is not None) != has_moe
+            or any((bd.mixer, bd.ffn) not in blocks for bd in cfg.pattern)
+            or (cfg.mamba is None and any(bd.mixer == "mamba" for bd in cfg.pattern))):
         raise NotImplementedError(
             f"{cfg.name}: only dense ('attn' | 'attn_local', 'mlp'), MoE "
-            f"('attn', 'moe'), vlm and audio ('attn', 'mlp') periods are ported; "
-            f"got family {cfg.family!r}, pattern {cfg.pattern}"
+            f"('attn', 'moe'), hybrid ('mamba', 'mlp' | 'moe') + ('attn', 'mlp'), ssm "
+            f"('slstm' | 'mlstm', 'none'), vlm and audio ('attn', 'mlp') periods are "
+            f"ported; got family {cfg.family!r}, pattern {cfg.pattern}"
         )
     if cfg.parallel_block and cfg.family != "dense":
         raise NotImplementedError(f"{cfg.name}: a parallel MoE block is not ported")
@@ -116,27 +136,37 @@ def init_lm_params(
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init((cfg.vocab, cfg.d_model))
-    blocks: List[Dict[str, Any]] = []
-    for layer in range(cfg.n_layers):
-        bd = _block_def(cfg, layer)
-        block = {
-            "norm_mixer": _norm_init(cfg, cfg.d_model, device),
-            "attn": attn_mod.attention_init(
-                cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim_, init,
-                qkv_bias=cfg.qkv_bias,
-            ),
-            "norm_ffn": _norm_init(cfg, cfg.d_model, device),
-        }
-        if bd.ffn == "mlp":
-            block["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, init)
-        else:
-            block["moe"] = moe_init(
-                cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.n_experts, init,
-                n_shared=cfg.moe.n_shared, d_ff_shared=cfg.moe.d_ff_shared,
-            )
-        blocks.append(block)
-    params["blocks"] = blocks
+    params["blocks"] = [_block_init(cfg, _block_def(cfg, layer), init, device)
+                        for layer in range(cfg.n_layers)]
     return params
+
+
+def _block_init(cfg: ArchConfig, bd: BlockDef, init: Initializer, device) -> Dict[str, Any]:
+    """One layer's parameters: the mixer's under its name (``attn``,
+    ``mamba``, ``mlstm`` or ``slstm``) after ``norm_mixer``, then, unless
+    the block has no FFN, ``norm_ffn`` and the ``mlp`` or ``moe``."""
+    block: Dict[str, Any] = {"norm_mixer": _norm_init(cfg, cfg.d_model, device)}
+    if bd.mixer in _ATTENTION:
+        block["attn"] = attn_mod.attention_init(
+            cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim_, init, qkv_bias=cfg.qkv_bias)
+    elif bd.mixer == "mamba":
+        m = cfg.mamba
+        block["mamba"] = mamba_mod.mamba_init(cfg.d_model, init, expand=m.expand,
+                                              d_state=m.d_state, d_conv=m.d_conv)
+    elif bd.mixer == "mlstm":
+        block["mlstm"] = xlstm_mod.mlstm_init(cfg.d_model, cfg.n_heads, init)
+    else:
+        block["slstm"] = xlstm_mod.slstm_init(cfg.d_model, cfg.n_heads, init)
+    if bd.ffn != "none":
+        block["norm_ffn"] = _norm_init(cfg, cfg.d_model, device)
+    if bd.ffn == "mlp":
+        block["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, init)
+    elif bd.ffn == "moe":
+        block["moe"] = moe_init(
+            cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.n_experts, init,
+            n_shared=cfg.moe.n_shared, d_ff_shared=cfg.moe.d_ff_shared,
+        )
+    return block
 
 
 def _block_def(cfg: ArchConfig, layer: int) -> BlockDef:
@@ -144,46 +174,72 @@ def _block_def(cfg: ArchConfig, layer: int) -> BlockDef:
     return cfg.pattern[layer % len(cfg.pattern)]
 
 
-def init_caches(
-    cfg: ArchConfig, batch: int, max_len: int, dtype, device
-) -> List[KVCache]:
-    """One zeroed KV cache per layer (every ported block attends; a local
-    layer's cache spans ``max_len`` too, as the reference's)."""
+def _block_cache(cfg: ArchConfig, bd: BlockDef, batch: int, max_len: int, dtype, device):
+    if bd.mixer in _ATTENTION:
+        return KVCache.zeros(batch, max_len, cfg.n_kv, cfg.head_dim_, dtype, device)
+    if bd.mixer == "mamba":
+        m = cfg.mamba
+        return mamba_mod.MambaState.zeros(batch, m.expand * cfg.d_model, m.d_state, m.d_conv,
+                                          dtype, device)
+    if bd.mixer == "mlstm":
+        return xlstm_mod.MLSTMState.zeros(batch, cfg.n_heads, cfg.head_dim_, device)
+    return xlstm_mod.SLSTMState.zeros(batch, cfg.n_heads, cfg.head_dim_, device)
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> List[Any]:
+    """One zeroed cache per layer: a KV cache of ``max_len`` positions for
+    an attention layer (a local layer's spans ``max_len`` too, as the
+    reference's), the zero state of a recurrent one (its conv window in
+    ``dtype``, the rest fp32)."""
     _check_decoder_only(cfg)
-    return [
-        KVCache.zeros(batch, max_len, cfg.n_kv, cfg.head_dim_, dtype, device)
-        for _ in range(cfg.n_layers)
-    ]
+    return [_block_cache(cfg, _block_def(cfg, layer), batch, max_len, dtype, device)
+            for layer in range(cfg.n_layers)]
 
 
 def _block_apply(cfg: ArchConfig, bd: BlockDef, p, x, *, positions, cache, backend,
                  chunk=False):
-    """One layer ``bd``: attention (sliding-window for ``attn_local``) with
-    its skip connection fused into the output projection, then the pre-norm
-    MLP with its skip fused into w_down, or the pre-norm MoE with a plain
-    skip add. A parallel block's MLP reads the attention's normed input and
-    takes the attention's stream as its w_down residual; its ``norm_ffn`` is
-    carried unused, as in the reference. Returns (x, new_cache, aux loss or
-    None)."""
+    """One layer ``bd``. The mixer: attention (sliding-window for
+    ``attn_local``) with its skip connection fused into the output
+    projection, or a recurrent mixer (mamba, mLSTM, sLSTM; their GEMMs on
+    the policy role ``mixer``) with a plain skip add. A recurrent mixer with
+    a cache and one token takes its decode step; otherwise it runs over the
+    sequence and, with a cache, installs its state after the last token.
+    Then the pre-norm MLP with its skip fused into w_down, the pre-norm MoE
+    with a plain skip add, or nothing (``ffn="none"``). A parallel block's
+    MLP reads the attention's normed input and takes the attention's stream
+    as its w_down residual; its ``norm_ffn`` is carried unused, as in the
+    reference. Returns (x, new_cache, aux loss or None)."""
     h = _norm(cfg, p["norm_mixer"], x)
-    stream, new_cache = attn_mod.attention_apply(
-        p["attn"],
-        h,
-        n_heads=cfg.n_heads,
-        n_kv=cfg.n_kv,
-        head_dim=cfg.head_dim_,
-        positions=positions,
-        rotary_frac=cfg.rope_frac,
-        rope_theta=cfg.rope_theta,
-        window=cfg.window if bd.mixer == "attn_local" else None,
-        attn_softcap=cfg.attn_softcap,
-        cache=cache,
-        q_chunk=cfg.q_chunk,
-        kv_chunk=cfg.kv_chunk,
-        backend=backend,
-        residual=x,
-        chunk=chunk,
-    )
+    if bd.mixer in _ATTENTION:
+        stream, new_cache = attn_mod.attention_apply(
+            p["attn"],
+            h,
+            n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv,
+            head_dim=cfg.head_dim_,
+            positions=positions,
+            rotary_frac=cfg.rope_frac,
+            rope_theta=cfg.rope_theta,
+            window=cfg.window if bd.mixer == "attn_local" else None,
+            attn_softcap=cfg.attn_softcap,
+            cache=cache,
+            q_chunk=cfg.q_chunk,
+            kv_chunk=cfg.kv_chunk,
+            backend=backend,
+            residual=x,
+            chunk=chunk,
+        )
+    else:
+        if chunk:
+            # A recurrent state cannot resume mid-prompt from a cache
+            # scatter; the engine keeps chunked prefill to attention-only
+            # patterns.
+            raise NotImplementedError("chunked prefill requires attention mixers")
+        mixer_out, new_cache = _recurrent_apply(cfg, bd.mixer, p[bd.mixer], h, cache,
+                                                role_backend(backend, "mixer"))
+        stream = x + mixer_out
+    if bd.ffn == "none":
+        return stream, new_cache, None
     if not cfg.parallel_block:
         h = _norm(cfg, p["norm_ffn"], stream)
     if bd.ffn == "mlp":
@@ -199,17 +255,39 @@ def _block_apply(cfg: ArchConfig, bd: BlockDef, p, x, *, positions, cache, backe
     return stream + y, new_cache, aux
 
 
+# Each recurrent mixer's (full-sequence form, one-token step); mamba takes
+# no head count, the sLSTM no chunk.
+_RECURRENT = {
+    "mamba": (mamba_mod.mamba_apply, mamba_mod.mamba_decode_step),
+    "mlstm": (xlstm_mod.mlstm_apply, xlstm_mod.mlstm_decode_step),
+    "slstm": (xlstm_mod.slstm_apply, xlstm_mod.slstm_decode_step),
+}
+
+
+def _recurrent_apply(cfg: ArchConfig, mixer: str, p, h, cache, backend):
+    """A mamba, mLSTM or sLSTM mixer on the normed input ``h``: (its output,
+    the new state, or None without a cache)."""
+    apply, step = _RECURRENT[mixer]
+    heads = {} if mixer == "mamba" else {"n_heads": cfg.n_heads}
+    if cache is not None and h.shape[1] == 1:
+        return step(p, h, cache, backend=backend, **heads)
+    chunk = {} if mixer == "slstm" else {"chunk": cfg.scan_chunk}
+    if cache is None:
+        return apply(p, h, backend=backend, **heads, **chunk), None
+    return apply(p, h, backend=backend, return_state=True, **heads, **chunk)
+
+
 def lm_forward(
     params,
     tokens: torch.Tensor,
     cfg: ArchConfig,
     *,
     mode: str = "prefill",
-    caches: Optional[List[KVCache]] = None,
+    caches: Optional[List[Any]] = None,
     positions: Optional[torch.Tensor] = None,
     extra_embeds: Optional[torch.Tensor] = None,
     backend=None,
-) -> Tuple[torch.Tensor, Optional[List[KVCache]], torch.Tensor]:
+) -> Tuple[torch.Tensor, Optional[List[Any]], torch.Tensor]:
     """Run the backbone. tokens: [B, S] -> (final-normed hidden [B, S', D],
     new caches or None, the MoE load-balancing loss summed over layers as a
     0-d fp32 tensor, zero without MoE layers). ``extra_embeds`` [B, n, D]
@@ -235,7 +313,7 @@ def lm_forward(
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    new_caches: Optional[List[KVCache]] = [] if caches is not None else None
+    new_caches: Optional[List[Any]] = [] if caches is not None else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, p in enumerate(params["blocks"]):
         cache = caches[layer] if caches is not None else None

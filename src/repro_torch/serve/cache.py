@@ -1,11 +1,13 @@
 """Slot-pooled KV cache for continuous batching, and the radix prefix cache.
 
-The port of :mod:`repro.serve.cache`. The pool owns one KV buffer per layer
-sized ``[n_slots, max_len]`` for the engine's lifetime; a request leases one
-slot (one batch lane) while it is live.
+The port of :mod:`repro.serve.cache`. The pool owns one cache per layer for
+the engine's lifetime: a KV buffer sized ``[n_slots, max_len]`` for an
+attention layer, a recurrent state ``[n_slots, ...]`` for a mamba or xLSTM
+one. A request leases one slot (one batch lane) while it is live.
 
 * join: a prefilled request's caches (sized to its prompt bucket) are copied
-  into its slot's rows, in place (:func:`scatter_slots`);
+  into its slot's rows, in place (:func:`scatter_slots`): a KV cache's
+  prompt span, a recurrent state's whole row;
 * decode: every slot appends at its own position (``api.decode_at``);
 * release: host bookkeeping only; the lane's stale K/V stays masked by its
   length until the next join overwrites it.
@@ -52,31 +54,43 @@ __all__ = [
 def init_slot_caches(
     cfg: ArchConfig, n_slots: int, max_len: int, dtype, device,
     kv_format: Optional[str] = None,
-) -> List[KVCache]:
-    """Pool-shaped caches, each with an int64 ``[n_slots]`` fill vector.
-    ``kv_format`` (a :data:`repro_torch.quant.FORMATS` name) narrows the K/V
-    lanes to that format with per-slot, per-head scales."""
+) -> List[Any]:
+    """Pool-shaped caches, one entry per layer: each KV cache with an int64
+    ``[n_slots]`` fill vector, each recurrent state (mamba, mLSTM, sLSTM)
+    zeroed at full width. ``kv_format`` (a :data:`repro_torch.quant.FORMATS`
+    name) narrows the K/V lanes to that format with per-slot, per-head
+    scales; recurrent states stay full width, as the reference's do (they
+    are rewritten whole every step, not appended to and read again)."""
     caches = model_api.init_state(cfg, n_slots, max_len, dtype, device)
-    lengths = torch.zeros((n_slots,), dtype=torch.int64, device=caches[0].k.device)
-    if kv_format is None:
-        return [KVCache(c.k, c.v, lengths) for c in caches]
-    return [
-        dataclasses.replace(
-            QuantKVCache.zeros(n_slots, max_len, cfg.n_kv, cfg.head_dim_,
-                               fmt=kv_format, device=lengths.device),
-            length=lengths,
-        )
-        for _ in caches
-    ]
+    lengths = torch.zeros((n_slots,), dtype=torch.int64, device=model_api.resolve_device(device))
+    out = []
+    for c in caches:
+        if not isinstance(c, KVCache):
+            out.append(c)
+        elif kv_format is None:
+            out.append(KVCache(c.k, c.v, lengths))
+        else:
+            out.append(dataclasses.replace(
+                QuantKVCache.zeros(n_slots, max_len, cfg.n_kv, cfg.head_dim_,
+                                   fmt=kv_format, device=lengths.device),
+                length=lengths))
+    return out
+
+
+def _first(cache) -> torch.Tensor:
+    """One layer's cache's first field (``k`` or a state's first tensor),
+    whose leading dim is the batch rows."""
+    return getattr(cache, dataclasses.fields(cache)[0].name)
 
 
 def scatter_slots(
-    pool_caches: List[KVCache], prefill_caches: List[KVCache], slots: Sequence[int],
+    pool_caches: List[Any], prefill_caches: List[Any], slots: Sequence[int],
     scale_floors=None,
-) -> List[KVCache]:
+) -> List[Any]:
     """Copy prefilled rows into pool slots, in place: row ``i`` of the
-    prefill caches goes to slot ``slots[i]``, positions ``[:Lb]``. Slot
-    indices past the pool (filler rows) are dropped.
+    prefill caches goes to slot ``slots[i]``, a KV cache's positions
+    ``[:Lb]`` and a recurrent state's whole row. Slot indices past the pool
+    (filler rows) are dropped.
 
     A quantized pool calibrates per-(row, head) scales from each row's
     prefilled span (amax over the whole bucket, with the margin), quantizes,
@@ -85,17 +99,17 @@ def scatter_slots(
     the scales of a quantized cached prefix that a row attached (zeros for
     the other rows): see :func:`~repro_torch.quant.kvcache.quantize_kv_rows`.
     """
-    n_slots = pool_caches[0].k.shape[0]
+    n_slots = _first(pool_caches[0]).shape[0]
     rows = [i for i, s in enumerate(slots) if 0 <= s < n_slots]
     if not rows:
         return pool_caches
-    device = pool_caches[0].k.device
+    device = _first(pool_caches[0]).device
     src = torch.tensor(rows, dtype=torch.int64, device=device)
     dst = torch.tensor([slots[i] for i in rows], dtype=torch.int64, device=device)
     floors = scale_floors or (None,) * len(pool_caches)
     for pc, fc, fl in zip(pool_caches, prefill_caches, floors):
-        lb = fc.k.shape[1]
         if isinstance(pc, QuantKVCache):
+            lb = fc.k.shape[1]
             k_q, v_q, k_s, v_s = quantize_kv_rows(
                 fc.k[src], fc.v[src], pc.n_kv, fmt=pc.k.dtype, margin=DEFAULT_KV_MARGIN,
                 k_scale_floor=None if fl is None else fl[0][src],
@@ -105,9 +119,14 @@ def scatter_slots(
             pc.v[dst, :lb] = v_q
             pc.k_scale[dst] = k_s
             pc.v_scale[dst] = v_s
-        else:
+        elif isinstance(pc, KVCache):
+            lb = fc.k.shape[1]
             pc.k[dst, :lb] = fc.k[src].to(pc.k.dtype)
             pc.v[dst, :lb] = fc.v[src].to(pc.v.dtype)
+        else:
+            for f in dataclasses.fields(pc):
+                p, x = getattr(pc, f.name), getattr(fc, f.name)
+                p[dst] = x[src].to(p.dtype)
     return pool_caches
 
 
@@ -188,7 +207,7 @@ class SlotPool:
         """Copy a prefilled bucket into the leased ``slots``; prefill rows
         beyond ``len(slots)`` (row-count padding) are dropped.
         ``scale_floors`` passes through to :func:`scatter_slots`."""
-        n_rows = prefill_caches[0].k.shape[0]
+        n_rows = _first(prefill_caches[0]).shape[0]
         idx = list(slots) + [self.n_slots] * (n_rows - len(slots))
         self.caches = scatter_slots(self.caches, prefill_caches, idx, scale_floors)
 

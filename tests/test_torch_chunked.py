@@ -30,7 +30,6 @@ from repro_torch.configs import get_config as t_get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import api as tapi
 from repro_torch.serve import ContinuousEngine, poisson_trace, shared_prefix_trace
-from repro_torch.serve import continuous as t_continuous
 
 TRACE = dict(seed=3, vocab=256, prompt_lens=(5, 9, 17, 24), gen_lens=(3, 6, 11),
              mean_interarrival=1.5)
@@ -212,19 +211,16 @@ def test_prefix_cache_alone_implies_a_chunk_of_32():
                                         "cached_tokens": 0}
 
 
-def test_recurrent_pattern_disables_both_features(monkeypatch):
+def test_recurrent_pattern_disables_both_features():
     """The reference warns and turns both features off for a pattern that is
-    not attention-only. The port refuses such configs before that, so the
-    rule is checked with the refusal patched out."""
+    not attention-only; so does the port, for the jamba it now serves."""
     _, _, _, tparams = _model()
     jamba = t_get_config("jamba-v0.1-52b").reduced()
-    with pytest.raises(NotImplementedError):
-        ContinuousEngine(cfg=jamba, params=tparams, n_slots=2, max_len=32, prefill_chunk=8)
-    monkeypatch.setattr(t_continuous, "check_supported", lambda cfg: None)
     with pytest.warns(RuntimeWarning, match="attention-only"):
         eng = ContinuousEngine(cfg=jamba, params=tparams, n_slots=2, max_len=32,
                                prefill_chunk=8, prefix_cache=True)
     assert eng.prefill_chunk is None and not eng.prefix_cache
+    assert eng.prefix_cache_stats() is None
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         jeng = JContinuous(cfg=j_get_config("jamba-v0.1-52b").reduced(), params=None,

@@ -1,4 +1,4 @@
-"""The four families the port serves and trains besides chatglm3-6b and
+"""The six families the port serves and trains besides chatglm3-6b and
 deepseek-moe-16b, against the JAX reference on the CPU, at ``.reduced()``
 widths with fp32 parameters:
 
@@ -9,7 +9,11 @@ widths with fp32 parameters:
   attention and final-logit soft-capping, the tied table;
 * qwen2.5-32b: QKV bias on the GEMM's C preload;
 * grok-1-314b: 8 experts top-2 with no shared expert (dropless at reduced
-  width, and with capacity), ``grad_accum=8`` and bf16 AdamW moments.
+  width, and with capacity), ``grad_accum=8`` and bf16 AdamW moments;
+* jamba-v0.1-52b: the hybrid period of mamba mixers (their conv window and
+  ssm state in the caches) with MLP and MoE blocks and one attention layer;
+* xlstm-125m: alternating sLSTM and mLSTM mixers with no FFN, their states
+  in the caches.
 
 Parameters come from the JAX package's ``init_params`` and are carried over
 by ``repro_torch.convert.params_from_numpy``; both sides get the same numpy
@@ -57,7 +61,8 @@ from repro_torch.train import loop as tloop
 from repro_torch.tree import leaves, map_leaves
 from repro_torch.tune import capture as t_capture
 
-FAMILIES = ["stablelm-12b", "gemma2-9b", "qwen2.5-32b", "grok-1-314b"]
+FAMILIES = ["stablelm-12b", "gemma2-9b", "qwen2.5-32b", "grok-1-314b", "jamba-v0.1-52b",
+            "xlstm-125m"]
 MAX_LEN = 48
 PROMPT = 30  # past the reduced gemma2's window of 16
 DECODE_STEPS = 8
@@ -114,6 +119,12 @@ def test_reduced_configs_carry_the_features_under_test():
     assert (moe.n_experts, moe.top_k, moe.n_shared) == (4, 2, 0)
     full = t_get_config("grok-1-314b")
     assert (full.grad_accum, full.moment_dtype) == (8, "bfloat16")
+    j = cfgs["jamba-v0.1-52b"]
+    assert [(bd.mixer, bd.ffn) for bd in j.pattern].count(("attn", "mlp")) == 1
+    assert {bd.ffn for bd in j.pattern} == {"mlp", "moe"} and j.mamba is not None
+    assert (j.n_layers, j.scan_chunk, j.moe.dropless) == (8, 8, True)
+    x = cfgs["xlstm-125m"]
+    assert [(bd.mixer, bd.ffn) for bd in x.pattern] == [("slstm", "none"), ("mlstm", "none")]
 
 
 def test_parallel_block_carries_norm_ffn_unused():
@@ -221,7 +232,7 @@ def test_bucketed_prefill_and_slot_decode_match_jax(arch):
 
 
 # ---------------------------------------------------------------------------
-# parameter counts, shape harvest, and what stays unported
+# parameter counts, shape harvest, and the periods the port takes
 # ---------------------------------------------------------------------------
 
 
@@ -232,38 +243,68 @@ def test_parameter_counts_match_jax(arch):
     assert tapi.active_param_count(tcfg) == japi.active_param_count(jcfg)
 
 
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-125m"])
+def test_init_state_matches_the_reference_layer_by_layer(arch):
+    """One cache a layer, of the reference's kind, shapes, dtypes and
+    values (mamba's conv window in the cache dtype, the rest fp32, the
+    xLSTM stabilisers at -1e30); the reference stacks each pattern
+    position over periods."""
+    jcfg, tcfg = _configs(arch, n_layers=2 * len(t_get_config(arch).reduced().pattern))
+    want = japi.init_state(jcfg, 3, 10, jnp.bfloat16)
+    got = tapi.init_state(tcfg, 3, 10, torch.bfloat16, device="cpu")
+    assert len(got) == tcfg.n_layers
+    for layer, c in enumerate(got):
+        pos, period = layer % len(tcfg.pattern), layer // len(tcfg.pattern)
+        w = want[pos]
+        assert type(c).__name__ == type(w).__name__
+        for f in dataclasses.fields(c):
+            x, y = getattr(c, f.name), np.asarray(getattr(w, f.name)[period])
+            if f.name == "length":
+                assert x == 0 and int(y) == 0
+                continue
+            assert tuple(x.shape) == y.shape and str(x.dtype)[6:] == str(y.dtype), (layer, f.name)
+            np.testing.assert_array_equal(x.float().numpy(), y.astype(np.float32))
+
+
+def test_converter_round_trips_jambas_period_of_8_with_mixed_dtypes():
+    """jamba at 2 periods in bf16: the converter unstacks the reference's 8
+    stacks period-major, keeps ``A_log``, ``D``, ``dt_bias`` and the norms
+    in fp32 beside the bf16 leaves, and ``params_to_numpy`` restacks them
+    (bf16 widened to fp32) leaf for leaf."""
+    jcfg, tcfg = _configs("jamba-v0.1-52b", n_layers=16, param_dtype="bfloat16")
+    tree = jax.tree.map(np.asarray, jax.jit(functools.partial(japi.init_params, jcfg))(
+        jax.random.key(1)))
+    tparams = params_from_numpy(tcfg, tree, "cpu")
+    assert len(tparams["blocks"]) == 16
+    m = tparams["blocks"][9]["mamba"]
+    assert {k: str(v.dtype)[6:] for k, v in m.items()} == {
+        k: str(v.dtype) for k, v in tree["blocks"][1]["mamba"].items()}
+    assert m["in_proj"].dtype == torch.bfloat16 and m["A_log"].dtype == torch.float32
+    np.testing.assert_array_equal(m["A_log"].numpy(), tree["blocks"][1]["mamba"]["A_log"][1])
+    back = params_to_numpy(tcfg, tparams)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for x, y in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(x, np.asarray(y, np.float32))
+    drawn = tapi.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert [sorted(b) for b in drawn["blocks"]] == [sorted(b) for b in tparams["blocks"]]
+    assert _dtypes(drawn) == _dtypes(tparams)
+
+
+def _dtypes(tree, path=""):
+    """Each leaf's dtype by its path in a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _dtypes(sub, f"{path}.{key}").items()}
+    if isinstance(tree, list):
+        return {k: v for i, sub in enumerate(tree) for k, v in _dtypes(sub, f"{path}[{i}]").items()}
+    return {path: tree.dtype}
+
+
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_harvest_equals_the_reference_at_published_widths(arch):
     got = t_capture.harvest_model_shapes(arch, batch=2, seq=64)
     want = j_capture.harvest_model_shapes(arch, batch=2, seq=64)
     assert [tuple(s) for s in got] == [tuple(s) for s in want]
     assert got
-
-
-UNPORTED = ["jamba-v0.1-52b", "xlstm-125m"]
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise_on_every_entry_point(arch):
-    from repro_torch.serve import ContinuousEngine, ServeEngine
-
-    cfg = t_get_config(arch).reduced()
-    _, _, _, tparams = _model("qwen2.5-32b")
-    toks = torch.zeros((1, 4), dtype=torch.int64)
-    calls = [
-        lambda: tapi.init_params(cfg, device="cpu"),
-        lambda: tapi.init_state(cfg, 1, 8, device="cpu"),
-        lambda: tapi.param_count(cfg),
-        lambda: tapi.prefill(cfg, tparams, {"tokens": toks}, 8),
-        lambda: tapi.loss_fn(cfg, tparams, {"tokens": toks, "labels": toks}),
-        lambda: ContinuousEngine(cfg=cfg, params=tparams, n_slots=2, max_len=8),
-        lambda: ServeEngine(cfg=cfg, params=tparams, max_len=8).generate({"tokens": toks}, 1),
-        lambda: params_to_numpy(cfg, tparams),
-        lambda: t_capture.harvest_model_shapes(cfg, batch=1, seq=8),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError):
-            call()
 
 
 def _blocks(*pairs):
@@ -280,10 +321,18 @@ def _blocks(*pairs):
     ("grok-1-314b", (("attn_local", "moe"), ("attn", "moe")), False, False),
     ("grok-1-314b", (("attn", "moe"),), True, False),
     ("gemma2-9b", (("attn_local", "moe"), ("attn", "mlp")), False, False),
+    ("jamba-v0.1-52b", (("mamba", "moe"), ("attn", "mlp")), False, True),
+    ("jamba-v0.1-52b", (("mamba", "mlp"),), False, False),
+    ("jamba-v0.1-52b", (("attn", "moe"), ("mamba", "mlp")), False, False),
+    ("xlstm-125m", (("mlstm", "none"),), False, True),
+    ("xlstm-125m", (("mlstm", "mlp"),), False, False),
 ])
 def test_check_supported_takes_only_the_ported_blocks(arch, pattern, parallel, ported):
     """Dense periods take global and sliding-window attention, MoE periods
-    global attention only, and only a dense block runs in parallel."""
+    global attention only, hybrid periods mamba blocks with an MLP or MoE
+    and attention with an MLP, ssm periods the xLSTM mixers without an FFN;
+    an MoE spec goes with MoE blocks, and only a dense block runs in
+    parallel."""
     from repro_torch.models.transformer import check_supported
 
     cfg = dataclasses.replace(t_get_config(arch).reduced(), pattern=_blocks(*pattern),
@@ -327,6 +376,14 @@ def test_qwen_under_mlp_q8_policy_matches_jax():
     _greedy_both("qwen2.5-32b", jq.mlp_q8_policy(), tq.mlp_q8_policy(), seed=3)
 
 
+def test_jamba_under_moe_and_mixer_q8_policy_matches_jax():
+    """The experts on the grouped int8 GEMM and the mamba projections on the
+    dense one; the decode step's ``x_proj`` and ``dt_proj`` on the default
+    backend, as the reference's."""
+    pol = dict(rules={"moe": "q8", "mixer": "q8"}, name="moe-mixer-q8")
+    _greedy_both("jamba-v0.1-52b", jq.PrecisionPolicy(**pol), tq.PrecisionPolicy(**pol), seed=7)
+
+
 def test_grok_under_moe_q8_policy_matches_jax_with_identical_routing(monkeypatch):
     j_idx, t_idx = [], []
     for module, sink in ((jmoe, j_idx), (tmoe, t_idx)):
@@ -357,11 +414,23 @@ def _train_cfgs(arch):
     return _configs(arch, grad_accum=full.grad_accum, moment_dtype=full.moment_dtype)
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_train_step_losses_match_jax_over_3_steps(arch):
+# jamba's gradient norm after the first update: its dt_bias leaves start at
+# zero and hold gradient elements near 1e-8, where AdamW's g / (|g| + eps)
+# turns fp32 rounding into a visible change of the update; the first step's
+# gradients agree with the reference's to 1e-4 of each leaf's largest (and
+# their norm to 1e-6), and the losses of all 3 steps to 1e-4. With eps
+# raised above those gradients the later norms agree to 1e-4 too
+# (test_jamba_later_grad_norms_agree_once_eps_is_above_dt_bias_gradients).
+LATER_GRAD_NORM_REL = {"jamba-v0.1-52b": 1e-3}
+
+
+def _train_3_steps(arch, **opt_overrides):
+    """The reference's and the port's train steps, 3 of them from the same
+    parameters and batches: yields each step's (port, reference) metrics."""
     jcfg, tcfg = _train_cfgs(arch)
     params = jax.tree.map(np.asarray, _model(arch)[2])
-    opt = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10, moment_dtype=tcfg.moment_dtype)
+    opt = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10, moment_dtype=tcfg.moment_dtype,
+               **opt_overrides)
     jstep = jloop.make_train_step(jcfg, jadamw.AdamWConfig(**opt), donate=False)
     tstep = tloop.make_train_step(tcfg, tadamw.AdamWConfig(**opt))
     jp = jax.tree.map(jnp.asarray, params)
@@ -375,6 +444,22 @@ def test_train_step_losses_match_jax_over_3_steps(arch):
         jp, js, jm = jstep(jp, js, {k: jnp.asarray(v) for k, v in host.items()})
         tp, ts, tm = tstep(tp, ts, {k: torch.from_numpy(v.astype(np.int64))
                                     for k, v in host.items()})
+        yield tm, jm
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_train_step_losses_match_jax_over_3_steps(arch):
+    for step, (tm, jm) in enumerate(_train_3_steps(arch)):
+        _close(tm["loss"], jm["loss"])
+        _close(tm["grad_norm"], jm["grad_norm"],
+               rel=LATER_GRAD_NORM_REL.get(arch, 1e-4) if step else 1e-4)
+
+
+def test_jamba_later_grad_norms_agree_once_eps_is_above_dt_bias_gradients():
+    """LATER_GRAD_NORM_REL's cause: with AdamW's eps at 1e-6, above
+    dt_bias's gradients near 1e-8, jamba's losses and gradient norms of all
+    3 steps agree to 1e-4."""
+    for tm, jm in _train_3_steps("jamba-v0.1-52b", eps=1e-6):
         _close(tm["loss"], jm["loss"])
         _close(tm["grad_norm"], jm["grad_norm"])
 

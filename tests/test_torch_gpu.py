@@ -1851,3 +1851,111 @@ def test_k1_at_llava_and_whispers_shapes_matches_plain(cuda_device, case):
     assert opope_gemm.launches_by_route == dict(before, sm90=before["sm90"] + 2)
     assert torch.equal(got, again)
     _check(got, a, b, None, torch.bfloat16, steps, operands)
+
+
+# jamba-v0.1-52b and xlstm-125m (ROADMAP A.8c) at their published widths:
+# K1 at every projection the recurrent mixers add (mamba's in_proj, x_proj
+# with its N of dt_rank + 2 d_state = 288, dt_proj, out_proj; the mLSTM's and
+# sLSTM's square and 4x projections and w_if with its N of 2 heads x 4 = 8)
+# and jamba's 16-expert router, at a 4-row decode step and a 128-row
+# prefill, no chain (the mixers' GEMMs carry none); K4 and K5 at jamba's
+# expert GEMMs (G 16, 4096 <-> 14336) at a 4-row decode step's capacity
+# (1), a 2 x 64 prefill's (20) and a 512-token group's (80).
+def _a8c_k1_shapes():
+    j, x = get_config("jamba-v0.1-52b"), get_config("xlstm-125m")
+    d, di, rank = j.d_model, j.mamba.expand * j.d_model, -(-j.d_model // 16)
+    pairs = {(d, 2 * di), (di, rank + 2 * j.mamba.d_state), (rank, di), (di, d),
+             (d, j.moe.n_experts), (x.d_model, x.d_model), (x.d_model, 4 * x.d_model),
+             (x.d_model, 2 * x.n_heads)}
+    return [(m, k, n) for m in (4, 128) for k, n in sorted(pairs)]
+
+
+A8C_K1_SHAPES = _a8c_k1_shapes()
+JAMBA_EXPERT_SHAPES = [(16, m, k, n) for m in (1, 20, 80) for k, n in ((4096, 14336),
+                                                                        (14336, 4096))]
+
+
+def _expert_chains(down, up):
+    """An expert GEMM's chains: w_up (bf16 out) and w_gate with silu·mul
+    (bf16 out) going up; w_down in fp32 out, as the dispatch combines in
+    fp32."""
+    if down:
+        return (((), (), torch.float32),)
+    return (((), (), torch.bfloat16), (("silu", "mul"), (up,), torch.bfloat16))
+
+
+@pytest.mark.parametrize("shape", A8C_K1_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k1_at_jamba_and_xlstms_shapes_matches_plain(cuda_device, shape):
+    """On the route K1's plan gives (sm90 at every one of these shapes: 2K
+    and 2N bytes are multiples of 16), bitwise on repeat, within the plain
+    version's gate."""
+    k1 = _k1_module()
+    m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=gen, device=cuda_device).bfloat16()
+    b = (torch.randn((k, n), generator=gen, device=cuda_device) * k ** -0.5).bfloat16()
+    route = k1._plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr()).route
+    assert route == "sm90"
+    before = dict(opope_gemm.launches_by_route)
+    got = opope_gemm(a, b)
+    again = opope_gemm(a, b)
+    torch.cuda.synchronize()
+    assert opope_gemm.launches_by_route == dict(before, **{route: before[route] + 2})
+    assert torch.equal(got, again)
+    _check(got, a, b, None, torch.bfloat16, (), ())
+
+
+@pytest.mark.parametrize("shape", JAMBA_EXPERT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k4_and_k5_at_jambas_expert_shapes_match_plain(cuda_device, shape):
+    """Each expert GEMM's chain on K4 (bitwise on repeat, within the plain
+    version's gate) and on K5 (bitwise against its plain version but the
+    transcendental op), every launch on sm90."""
+    q8 = _q8_module()
+    g, m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(g + m + k + n)
+    a = torch.randn((g, m, k), generator=gen, device=cuda_device).bfloat16()
+    b = (torch.randn((g, k, n), generator=gen, device=cuda_device) * k ** -0.5).bfloat16()
+    assert tg._plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr()).route == "sm90"
+    aq, saq, bq, sbq = _q8_operands(gen, cuda_device, (g, m), k, n)
+    assert _k5_route(aq, bq) == "sm90"
+    up = torch.randn((g, m, n), generator=gen, device=cuda_device).bfloat16()
+    k5 = q8.opope_gemm_q8_grouped
+    for steps, operands, out_dtype in _expert_chains(k > n, up):
+        before4, before5 = (dict(x.launches_by_route) for x in (tg.opope_gemm_grouped, k5))
+        got = tg.opope_gemm_grouped(a, b, out_dtype=out_dtype, epilogue=steps,
+                                    epilogue_operands=operands)
+        again = tg.opope_gemm_grouped(a, b, out_dtype=out_dtype, epilogue=steps,
+                                      epilogue_operands=operands)
+        got5 = k5(aq, saq, bq, sbq, out_dtype=out_dtype, epilogue=steps, epilogue_operands=operands)
+        torch.cuda.synchronize()
+        assert tg.opope_gemm_grouped.launches_by_route == dict(before4, sm90=before4["sm90"] + 2)
+        assert k5.launches_by_route == dict(before5, sm90=before5["sm90"] + 1)
+        assert torch.equal(got, again)
+        _check(got, a, b, None, out_dtype, steps, operands, plain=tg.opope_gemm_grouped_plain)
+        want5 = q8.opope_gemm_q8_grouped_plain(aq, saq, bq, sbq, out_dtype=out_dtype,
+                                               epilogue=steps, epilogue_operands=operands)
+        _check_q8(got5, want5, steps[0] if steps else "none")
+
+
+def test_jamba_and_xlstm_reduced_serve_on_the_kernels(cuda_device):
+    """Reduced bf16 jamba (its mamba widths raised so every GEMM plans
+    sm90) and xlstm through the continuous engine on the card: finite,
+    in-vocabulary tokens, the K1 (and K4) launches of every forward."""
+    for arch in ("jamba-v0.1-52b", "xlstm-125m"):
+        cfg = dataclasses.replace(get_config(arch).reduced(), param_dtype="bfloat16",
+                                  head_dim=32, d_model=get_config(arch).reduced().n_heads * 32)
+        params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                                 cuda_device)
+        trace = poisson_trace(4, seed=0, vocab=cfg.vocab, prompt_lens=(8, 13), gen_lens=(3, 5))
+        eng = ContinuousEngine(cfg=cfg, params=params, n_slots=2, max_len=32)
+        opope_gemm.launches = tg.opope_gemm_grouped.launches = 0
+        report = eng.serve(trace)
+        forwards = report.decode_steps + report.prefill_batches
+        per_k1 = sum({"mamba": 4, "mlstm": 6, "slstm": 2, "attn": 4}[bd.mixer]
+                     + {"mlp": 3, "moe": 1, "none": 0}[bd.ffn] for bd in cfg.pattern)
+        per_k4 = 3 * sum(bd.ffn == "moe" for bd in cfg.pattern)
+        assert (opope_gemm.launches, tg.opope_gemm_grouped.launches) == (
+            per_k1 * forwards, per_k4 * forwards)
+        for r in trace:
+            out = report.outputs[r.rid]
+            assert len(out) == r.max_new_tokens and all(0 <= t < cfg.vocab for t in out)

@@ -92,6 +92,20 @@ def test_launch_serve_runs_on_the_cpu_when_asked(capsys):
     assert '"engine": "continuous"' in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-125m"])
+@pytest.mark.parametrize("engine", ["continuous", "static"])
+def test_launch_serve_runs_the_recurrent_families_on_both_engines(arch, engine):
+    """No fallback for a token-prompt model with recurrent mixers: the
+    engine asked for serves it."""
+    out = launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--engine", engine,
+                             "--n-requests", "2", "--batch", "2", "--gen", "3",
+                             "--prompt-len", "6"])
+    assert out["engine"] == engine
+    vocab = get_config(arch).reduced().vocab
+    toks = out["first_request_output"] if engine == "continuous" else out["first_sequence"]
+    assert len(toks) > 0 and all(0 <= t < vocab for t in toks)
+
+
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-base"])
 def test_launch_serve_falls_back_to_static_with_the_non_token_input(arch, monkeypatch, capsys):
     # Asked for the default (continuous) engine, a vlm or audio model is

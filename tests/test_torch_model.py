@@ -180,10 +180,3 @@ def test_port_initializer_is_a_truncated_normal_at_fan_in_scale():
     assert 0.7 * std < float(w.std()) < 1.0 * std  # truncation at ±2σ shrinks it
     table = params["embed"]["table"]
     assert float(table.abs().max()) <= 2 * 0.02 + 1e-6
-
-
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-125m"])
-def test_unported_patterns_raise(arch):
-    cfg = t_get_config(arch).reduced()
-    with pytest.raises(NotImplementedError):
-        tapi.init_params(cfg, device="cpu")
