@@ -218,6 +218,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
     ``loss_fn`` value and every gradient leaf of each family (jamba cut to
     its first 5 layers, the plain runs on the kernels' routing) under
     10(a)'s floor gate.
+17. every dtype the reference's kernels take (ROADMAP B.1), after phase
+    16: (a) chatglm3-6b in fp16 uncut and (b) deepseek-moe-16b in fp16
+    cut to DTYPE_MOE_LAYERS layers through phase 14's ``family_phase``
+    ((i) the prefill logits under 14(i)'s floor, deepseek's routing held as
+    6(a); (ii) the continuous engine, K/V in bf16; (a) also (iii) a
+    profiled decode step), every K1 and K4 launch on the fp16 sm90 route;
+    (c) each kernel alone against its plain version at its phase's gate:
+    K1 at chatglm3-6b's 7 layer GEMMs in fp16, e4m3, e5m2 and one mixed
+    pair of each compute class, K4 at deepseek's expert GEMMs in fp16 and
+    e4m3, K3 at head dims 80, 256 and 320 in fp16, bf16, fp32 and e4m3, K6
+    in fp16 and e4m3 (bitwise), each timed beside its bound and, where
+    one PyTorch call computes the same function, that call; and an e4m3-out
+    K1 call whose sums pass 448 held bit for bit, NaNs included.
 
 The last lines are a JSON ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
@@ -465,18 +478,21 @@ def queued_ms(torch, fn, iters: int = 20, warmup: int = 2) -> float:
 
 
 def ulp(torch, x, dtype):
-    """One unit in the last place of ``dtype`` at the magnitude of ``x``."""
-    mant = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}[dtype]
+    """One unit in the last place of ``dtype`` at the magnitude of ``x``
+    (at least its smallest subnormal)."""
+    mant, emin = {torch.bfloat16: (8, -126), torch.float16: (11, -14),
+                  torch.float32: (24, -126), torch.float8_e4m3fn: (4, -6),
+                  torch.float8_e5m2: (3, -14)}[dtype]
     _, e = torch.frexp(x.float())
-    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - mant)
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e.clamp(min=emin + 1) - mant)
 
 
 def check_close(torch, out, plain, out_dtype, what):
     """Kernel output against the plain version on the same inputs
     (``plain(out_dtype)`` computes it): fp32 within rtol 1e-4 / atol 1e-3
-    (only the order of sums differs); bf16/fp16 within one ulp of the plain
-    fp32 result, plus 1e-5 of its largest magnitude for sum-order noise where
-    the result nearly cancels; int8 within 1 (a rounding boundary may fall
+    (only the order of sums differs); bf16, fp16, e4m3 and e5m2 within one
+    ulp of the plain fp32 result, plus 1e-5 of its largest magnitude for
+    sum-order noise where the result nearly cancels; int8 within 1 (a rounding boundary may fall
     between two sum orders). Returns the largest absolute difference."""
     if out_dtype == torch.int8:
         ref = plain(torch.int8)
@@ -1556,7 +1572,7 @@ def _fp64_plain(torch, ep):
         if c is not None:
             acc = acc + (c.float()[:, None, :] if a.ndim == 3 and c.ndim == 2 else c.float())
         acc = ep.apply_epilogue(acc, tuple(epilogue), tuple(epilogue_operands))
-        return acc.to(out_dtype or a.dtype)
+        return ep.cast_out(acc, out_dtype or a.dtype)
     return fn
 
 
@@ -2316,9 +2332,12 @@ def attn_flops(b, h, s, t, d, causal):
 
 def attn_check(torch, out, want, what):
     """K3's output against its plain version's (or another attention's) on
-    the same inputs, at the gates of ``out``'s dtype; returns the largest
-    absolute difference and the difference's RMS over the reference's."""
-    bf16 = out.dtype == torch.bfloat16
+    the same inputs, at the gates of ``out``'s dtype (fp16 at bf16's; e4m3
+    and e5m2 at ATTN_FP8's); returns the largest absolute difference and the
+    difference's RMS over the reference's."""
+    if out.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        return attn_check_fp8(torch, out, want, what)
+    bf16 = out.dtype in (torch.bfloat16, torch.float16)
     out, want = out.float(), want.float()
     if not torch.isfinite(out).all():
         raise AssertionError(f"{what}: non-finite output")
@@ -2330,6 +2349,36 @@ def attn_check(torch, out, want, what):
     if bf16 and rel_rms > ATTN_BF16_RMS:
         raise AssertionError(f"{what}: error RMS {rel_rms} x the output's > {ATTN_BF16_RMS}")
     return err, rel_rms
+
+
+# K3 with 8-bit q, k and v: P rounds to v's format (3 or 2 mantissa bits)
+# on both sides where the reference rounds it, at the running maximum
+# through each of its KV panels, so the same values round up to the last
+# fp32 bit of a score. Each element within one ulp of the output format
+# plus one at the plain output's largest magnitude (tests/test_torch_dtypes.py's
+# gate), and the error's RMS within ATTN_FP8_RMS of the format's relative
+# spacing (2**-3 for e4m3, 2**-2 for e5m2) times the plain output's RMS.
+# At 17(c)'s shapes on the H100 the kernel reads 0.0004 to 0.0011
+# spacings; two broken builds of it, none of whose elements leaves the
+# per-element gate, read 0.27 (P left unrounded) and 0.13 (P rounded at the
+# kernel's own 64-key panels) (tools/fp8_attention_control_probe.py).
+ATTN_FP8_RMS = 1 / 16
+
+
+def attn_check_fp8(torch, out, want, what):
+    """:func:`attn_check` for e4m3 and e5m2 outputs."""
+    g, w = out.float(), want.float()
+    if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    diff = (g - w).abs()
+    tol = ulp(torch, w, out.dtype) + ulp(torch, w.abs().max(), out.dtype)
+    spacing = 2.0 ** -3 if out.dtype == torch.float8_e4m3fn else 2.0 ** -2
+    rel_rms = (diff.square().mean().sqrt() / w.square().mean().sqrt().clamp(min=1e-30)).item()
+    bad = (diff > tol).sum().item()
+    if bad or rel_rms > ATTN_FP8_RMS * spacing:
+        raise AssertionError(f"{what}: {bad} elements beyond one ulp and the floor, error RMS "
+                             f"{rel_rms:.4g} x the output's (limit {ATTN_FP8_RMS * spacing:.4g})")
+    return diff.max().item(), rel_rms
 
 
 def attention_scan_phase(torch, F, kscan, mattn, cfg, jcfg, shape_32k, dev):
@@ -4211,8 +4260,11 @@ def _prefill_floor_gate(torch, rng, cfg, params, ops, ep, dev, tag, rec):
         with _patched(moe_mod, "_route", lambda *a, **k: next(replays[1])), \
                 _patched(plain, "fn", fp64), _patched(plain, "grouped_fn", fp64):
             ref64, _ = api.prefill(cfg, params, {"tokens": tokens}, 64, backend="torch")
-    if not (torch.isfinite(ref).all() and torch.isfinite(got).all()):
-        raise AssertionError(f"{tag} (i) prefill logits not finite")
+    for side, x in (("the plain backend's", ref), ("the plain backend's fp64-sum", ref64),
+                    ("the kernels'", got)):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{tag} (i) {side} prefill logits not finite "
+                                 f"({cfg.param_dtype} parameters)")
     if tuple(got.shape) != (2, cfg.vocab):
         raise AssertionError(f"{tag} (i) prefill logits shape {tuple(got.shape)}")
     delta, scale = (got - ref).abs().max().item(), ref.abs().max().item()
@@ -4291,7 +4343,7 @@ def free_routing_shares(torch, api, moe_mod, ops, cfg, params, tokens, orders,
             kernels_idx.numel())
 
 
-def family_phase(torch, np, cfg, ops, ep, k4, dev, tag):
+def family_phase(torch, np, cfg, ops, ep, k4, dev, tag, decode_step=True):
     """Phase 14, what every family runs, on its full-width weights drawn from
     seed 0: (i) the all-layer prefill logits through the kernels against the
     plain backend within PREFILL_LOGIT_FLOOR_FACTOR x the RMS gap of the
@@ -4299,8 +4351,9 @@ def family_phase(torch, np, cfg, ops, ep, k4, dev, tag):
     kernels' routing replayed on the plain backend, beside 6(a)'s routing
     agreement), (ii)
     the continuous engine on 4(b)'s Poisson trace, every K1 and K4 launch
-    counted and on sm90, (iii) a profiled 4-row decode step, and the peak
-    device memory of (i)-(iii). Returns the record and the weights."""
+    counted and on sm90, (iii) a profiled 4-row decode step (unless
+    ``decode_step`` is False), and the peak device memory of (i)-(iii).
+    Returns the record and the weights."""
     from repro_torch.kernels.opope_gemm import opope_gemm
     from repro_torch.models import api
     from repro_torch.serve import ContinuousEngine, poisson_trace
@@ -4352,6 +4405,9 @@ def family_phase(torch, np, cfg, ops, ep, k4, dev, tag):
         + (f", K4 {launches['K4']} = 3 * {n_layers} * {forwards}" if moe else "")
         + ", all on sm90")
     del eng
+    if not decode_step:
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        return rec, params
 
     # (iii) one lockstep decode step at 4 rows: wall, device busy, K1 and K4.
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))).to(dev)
@@ -5362,6 +5418,332 @@ def a8c_launch_paths(rec):
     return paths
 
 
+# Phase 17 (ROADMAP B.1): every input dtype the reference's kernels take.
+# (a) chatglm3-6b in fp16 at its published width and depth (28 layers,
+# 6.24 B parameters, 12.49 GB); (b) deepseek-moe-16b in fp16 cut to
+# DTYPE_MOE_LAYERS of its 28 layers (every layer is MoE, so the expert GEMMs
+# keep their widths at any depth); both through family_phase, K/V in bf16
+# (the reference launcher's rule). (c) each kernel alone on each dtype
+# class at the models' shapes, against its plain version, beside its bound
+# and, where one PyTorch call computes the same function, that call.
+DTYPE_MOE_LAYERS = 4
+FP8_FLOPS = 1979e12  # H100 SXM dense fp8 tensor cores
+# K1's (A, B) cases: fp16 (the sm90 route), the two 8-bit floats, and one
+# mixed pair of each compute class (bf16, fp16 with bf16 in fp32, fp32).
+K1_DTYPE_CASES = (("float16", "float16"), ("float8_e4m3fn", "float8_e4m3fn"),
+                  ("float8_e5m2", "float8_e5m2"), ("float8_e4m3fn", "bfloat16"),
+                  ("float16", "bfloat16"), ("float32", "bfloat16"))
+K1_DTYPE_MS = (4, 512)
+K4_DTYPE_CASES = ("float16", "float8_e4m3fn")
+K4_DTYPE_MS = (1, 60)
+K3_DTYPE_CASES = ("float16", "bfloat16", "float32", "float8_e4m3fn")
+K3_DTYPE_DIMS = (80, 256, 320)
+K3_DTYPE_SHAPE = (4, 16, 2048)  # B, H, S = T, causal: gemma2-9b's attention at D 256
+K6_DTYPE_CASES = ("float16", "float8_e4m3fn")
+DTYPE_ITERS = 10
+
+
+def dtype_peak(torch, *dtypes):
+    """The card's dense rate for products of these operands: two 8-bit
+    floats at the fp8 tensor-core rate, any fp32 operand at the fp32 rate
+    outside the tensor cores, the rest (bf16, fp16, mixed) at bf16's."""
+    fp8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+    if all(d in fp8 for d in dtypes):
+        return FP8_FLOPS
+    return FP32_FLOPS if torch.float32 in dtypes else BF16_FLOPS
+
+
+def _bound(t_bytes, ops, peak):
+    t_bytes, t_ops = t_bytes / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _counted(torch, kern, fn):
+    """``fn()`` and the launches of ``kern`` it made, by route."""
+    before = dict(kern.launches_by_route)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {r: kern.launches_by_route[r] - before[r] for r in before}
+
+
+def _add_routes(total, routes):
+    for r, n in routes.items():
+        total[r] = total.get(r, 0) + n
+
+
+def _library(torch, fn, what):
+    """Device ms of one PyTorch call computing the same function, or None
+    with the reason where it does not take the call."""
+    try:
+        fn(0)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, ValueError) as e:
+        return None, f"{what}: does not take the call ({str(e).splitlines()[0][:120]})"
+    return queued_ms(torch, fn, DTYPE_ITERS), what
+
+
+def dtype_kernel_phase(torch, F, k4mod, kscan, cfg, mcfg, jcfg, dev):
+    """17(c): K1, K4, K3 and K6 on the card on each new dtype class, at the
+    models' shapes, each call held to its plain version at its phase's gate
+    (K1, K4: check_close; K3: attn_check; K6 bitwise), an e4m3-out K1 call
+    whose sums overflow held bit for bit, NaNs included. Returns the rows
+    and each kernel's entry-point launches by route."""
+    import importlib
+
+    from repro_torch.kernels.opope_attention import opope_attention_bhsd, opope_attention_plain
+    from repro_torch.kernels.opope_gemm import opope_gemm, opope_gemm_plain
+
+    k1mod = importlib.import_module("repro_torch.kernels.opope_gemm")
+    k3mod = importlib.import_module("repro_torch.kernels.opope_attention")
+    k4 = k4mod.opope_gemm_grouped
+    gen = torch.Generator(device=dev).manual_seed(17)
+    dt = lambda name: getattr(torch, name)  # noqa: E731
+    out = {"k1": [], "k1_layers": [], "k4": [], "k3": [], "k6": []}
+    entry = {"K1": {}, "K4": {}, "K3": {}, "K6": 0}
+    max_err = {"K1": 0.0, "K4": 0.0, "K3": 0.0}
+    t0 = time.perf_counter()
+
+    d, dq, dkv, dff = cfg.d_model, cfg.n_heads * cfg.head_dim_, cfg.n_kv * cfg.head_dim_, cfg.d_ff
+    layer = [("wq", d, dq, ()), ("wk", d, dkv, ()), ("wv", d, dkv, ()),
+             ("wo", dq, d, ("residual",)), ("w_up", d, dff, ()),
+             ("w_gate", d, dff, ("silu", "mul")), ("w_down", dff, d, ("residual",))]
+    for a_name, b_name in K1_DTYPE_CASES:
+        adt, bdt = dt(a_name), dt(b_name)
+        for m in K1_DTYPE_MS:
+            sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+            lib_what, routes = None, {}
+            for gname, kk, n, steps in layer:
+                n_bufs = max(1, min(64, math.ceil(3 * L2_BYTES / (kk * n * bdt.itemsize))))
+                a = torch.randn((m, kk), generator=gen, device=dev).to(adt)
+                bs = [(torch.randn((kk, n), generator=gen, device=dev) * kk ** -0.5).to(bdt)
+                      for _ in range(n_bufs)]
+                ops_ = tuple(torch.randn((m, n), generator=gen, device=dev).to(adt)
+                             for _ in steps if _ != "silu")
+                got, r = _counted(torch, opope_gemm, lambda: opope_gemm(
+                    a, bs[0], None, epilogue=steps, epilogue_operands=ops_))
+                _add_routes(routes, r)
+                what = f"17(c) K1 {a_name}@{b_name} {gname} M={m} K={kk} N={n}"
+                err = check_close(torch, got, k1_plain(a, bs[0], None, steps, ops_), adt, what)
+                max_err["K1"] = max(max_err["K1"], err)
+                ms = queued_ms(torch, lambda i: opope_gemm(
+                    a, bs[i % n_bufs], None, epilogue=steps, epilogue_operands=ops_),
+                    max(DTYPE_ITERS, n_bufs))
+                plain_ms = time_ms(torch, lambda i: opope_gemm_plain(
+                    a, bs[i], None, epilogue=steps, epilogue_operands=ops_), n_bufs)
+                lib_ms = None
+                if a_name == b_name == "float16":
+                    lib_ms, lib_what = _library(
+                        torch, lambda i: torch.matmul(a, bs[i % n_bufs]), "torch.matmul")
+                elif a_name == b_name == "float8_e4m3fn" or a_name == b_name == "float8_e5m2":
+                    one = torch.ones((), device=dev)
+                    cms = [b.t().contiguous().t() for b in bs]  # the column-major B it needs
+                    lib_ms, lib_what = _library(torch, lambda i: torch._scaled_mm(
+                        a, cms[i % n_bufs], scale_a=one, scale_b=one, out_dtype=torch.bfloat16),
+                        "torch._scaled_mm, unit scales, bf16 out")
+                    del cms
+                nbytes = (adt.itemsize * m * kk + bdt.itemsize * kk * n
+                          + adt.itemsize * m * n * (1 + len(ops_)))
+                bound_ms, bound_by = _bound(nbytes, 2 * m * n * kk, dtype_peak(torch, adt, bdt))
+                route = k1mod._plan(m, n, kk, k1mod.plan_dtype(adt, bdt), a.data_ptr(),
+                                    bs[0].data_ptr()).route
+                out["k1"].append({"a": a_name, "b": b_name, "gemm": gname, "m": m, "k": kk,
+                                  "n": n, "epilogue": "+".join(steps) or "none", "route": route,
+                                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                  "bound_ms": bound_ms, "bound_by": bound_by,
+                                  "max_abs_err": err})
+                for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                    sums[key] += v
+                if sums["library_ms"] is not None:
+                    sums["library_ms"] = None if lib_ms is None else sums["library_ms"] + lib_ms
+                del a, bs, ops_, got
+            _add_routes(entry["K1"].setdefault(f"{a_name}@{b_name}", {}), routes)
+            out["k1_layers"].append(dict(sums, a=a_name, b=b_name, m=m, routes=routes,
+                                         library=lib_what or "none"))
+            log(f"17(c) K1 {a_name}@{b_name}, chatglm3-6b's 7 layer GEMMs at M={m} "
+                f"(routes {routes}): kernel {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} "
+                f"ms, library {sums['library_ms']} ms ({lib_what or 'none'}), bound "
+                f"{sums['bound_ms']:.4f} ms")
+
+    # The e4m3 cast past 448: sums of 448, 464, 468 and 512 on both K1
+    # routes' dtype classes, bit for bit against the plain version.
+    x = torch.zeros((4, 128), device=dev)
+    for i, count in enumerate((112, 116, 117, 128)):
+        x[i, :count] = 4.0
+    x = x.to(torch.float8_e4m3fn)
+    for b_name in ("float8_e4m3fn", "bfloat16"):
+        y = torch.ones((128, 64), device=dev).to(dt(b_name))
+        got, r = _counted(torch, opope_gemm, lambda: opope_gemm(x, y))
+        _add_routes(entry["K1"].setdefault("e4m3 overflow", {}), r)
+        want = opope_gemm_plain(x, y)
+        vals = got.float()[:, 0].tolist()
+        if not (torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+                and vals[:2] == [448.0, 448.0] and all(v != v for v in vals[2:])):
+            raise AssertionError(f"17(c) K1 e4m3 out past 448 (B {b_name}): {vals} against "
+                                 f"the plain version's {want.float()[:, 0].tolist()}")
+    log("17(c) K1 e4m3 out of sums 448, 464, 468, 512: 448, 448, NaN, NaN, bit for bit with "
+        "the plain version (B e4m3 and bf16)")
+
+    g, md, f = mcfg.moe.n_experts, mcfg.d_model, mcfg.moe.d_ff_expert
+    ffn = [("w_up", md, f, (), None), ("w_gate", md, f, ("silu", "mul"), None),
+           ("w_down", f, md, (), torch.float32)]
+    for a_name in K4_DTYPE_CASES:
+        adt = dt(a_name)
+        for m in K4_DTYPE_MS:
+            routes = {}
+            for gname, kk, n, steps, out_dtype in ffn:
+                a = torch.randn((g, m, kk), generator=gen, device=dev).to(adt)
+                b = (torch.randn((g, kk, n), generator=gen, device=dev) * kk ** -0.5).to(adt)
+                ops_ = tuple(torch.randn((g, m, n), generator=gen, device=dev).to(adt)
+                             for _ in steps if _ != "silu")
+                odt = out_dtype or adt
+                got, r = _counted(torch, k4, lambda: k4(a, b, out_dtype=odt, epilogue=steps,
+                                                 epilogue_operands=ops_))
+                _add_routes(routes, r)
+                what = f"17(c) K4 {a_name} {gname} G={g} M={m} K={kk} N={n}"
+                err = check_close(torch, got, k4_plain(k4mod, a, b, None, steps, ops_), odt, what)
+                max_err["K4"] = max(max_err["K4"], err)
+                ms = queued_ms(torch, lambda i: k4(a, b, out_dtype=odt, epilogue=steps,
+                                                   epilogue_operands=ops_), DTYPE_ITERS)
+                plain_ms = time_ms(torch, lambda i: k4mod.opope_gemm_grouped_plain(
+                    a, b, out_dtype=odt, epilogue=steps, epilogue_operands=ops_), 1)
+                lib_ms, lib_what = (None, "none: no PyTorch call takes grouped e4m3 operands")
+                if a_name == "float16":
+                    lib_ms, lib_what = _library(torch, lambda i: torch.bmm(a, b), "torch.bmm")
+                nbytes = (adt.itemsize * g * (m * kk + kk * n + m * n * len(ops_))
+                          + odt.itemsize * g * m * n)
+                bound_ms, bound_by = _bound(nbytes, 2 * g * m * n * kk, dtype_peak(torch, adt))
+                out["k4"].append({"a": a_name, "gemm": gname, "g": g, "m": m, "k": kk, "n": n,
+                                  "out_dtype": str(odt).removeprefix("torch."),
+                                  "routes": r, "ms": ms, "plain_ms": plain_ms,
+                                  "library_ms": lib_ms, "library": lib_what,
+                                  "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err})
+                log(f"{what}: routes {r}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"library {lib_ms} ms ({lib_what}), bound {bound_ms:.4f} ms ({bound_by}), "
+                    f"max_abs_err {err:.3g}")
+                del a, b, ops_, got
+            _add_routes(entry["K4"].setdefault(a_name, {}), routes)
+
+    b_, h_, s_ = K3_DTYPE_SHAPE
+    for name in K3_DTYPE_CASES:
+        qdt = dt(name)
+        for dd in K3_DTYPE_DIMS:
+            q, k, v = (torch.randn((b_, h_, s_, dd), generator=gen, device=dev).to(qdt)
+                       for _ in range(3))
+            got, r = _counted(torch, k3mod.opope_attention, lambda: opope_attention_bhsd(q, k, v))
+            _add_routes(entry["K3"].setdefault(name, {}), r)
+            what = f"17(c) K3 {name} B={b_} H={h_} S=T={s_} D={dd} causal"
+            want = opope_attention_plain(q, k, v)
+            err, rel_rms = attn_check(torch, got, want, what)
+            max_err["K3"] = max(max_err["K3"], err)
+            del want
+            ms = queued_ms(torch, lambda i: opope_attention_bhsd(q, k, v), 3, warmup=1)
+            plain_ms = time_ms(torch, lambda i: opope_attention_plain(q, k, v), 1, iters=2,
+                               warmup=1)
+            lib_ms, lib_what = None, "none: SDPA takes no 8-bit float"
+            if qdt != torch.float8_e4m3fn:
+                lib_ms, lib_what = _library(torch, lambda i: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), "torch.nn.functional.scaled_dot_product_attention")
+            nbytes = qdt.itemsize * b_ * h_ * 4 * s_ * dd
+            bound_ms, bound_by = _bound(nbytes, attn_flops(b_, h_, s_, s_, dd, True),
+                                        dtype_peak(torch, qdt))
+            out["k3"].append({"dtype": name, "b": b_, "h": h_, "s": s_, "t": s_, "d": dd,
+                              "causal": True, "routes": r, "ms": ms, "plain_ms": plain_ms,
+                              "library_ms": lib_ms, "library": lib_what, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "max_abs_err": err,
+                              "err_rms_over_out_rms": rel_rms})
+            log(f"{what}: routes {r}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"{lib_ms} ms ({lib_what}), bound {bound_ms:.4f} ms ({bound_by}), max_abs_err "
+                f"{err:.3g}, error RMS {rel_rms:.3g} of the output's")
+            del q, k, v, got
+
+    s_scan, n_state = 4096, jcfg.mamba.expand * jcfg.d_model * jcfg.mamba.d_state
+    for name in K6_DTYPE_CASES:
+        sdt = dt(name)
+        decay = (0.2 + 0.79 * torch.rand((s_scan, n_state), generator=gen, device=dev)).to(sdt)
+        update = torch.randn((s_scan, n_state), generator=gen, device=dev).to(sdt)
+        before = kscan.opope_chunked_scan.launches
+        states = kscan.opope_chunked_scan(decay, update)
+        sync(torch, dev)
+        entry["K6"] += kscan.opope_chunked_scan.launches - before
+        t_plain = time.perf_counter()
+        want = kscan.opope_chunked_scan_plain(decay, update)
+        sync(torch, dev)
+        plain_ms = 1e3 * (time.perf_counter() - t_plain)
+        if not torch.equal(states, want):
+            raise AssertionError(f"17(c) K6 {name} [{s_scan}, {n_state}]: "
+                                 f"{(states != want).sum().item()} states differ (bitwise gate)")
+        del want
+        ms = time_ms(torch, lambda i: kscan.opope_chunked_scan(decay, update), 1)
+        bound_ms = 1e3 * (2 * sdt.itemsize + 4) * s_scan * n_state / HBM_BYTES_PER_S
+        out["k6"].append({"dtype": name, "s": s_scan, "d": n_state, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                          "library_ms": None, "max_abs_err": 0.0})
+        log(f"17(c) K6 {name} decay and update [{s_scan}, {n_state}]: bitwise equal to the "
+            f"plain version; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms (one call, host "
+            f"clock), bound {bound_ms:.4f} ms (bytes)")
+        del decay, update, states
+    out["entry_launches"] = entry
+    out["max_abs_err"] = max_err
+    out["seconds"] = time.perf_counter() - t0
+    log(f"17(c) took {out['seconds']:.1f} s; entry-point launches by route {entry}")
+    return out
+
+
+def dtype_phase(torch, np, get_config, ops, ep, k4mod, kscan, F, dev):
+    """Phase 17 (ROADMAP B.1): (a) chatglm3-6b in fp16 uncut and (b)
+    deepseek-moe-16b in fp16 at DTYPE_MOE_LAYERS layers through
+    :func:`family_phase` ((b) without the profiled step), every K1 and K4
+    launch of their prefill gates and engines on the sm90 route; then (c)
+    :func:`dtype_kernel_phase`. Returns the records."""
+    import dataclasses
+
+    t_phase = time.perf_counter()
+    out = {}
+    for letter, name in zip("ab", ("chatglm3-6b", "deepseek-moe-16b")):
+        tag = f"17({letter}) {name} fp16"
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(name), param_dtype="float16")
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, n_layers=DTYPE_MOE_LAYERS)
+        rec, params = family_phase(torch, np, cfg, ops, ep, k4mod, dev, tag,
+                                   decode_step=cfg.moe is None)
+        for kname, routes in rec["prefill"]["launches_by_route"].items():
+            if routes["tile"]:
+                raise AssertionError(f"{tag} (i) {kname} launches by route {routes}: want all "
+                                     "on sm90")
+        rec["seconds"] = time.perf_counter() - t0
+        log(f"{tag}: {rec['seconds']:.1f} s, peak device memory {rec['peak_memory_gb']:.2f} GB")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = rec
+    out["kernels"] = dtype_kernel_phase(torch, F, k4mod, kscan, get_config("chatglm3-6b"),
+                                        get_config("deepseek-moe-16b"),
+                                        get_config("jamba-v0.1-52b"), dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 17 took {out['seconds']:.1f} s")
+    return out
+
+
+def dtype_launch_paths(rec):
+    """Each kernel's phase-17 launches by path and route."""
+    paths = {"K1": {}, "K4": {}, "K3": {}, "K6": {}}
+    for name in ("chatglm3-6b", "deepseek-moe-16b"):
+        r = rec[name]
+        for kname, routes in r["prefill"]["launches_by_route"].items():
+            if sum(routes.values()):
+                paths[kname][f"{name} fp16 prefill gate (17(i))"] = routes
+        for kname, n in r["serve"]["launches"].items():
+            if n:  # family_phase held each to the sm90 route
+                paths[kname][f"{name} fp16 continuous engine (17(ii))"] = {"sm90": n, "tile": 0}
+    entry = rec["kernels"]["entry_launches"]
+    for kname in ("K1", "K4", "K3"):
+        for case, routes in entry[kname].items():
+            paths[kname][f"kernels entry point, {case} (17(c))"] = routes
+    paths["K6"]["kernels entry point, fp16 and e4m3 (17(c))"] = entry["K6"]
+    return paths
+
+
 def decode_profile(torch, step, step_ms, n_steps: int = 4, tag: str = "(d)",
                    what: str = "decode step"):
     """Device time by kernel over ``n_steps`` decode steps (torch.profiler),
@@ -5550,6 +5932,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     a8c = a8c_phase(torch, np, get_config, ops, ep, k4mod, q8mod, q8b, qz, kernels, dev)
+    # Phase 17: fp16 models, and every input dtype of K1, K4, K3 and K6.
+    gc.collect()
+    torch.cuda.empty_cache()
+    p17 = dtype_phase(torch, np, get_config, ops, ep, k4mod, kscan, F, dev)
     # One MoE layer's 3 grouped GEMMs of a 4-slot decode step (capacity 1).
     g_decode = [r for r in g_rows if r["m"] == 1]
     g_sums = {key: sum(r[key] for r in g_decode)
@@ -5812,6 +6198,25 @@ def main() -> int:
             for route, n in routes.items():
                 rec["launches_by_route"][route] += n
     record["a8c"] = a8c
+    # Phase 17's paths, for each kernel, by route as counted there.
+    p17_paths = dtype_launch_paths(p17)
+    for rec, kname in ((record, "K1"), (g_record, "K4"), (k3_record, "K3")):
+        for path, routes in p17_paths[kname].items():
+            rec["launches_by_path"][path] = sum(routes.values())
+            rec["launches"] += sum(routes.values())
+            for route, n in routes.items():
+                rec["launches_by_route"][route] += n
+    for path, n in p17_paths["K6"].items():
+        k6_record["launches_by_path"][path] = n
+        k6_record["launches"] += n
+    p17k = p17["kernels"]
+    record["dtypes"] = {"models": {name: p17[name] for name in ("chatglm3-6b",
+                                                                "deepseek-moe-16b")},
+                        "layers": p17k["k1_layers"], "shapes": p17k["k1"],
+                        "max_abs_err": p17k["max_abs_err"]["K1"], "seconds": p17["seconds"]}
+    g_record["dtypes"] = {"shapes": p17k["k4"], "max_abs_err": p17k["max_abs_err"]["K4"]}
+    k3_record["dtypes"] = {"shapes": p17k["k3"], "max_abs_err": p17k["max_abs_err"]["K3"]}
+    k6_record["dtypes"] = {"shapes": p17k["k6"]}
     log(f"the whole script took {time.perf_counter() - t_script:.1f} s (builds "
         f"{sum(kbuild.BUILD_SECONDS.values()):.1f} s summed over sources, run together)")
     print(smi, flush=True)

@@ -5,17 +5,18 @@ pytree with every leaf already a numpy array (``jax.tree.map(np.asarray,
 params)``, built by the caller) and returns the port's dict: the same keys,
 with the per-period stacks of ``tree["blocks"]`` unstacked into one dict per
 layer (and an encoder-decoder's ``enc_blocks`` and ``dec_blocks``, each one
-dict stacked over layers, unstacked the same way with a period of 1). bf16
-leaves (numpy dtype name ``bfloat16``) travel as their raw 16-bit patterns,
-so no bf16-aware numpy extension is needed here; every other leaf keeps its
+dict stacked over layers, unstacked the same way with a period of 1). bf16,
+e4m3 and e5m2 leaves (numpy dtype names ``bfloat16``, ``float8_e4m3fn``,
+``float8_e5m2``) travel as their raw bit patterns, so no numpy extension for
+them is needed here; every other leaf keeps its
 dtype (a bf16 model's norms, mamba's ``A_log``, ``D`` and ``dt_bias`` and
 the xLSTM gate biases stay fp32).
 
 ``params_to_numpy(cfg, params)`` goes the other way, for any tree in the
 port's layout (parameters, gradients, optimizer moments): every leaf to
 numpy and the per-layer dicts restacked over periods, so that two trees can
-be compared leaf by leaf. Numpy has no bf16 of its own, so bf16 leaves come
-back widened to fp32, which is exact.
+be compared leaf by leaf. Numpy has no bf16 or 8-bit float of its own, so
+such leaves come back widened to fp32, which is exact.
 
 ``stack_blocks`` and ``unstack_blocks`` hold that mapping between the port's
 per-layer ``blocks`` list and the reference's per-pattern-position stacks,
@@ -38,11 +39,22 @@ __all__ = ["tensor_from_numpy", "params_from_numpy", "params_to_numpy", "stack_b
            "unstack_blocks"]
 
 
+# ml_dtypes' narrow floats by numpy dtype name: (the raw pattern's integer
+# type, the torch dtype viewed over it). No import of ml_dtypes is needed.
+_RAW_FLOATS = {
+    "bfloat16": (np.int16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
+
+
 def tensor_from_numpy(x, device) -> torch.Tensor:
-    """One numpy array (bf16 included) as a tensor on ``device``."""
+    """One numpy array (bf16, e4m3 and e5m2 included, each carried as its
+    bit pattern) as a tensor on ``device``."""
     x = np.array(x, copy=True, order="C")  # owned and writable: no aliasing
-    if x.dtype.name == "bfloat16":
-        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16).to(device)
+    raw = _RAW_FLOATS.get(x.dtype.name)
+    if raw is not None:
+        return torch.from_numpy(x.view(raw[0])).view(raw[1]).to(device)
     return torch.from_numpy(x).to(device)
 
 
@@ -69,7 +81,8 @@ def params_from_numpy(cfg: ArchConfig, tree: Dict[str, Any], device) -> Dict[str
 
 def _to_numpy(x: torch.Tensor) -> np.ndarray:
     x = x.detach().cpu()
-    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    narrow = x.dtype in (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2)
+    return (x.float() if narrow else x).numpy()
 
 
 def params_to_numpy(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:

@@ -23,6 +23,8 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from repro_torch.models.api import resolve_device
+
 __all__ = ["MarkovLMDataset", "Prefetcher", "make_batch_fn"]
 
 
@@ -61,9 +63,10 @@ class MarkovLMDataset:
             step += 1
 
 
-def make_batch_fn(dataset: MarkovLMDataset, device="cpu"):
-    """``step -> {"tokens", "labels"}``: int64 tensors on ``device``."""
-    device = torch.device(device)
+def make_batch_fn(dataset: MarkovLMDataset, device=None):
+    """``step -> {"tokens", "labels"}``: int64 tensors on ``device``
+    (default ``cuda``; without a card that raises, as every entry point)."""
+    device = resolve_device(device)
 
     def fn(step: int) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v.astype(np.int64)).to(device)

@@ -1,6 +1,7 @@
 // State-resident linear scan for Hopper (sm_90a):
 // h[t] = decay[t] * h[t-1] + update[t], h[-1] = 0, every state written in
-// fp32; decay/update [S, D] row-major, each fp32 or bf16.
+// fp32; decay/update [S, D] row-major, each fp32, bf16, fp16, e4m3 or e5m2
+// on its own, widened exactly to fp32 as it is loaded.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/opope_scan.py::opope_chunked_scan (body _scan_kernel),
@@ -21,19 +22,15 @@
 // warps, ~31 resident per SM. A chunked two-pass variant for narrow D (few
 // columns, long S) is later work.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtypes.cuh"  // the dtype codes and exact widening to fp32
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int STEPS = 8;  // steps prefetched ahead of the FMA chain
-
-enum : int { DT_F32 = 0, DT_BF16 = 1 };  // kernels/opope_scan.py::_DTYPE_CODES
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename TA, typename TB>
 __device__ __forceinline__ void load_steps(float (&a)[STEPS], float (&b)[STEPS],
@@ -88,6 +85,20 @@ int launch(const void* a, const void* b, float* o, int s, int d, cudaStream_t st
   return static_cast<int>(cudaGetLastError());
 }
 
+// The update's dtype, decay's already fixed as TA.
+template <typename TA>
+int launch_update(const void* a, const void* b, float* o, int s, int d, int update_dtype,
+                  cudaStream_t stream) {
+  switch (update_dtype) {
+    case DT_F32: return launch<TA, float>(a, b, o, s, d, stream);
+    case DT_BF16: return launch<TA, __nv_bfloat16>(a, b, o, s, d, stream);
+    case DT_F16: return launch<TA, __half>(a, b, o, s, d, stream);
+    case DT_E4M3: return launch<TA, __nv_fp8_e4m3>(a, b, o, s, d, stream);
+    case DT_E5M2: return launch<TA, __nv_fp8_e5m2>(a, b, o, s, d, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // C entry: launches on `stream` and returns cudaGetLastError() (0 = launched).
@@ -95,13 +106,12 @@ extern "C" int opope_scan_launch(const void* decay, const void* update, void* ou
                                  int d, int decay_dtype, int update_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
-  if (decay_dtype == DT_F32 && update_dtype == DT_F32)
-    return launch<float, float>(decay, update, o, s, d, st);
-  if (decay_dtype == DT_F32 && update_dtype == DT_BF16)
-    return launch<float, __nv_bfloat16>(decay, update, o, s, d, st);
-  if (decay_dtype == DT_BF16 && update_dtype == DT_F32)
-    return launch<__nv_bfloat16, float>(decay, update, o, s, d, st);
-  if (decay_dtype == DT_BF16 && update_dtype == DT_BF16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(decay, update, o, s, d, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (decay_dtype) {
+    case DT_F32: return launch_update<float>(decay, update, o, s, d, update_dtype, st);
+    case DT_BF16: return launch_update<__nv_bfloat16>(decay, update, o, s, d, update_dtype, st);
+    case DT_F16: return launch_update<__half>(decay, update, o, s, d, update_dtype, st);
+    case DT_E4M3: return launch_update<__nv_fp8_e4m3>(decay, update, o, s, d, update_dtype, st);
+    case DT_E5M2: return launch_update<__nv_fp8_e5m2>(decay, update, o, s, d, update_dtype, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,11 +1,13 @@
-// The bf16 GEMM body of the sm90 routes of K1 (opope_gemm.cu, one GEMM,
+// The bf16 / fp16 GEMM body of the sm90 routes of K1 (opope_gemm.cu, one GEMM,
 // optionally split along K) and K4 (opope_grouped.cu, G GEMMs of one shape,
 // the group the third coordinate of every TMA box): one output tile a block.
 //
 // One producer warp keeps a ring of shared-memory stages full with TMA loads
 // (128-byte swizzle, mbarrier completion); the consumer warpgroups run wgmma
 // m64n128k16 (bf16 -> fp32) on each stage as it lands and release it once
-// the wgmma group reading it has retired. A is read K-major; B stays in its
+// the wgmma group reading it has retired (F16 selects the fp16 instruction
+// and tensor maps; both operands are 2-byte, so tiles, swizzle and
+// descriptors are the same). A is read K-major; B stays in its
 // natural [K, N] row-major layout and is the MN-major ("transposed") wgmma
 // operand, so no weight is re-laid out. Both operands are rank-3 tensor maps
 // (columns, rows, group): TMA zero-fills rows and columns past a group's
@@ -24,7 +26,7 @@
 
 namespace {
 
-constexpr int SM90_BK = 64;  // one 128-byte swizzle row of bf16
+constexpr int SM90_BK = 64;  // one 128-byte swizzle row of bf16 or fp16
 
 template <int BM_, int BN_, int STAGES_, int PRODUCERS_ = 128>
 struct Sm90Config {
@@ -50,66 +52,68 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 }
 
 // load_as_float over G = 8 consecutive elements, the dtype switch taken
-// once; 8 bf16 starting on a 16-byte boundary come in one 16-byte load.
+// once; 8 bf16 or fp16 starting on a 16-byte boundary come in one 16-byte
+// load.
+template <typename T, int G>
+__device__ __forceinline__ void load_half_group(const void* p, int64_t i, float (&o)[G]) {
+  static_assert(G == 8, "one 16-byte vector of a 2-byte type");
+  const T* q = static_cast<const T*>(p) + i;
+  if (aligned16(q)) {
+    const uint4 v = *reinterpret_cast<const uint4*>(q);
+    const T* h = reinterpret_cast<const T*>(&v);
+#pragma unroll
+    for (int u = 0; u < G; ++u) o[u] = to_float(h[u]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < G; ++u) o[u] = to_float(q[u]);
+  }
+}
+
 template <int G>
 __device__ __forceinline__ void load_group(const void* p, int dtype, int64_t i, float (&o)[G]) {
-  static_assert(G == 8, "one 16-byte vector of bf16");
   switch (dtype) {
-    case DT_BF16: {
-      const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p) + i;
-      if (aligned16(q)) {
-        const uint4 v = *reinterpret_cast<const uint4*>(q);
-        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-        for (int u = 0; u < G; ++u) o[u] = __bfloat162float(h[u]);
-      } else {
-#pragma unroll
-        for (int u = 0; u < G; ++u) o[u] = __bfloat162float(q[u]);
-      }
-      break;
-    }
-    case DT_F16:
-#pragma unroll
-      for (int u = 0; u < G; ++u) o[u] = __half2float(static_cast<const __half*>(p)[i + u]);
-      break;
-    default:
+    case DT_BF16: load_half_group<__nv_bfloat16>(p, i, o); break;
+    case DT_F16: load_half_group<__half>(p, i, o); break;
+    case DT_F32:
 #pragma unroll
       for (int u = 0; u < G; ++u) o[u] = static_cast<const float*>(p)[i + u];
+      break;
+    default:  // the 8-bit floats
+#pragma unroll
+      for (int u = 0; u < G; ++u) o[u] = load_as_float(p, dtype, i + u);
       break;
   }
 }
 
-// The single cast of G = 8 consecutive outputs; 8 bf16 starting on a
-// 16-byte boundary go out in one 16-byte store.
+// The single cast of G = 8 consecutive outputs; 8 bf16 or fp16 starting on
+// a 16-byte boundary go out in one 16-byte store.
+template <typename T, int G>
+__device__ __forceinline__ void store_half_group(void* O, int64_t i, const float (&x)[G]) {
+  T* q = static_cast<T*>(O) + i;
+  if (aligned16(q)) {
+    uint4 v;
+    T* h = reinterpret_cast<T*>(&v);
+#pragma unroll
+    for (int u = 0; u < G; ++u) h[u] = from_float<T>(x[u]);
+    *reinterpret_cast<uint4*>(q) = v;
+  } else {
+#pragma unroll
+    for (int u = 0; u < G; ++u) q[u] = from_float<T>(x[u]);
+  }
+}
+
 template <int G>
 __device__ __forceinline__ void store_group(void* O, int o_dtype, int64_t i, const float (&x)[G]) {
   switch (o_dtype) {
-    case DT_BF16: {
-      __nv_bfloat16* q = static_cast<__nv_bfloat16*>(O) + i;
-      if (aligned16(q)) {
-        uint4 v;
-        __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-        for (int u = 0; u < G; ++u) h[u] = __float2bfloat16_rn(x[u]);
-        *reinterpret_cast<uint4*>(q) = v;
-      } else {
-#pragma unroll
-        for (int u = 0; u < G; ++u) q[u] = __float2bfloat16_rn(x[u]);
-      }
-      break;
-    }
-    case DT_F16:
-#pragma unroll
-      for (int u = 0; u < G; ++u) static_cast<__half*>(O)[i + u] = __float2half_rn(x[u]);
-      break;
-    // int8 only behind requant_int8: x is an exact integer in [-127, 127].
-    case DT_I8:
-#pragma unroll
-      for (int u = 0; u < G; ++u) static_cast<int8_t*>(O)[i + u] = static_cast<int8_t>(x[u]);
-      break;
-    default:
+    case DT_BF16: store_half_group<__nv_bfloat16>(O, i, x); break;
+    case DT_F16: store_half_group<__half>(O, i, x); break;
+    case DT_F32:
 #pragma unroll
       for (int u = 0; u < G; ++u) static_cast<float*>(O)[i + u] = x[u];
+      break;
+    default:  // int8 behind requant_int8, the 8-bit floats
+#pragma unroll
+      for (int u = 0; u < G; ++u) store_out(O, o_dtype, i + u, x[u]);
       break;
   }
 }
@@ -145,8 +149,8 @@ __device__ __forceinline__ void apply_groups(int op, float (&x)[NG][G], const fl
 // at element g*M*N, its row operands (C as [G, N], epilogue rows as
 // [G, 1, N]) at g*N; the scalar has no group. With splits > 1, `ws` holds
 // splits * m_tiles * n_tiles * BM * BN floats and `counters` one zeroed int
-// per output tile (only K1 splits: one group).
-template <class Cfg>
+// per output tile (only K1 splits: one group). F16: fp16 operands, else bf16.
+template <class Cfg, bool F16>
 __device__ __forceinline__ void sm90_gemm_tile(
     const CUtensorMap* map_a, const CUtensorMap* map_b, void* __restrict__ O, int M, int N,
     int K, int g, int m_tile, int n_tile, int m_tiles, int split, int splits, const void* C,
@@ -218,7 +222,7 @@ __device__ __forceinline__ void sm90_gemm_tile(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < SM90_BK / 16; ++kk)
-      wgmma_m64n128k16_ss<1>(acc, smem_desc(a_st + kk * 32, 16, 1024),
+      wgmma_m64n128k16_ss<1, F16>(acc, smem_desc(a_st + kk * 32, 16, 1024),
                              smem_desc(b_st + kk * 2048, Cfg::B_BOX_BYTES, 1024));
     wgmma_commit();
     // At most this panel's group in flight: the previous stage is free.
@@ -352,11 +356,11 @@ __device__ __forceinline__ void sm90_gemm_tile(
   }
 }
 
-// A row-major bf16 [groups, rows, cols] tensor as TMA boxes of
+// A row-major bf16 or fp16 [groups, rows, cols] tensor as TMA boxes of
 // [1, box_rows, 64], 128-byte swizzled. Reads past a group's rows or
 // columns fill zeros: a box never reaches into the next group.
 inline CUresult encode_map_3d(CUtensorMap* map, const void* ptr, int groups, int rows, int cols,
-                              int box_rows) {
+                              int box_rows, bool f16) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
@@ -365,22 +369,23 @@ inline CUresult encode_map_3d(CUtensorMap* map, const void* ptr, int groups, int
                                  static_cast<cuuint64_t>(cols) * rows * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+  return fn(map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(ptr), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // Encodes A [groups, m, k] and B [groups, k, n] for config Cfg and opts
 // `kernel` into Cfg::SMEM of dynamic shared memory (above 48 KB needs it),
-// once per device: the flag is kept per (Cfg, kernel type), and each
-// library launches one sm90 kernel per config. Returns 0, a CUDA runtime
-// error, or 1000 + the CUresult code when a tensor map could not be
-// encoded.
-template <class Cfg, class Kernel>
+// once per device: the flag is kept per (Cfg, F16, kernel type), and each
+// library launches one sm90 kernel per config and operand type. Returns 0,
+// a CUDA runtime error, or 1000 + the CUresult code when a tensor map
+// could not be encoded.
+template <class Cfg, bool F16, class Kernel>
 int sm90_prepare(Kernel kernel, CUtensorMap* map_a, CUtensorMap* map_b, const void* a,
                  const void* b, int groups, int m, int n, int k) {
-  CUresult r = encode_map_3d(map_a, a, groups, m, k, Cfg::BM);
-  if (r == CUDA_SUCCESS) r = encode_map_3d(map_b, b, groups, k, n, SM90_BK);
+  CUresult r = encode_map_3d(map_a, a, groups, m, k, Cfg::BM, F16);
+  if (r == CUDA_SUCCESS) r = encode_map_3d(map_b, b, groups, k, n, SM90_BK, F16);
   if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);
   static bool opted_in[64] = {};
   int dev = 0;

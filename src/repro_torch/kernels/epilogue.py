@@ -51,6 +51,7 @@ __all__ = [
     "canonicalize_operands",
     "apply_epilogue",
     "epilogue_vjp",
+    "cast_out",
 ]
 
 ApplyFn = Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
@@ -62,6 +63,25 @@ VjpFn = Callable[
 ]
 
 KIND_CODES: Dict[str, int] = {"none": 0, "scalar": 1, "row": 2, "full": 3}
+
+# Past these magnitudes an 8-bit float rounds to no finite value: e4m3 (no
+# infinity) gives NaN and e5m2 infinity. Each is the tie between the largest
+# finite value (448, 57344) and the next step up, which round-to-nearest-even
+# sends down.
+_E4M3_NAN_ABOVE = 464.0
+
+
+def cast_out(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The single final cast of every plain version (K1, K3, K4 and the
+    post-hoc lane), by the reference's rule (ml_dtypes' ``astype``): round to
+    nearest even; fp16, bf16 and e5m2 overflow to infinity; e4m3 past 448
+    (its tie with the next step, 464, rounds down) gives NaN, where torch's
+    own cast saturates to 448. The kernels' writeback
+    (``csrc/opope_tile.cuh::store_out``) follows the same rule bit for bit."""
+    y = x.to(dtype)
+    if dtype == torch.float8_e4m3fn:
+        y = torch.where(x.abs() > _E4M3_NAN_ABOVE, torch.full_like(y, float("nan")), y)
+    return y
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,20 +22,35 @@ functions here compute single-head softmax attention per (batch, head):
 * :func:`opope_attention` (q [S, D], k/v [T, D]) and
   :func:`opope_attention_bhsd` (q [B, H, S, D], k/v [B, H, T, D], one
   launch over all B·H heads) launch ``csrc/opope_attention.cu`` for tensors
-  on the card and raise on what the kernel does not take: bf16 or fp32
-  (one dtype for q, k and v), head dim 16, 32, 64 or 128. Given tensors on
-  the CPU they run :func:`opope_attention_plain`: the kernel has no CPU form.
+  on the card and raise on what the kernel does not take: one dtype of
+  fp32, bf16, fp16, e4m3 and e5m2 for q, k and v, at any head dim. Given
+  tensors on the CPU they run :func:`opope_attention_plain`: the kernel has
+  no CPU form.
   ``opope_attention.launches`` counts the kernel's launches from both, and
   ``opope_attention.launches_by_route`` splits them by route.
 * :func:`_plan` chooses the route before the launch, from the operands
   alone: ``"sm90"`` (TMA ring, ``wgmma``, a producer warp; 128-row query
   tiles) for bf16 q, k, v of head dim 64 or 128 that a TMA tensor map
   describes, except a causal call with S > T; ``"tile"`` (``mma.sync`` on
-  64-row tiles, fp32 on CUDA cores) for everything else.
+  64-row tiles in bf16 or fp16, the 8-bit floats widened to fp16 on load,
+  fp32 on CUDA cores; any head dim, in chunks and output passes of 128
+  columns past 128; 8-bit v in two passes over each of the reference's KV
+  panels, the first for its maximum) for everything else.
 * :func:`opope_attention_plain` is a straightforward fp32 softmax over the
-  whole key range with the same masks, ``NEG_INF`` and P cast, and the
-  closed form above for rows with no valid key: the CPU path and the
-  reference the kernel is held against on the card.
+  whole key range with the same masks and ``NEG_INF``, P cast to
+  ``v.dtype`` where the reference casts it (at the running maximum through
+  each of its ``block_k``-key panels), and the closed form above for rows
+  with no valid key: the CPU path and the reference the kernel is held
+  against on the card.
+
+Where P rounds matters at 3 or 2 mantissa bits. The tile route's 8-bit
+calls round it as the reference and the plain version do; bf16 and fp16
+calls round it at the running maximum through each of the kernel's own
+panels (64 keys on ``tile``, 128 on ``sm90``), one rounding of P in an 8-
+or 11-bit mantissa away.
+
+P's cast to ``v.dtype`` and the output's to ``q.dtype`` follow K1's rule
+(:func:`.epilogue.cast_out`): round to nearest even, e4m3 past 448 NaN.
 """
 
 from __future__ import annotations
@@ -48,14 +63,15 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from . import build as _build
-from .opope_gemm import full_fp32
+from .epilogue import cast_out
+from .opope_gemm import FP8_DTYPES, full_fp32
 
 __all__ = ["opope_attention", "opope_attention_bhsd", "opope_attention_plain"]
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-HEAD_DIMS = (16, 32, 64, 128)
-# dtype codes shared with csrc/opope_attention.cu
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes shared with csrc/opope_attention.cu (K1's, csrc/dtypes.cuh)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                torch.float8_e4m3fn: 4, torch.float8_e5m2: 5}
 
 
 class _Params(ctypes.Structure):
@@ -70,7 +86,7 @@ class _Params(ctypes.Structure):
         ("s", ctypes.c_int), ("t", ctypes.c_int), ("d", ctypes.c_int),
         ("dtype", ctypes.c_int), ("causal", ctypes.c_int),
         ("ref_bq", ctypes.c_int), ("ref_bk", ctypes.c_int), ("ref_kv_steps", ctypes.c_int),
-        ("scale", ctypes.c_float),
+        ("vec", ctypes.c_int * 3), ("scale", ctypes.c_float),
     ]
 
 
@@ -210,26 +226,34 @@ def opope_attention_plain(
 ) -> torch.Tensor:
     """Plain PyTorch K3: q [..., S, D], k/v [..., T, D] -> [..., S, D] in
     ``q.dtype``. fp32 scores (TF32 off) scaled by ``D**-0.5``, masks with
-    ``NEG_INF``, fp32 softmax, P cast to ``v.dtype``, fp32 P·V over
-    ``max(l, 1e-37)``; causal rows with no valid key by the closed form."""
+    ``NEG_INF``, fp32 softmax, fp32 P·V over ``max(l, 1e-37)``; causal rows
+    with no valid key by the closed form. P is cast to ``v.dtype`` where
+    the reference casts it: the keys of each of its KV panels (``block_k``
+    keys) at the running maximum through that panel, then rescaled to the
+    final maximum in fp32."""
     if k.shape[-2] == 0:
         raise ValueError("attention needs at least one key")
     s, d = q.shape[-2:]
     t = k.shape[-2]
-    _ref_blocks(s, t, block_q, block_k)  # raises on blocks the reference refuses
+    _, bk, n_panels = _ref_blocks(s, t, block_q, block_k)
     with full_fp32():
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d ** -0.5
     if causal:
         mask = torch.ones((s, t), dtype=torch.bool, device=q.device).tril(t - s)
         scores = scores.masked_fill(~mask, NEG_INF)
-    m = scores.amax(-1, keepdim=True)
-    p = torch.exp(scores - m)
-    l = p.sum(-1, keepdim=True)
+    # [..., S, panel, key]: padded keys score NEG_INF and weigh 0
+    panels = torch.nn.functional.pad(scores, (0, n_panels * bk - t),
+                                     value=NEG_INF).unflatten(-1, (n_panels, bk))
+    run = panels.amax(-1).cummax(-1).values  # the running maximum after each panel
+    p = torch.exp(panels - run[..., None])
+    w = torch.exp(run - run[..., -1:])[..., None]  # each panel's rescale to the final maximum
+    l = (p * w).sum((-2, -1))[..., None]
+    pv = (cast_out(p, v.dtype).float() * w).flatten(-2)[..., :t]
     with full_fp32():
-        out = torch.matmul(p.to(v.dtype).float(), v.float()) / l.clamp(min=1e-37)
+        out = torch.matmul(pv, v.float()) / l.clamp(min=1e-37)
     if causal and s > t:
         out[..., : s - t, :] = _no_key_rows(v, s, block_q, block_k)
-    return out.to(q.dtype)
+    return cast_out(out, q.dtype)
 
 
 def _launch(q, k, v, causal: bool, block_q: int, block_k: int,
@@ -246,8 +270,8 @@ def _launch(q, k, v, causal: bool, block_q: int, block_k: int,
                          f"and v, got {q.dtype}, {k.dtype}, {v.dtype}")
     b, h, s, d = q.shape
     t = k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"opope_attention takes head dims {HEAD_DIMS}, got {d}")
+    if d < 1:
+        raise ValueError(f"opope_attention takes head dims of 1 or more, got {d}")
     if route not in (None, "sm90", "tile"):
         raise ValueError(f"unknown route {route!r}")
     ref_bq, ref_bk, ref_steps = _ref_blocks(s, t, block_q, block_k)
@@ -259,23 +283,16 @@ def _launch(q, k, v, causal: bool, block_q: int, block_k: int,
     if route == "sm90" and plan.route != "sm90":
         raise ValueError(f"the sm90 route does not take this call ({plan})")
     route = route or plan.route
+    vec = (0, 0, 0)
     if route == "tile":
-        # The tile kernel reads rows of 16-byte vectors: unit stride along
-        # D, every other stride a whole number of vectors, 16-byte aligned
-        # bases.
-        vec = 16 // q.element_size()
-
-        def fit(x):
-            ok = x.stride(-1) == 1 and all(st % vec == 0 for st in x.stride()[:-1])
-            return x if ok and x.data_ptr() % 16 == 0 else x.contiguous()
-
-        q, k, v = fit(q), fit(k), fit(v)
+        q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+        vec = tuple(_tile_vector(x) for x in (q, k, v))
     prm = _Params(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         (ctypes.c_int64 * 3)(*q.stride()[:3]), (ctypes.c_int64 * 3)(*k.stride()[:3]),
         (ctypes.c_int64 * 3)(*v.stride()[:3]), (ctypes.c_int64 * 3)(*out.stride()[:3]),
         b * h, h, s, t, d, _DTYPE_CODES[q.dtype], int(causal), ref_bq, ref_bk, ref_steps,
-        d ** -0.5,
+        (ctypes.c_int * 3)(*vec), d ** -0.5,
     )
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -292,6 +309,18 @@ def _launch(q, k, v, causal: bool, block_q: int, block_k: int,
     opope_attention.launches += 1
     opope_attention.launches_by_route[route] += 1
     return out
+
+
+def _tile_vector(x: torch.Tensor) -> bool:
+    """Whether the tile route may read ``x``'s rows (unit stride along D)
+    in whole vectors: 16 bytes of the compute type (fp16 for the 8-bit
+    floats), ``vec`` elements of x's dtype, every stride but D's a multiple
+    of it and the base aligned to its width in bytes. The kernel then moves
+    an operand already in the compute type by cp.async, and widens the
+    others a vector a load."""
+    vec = 8 if x.dtype in FP8_DTYPES else 16 // x.element_size()
+    return (all(st % vec == 0 for st in x.stride()[:-1])
+            and x.data_ptr() % (vec * x.element_size()) == 0)
 
 
 def opope_attention(

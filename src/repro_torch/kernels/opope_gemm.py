@@ -13,12 +13,33 @@ cast to ``out_dtype`` at the end.
   ``opope_gemm.launches_by_route`` splits them by route.
 * :func:`_plan` chooses the route before the launch, from the operands
   alone: ``"sm90"`` (TMA + wgmma, split-K where the output tiles do not
-  fill the card) for bf16 operands whose row strides and bases TMA can
-  describe, else ``"tile"`` (the 64x64 tile body shared with the grouped
-  kernel; fp32 inputs always go there).
+  fill the card) for bf16 or fp16 operands of one dtype whose row strides
+  and bases TMA can describe, else ``"tile"`` (the 64x64 tile body shared
+  with the grouped kernel; fp32, the 8-bit floats and mixed pairs always go
+  there).
 * :func:`opope_gemm_plain` is ``a.float() @ b.float()`` (TF32 off) plus C,
   the same epilogue chain, one cast: the CPU path and the reference the
   kernel is held against on the card.
+
+The dtype rule, as the reference's kernel takes its inputs:
+
+* A and B are each fp32, bf16, fp16, e4m3 (``float8_e4m3fn``) or e5m2
+  (``float8_e5m2``), in any pair. ``out_dtype`` defaults to A's dtype.
+* The compute type (:func:`compute_dtype`) is the narrowest of fp16, bf16
+  and fp32 that holds both operands exactly: two 8-bit floats, or fp16 with
+  an 8-bit float, compute in fp16 (both 8-bit formats are exact in fp16);
+  bf16 with an 8-bit float or with bf16 in bf16; fp16 with bf16, or
+  anything with fp32, in fp32. Every product of two compute-type values is
+  exact in fp32, so the kernels differ from the reference only by the fp32
+  order of summation. The kernel widens each operand on its way from
+  device memory to shared memory; no widened copy is written to device
+  memory.
+* The final cast, in the plain versions (:func:`.epilogue.cast_out`) and
+  the kernels' writeback alike, follows the reference's rule: round to
+  nearest even; fp16, bf16 and e5m2 overflow to infinity; e4m3 past 448
+  gives NaN (torch's own cast would saturate to 448).
+* C and the epilogue operands may be any of the five too; each is read as
+  fp32.
 
 The plan is the kernel's tuning knob (:mod:`repro_torch.tune`): a compiled
 tile configuration, named by its block ``(bm, bn, bk)``, and on the sm90
@@ -43,7 +64,8 @@ from . import build as _build
 from . import epilogue as _ep
 
 __all__ = ["opope_gemm", "opope_gemm_plain", "full_fp32", "MAX_EPILOGUE_STEPS", "Plan",
-           "candidate_plans", "validate_plan", "SPLIT_LADDER"]
+           "candidate_plans", "validate_plan", "SPLIT_LADDER", "compute_dtype", "plan_dtype",
+           "FP8_DTYPES"]
 
 MAX_EPILOGUE_STEPS = 8
 
@@ -53,9 +75,33 @@ _DTYPE_CODES = {
     torch.bfloat16: 1,
     torch.float16: 2,
     torch.int8: 3,
+    torch.float8_e4m3fn: 4,
+    torch.float8_e5m2: 5,
 }
-_IN_DTYPES = (torch.float32, torch.bfloat16)
-_OPERAND_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+# A, B, C and the epilogue operands each take any of these.
+_IN_DTYPES = (torch.float32, torch.bfloat16, torch.float16) + FP8_DTYPES
+# The sm90 route's operand dtypes (one for A and B): 2-byte wgmma inputs.
+_SM90_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def compute_dtype(a_dtype: torch.dtype, b_dtype: torch.dtype) -> torch.dtype:
+    """The type the kernels compute ``A @ B`` in: the narrowest of fp16,
+    bf16 and fp32 that holds both operand dtypes exactly (module
+    docstring). Raises TypeError for a dtype the kernels do not take."""
+    for dt in (a_dtype, b_dtype):
+        if dt not in _IN_DTYPES:
+            raise TypeError(f"the GEMM kernels take {_IN_DTYPES}, got {dt}")
+    pair = {a_dtype, b_dtype}
+    if torch.float32 in pair or pair == {torch.float16, torch.bfloat16}:
+        return torch.float32
+    return torch.bfloat16 if torch.bfloat16 in pair else torch.float16
+
+
+def plan_dtype(a_dtype: torch.dtype, b_dtype: torch.dtype) -> Optional[torch.dtype]:
+    """The dtype a plan is keyed by: the operands' one dtype, or None for a
+    mixed pair (always the tile route)."""
+    return a_dtype if a_dtype == b_dtype else None
 
 
 class _Epilogue(ctypes.Structure):
@@ -87,10 +133,10 @@ def _launcher(route: str):
     p, i, ep = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_Epilogue)
     if route == "sm90":
         fn = lib.opope_gemm_sm90_launch
-        argtypes = [p, p, p, i, i, i, p, i, i, i, ep, i, i, p, p, p]
+        argtypes = [p, p, p, i, i, i, p, i, i, i, ep, i, i, i, p, p, p]
     else:
         fn = lib.opope_gemm_launch
-        argtypes = [p, p, p, i, i, i, i, p, i, i, i, i, i, ep, p]
+        argtypes = [p, p, p, i, i, i, i, i, i, p, i, i, i, i, i, ep, p]
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -162,10 +208,12 @@ def _max_splits(m: int, k: int, bm: int, bn: int) -> int:
 def _plan(m: int, n: int, k: int, dtype: torch.dtype, a_ptr: int, b_ptr: int) -> Plan:
     """The route, tile, stage count and K splits of ``A[m,k] @ B[k,n]``.
 
-    A pure function of its arguments. The sm90 route takes bf16 A and B
-    whose bases and row strides (``2k`` and ``2n`` bytes) are multiples of
-    16 bytes, as a TMA tensor map needs, with ``k > 0``; anything else (fp32
-    inputs first of all) takes the tile route. On the sm90 route K is split
+    A pure function of its arguments; ``dtype`` is :func:`plan_dtype`'s
+    (None for a mixed pair). The sm90 route takes bf16 or fp16 A and B of
+    one dtype whose bases and row strides (``2k`` and ``2n`` bytes) are
+    multiples of 16 bytes, as a TMA tensor map needs, with ``k > 0``;
+    anything else (fp32, the 8-bit floats and mixed pairs first of all)
+    takes the tile route. fp16 plans as bf16 does. On the sm90 route K is split
     across blocks when the output tiles alone do not fill the card: the
     most splits that keep the grid within one wave of ``_SM_COUNT`` blocks,
     up to :func:`_max_splits`, none empty.
@@ -184,10 +232,11 @@ def _plan_aligned(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool) -> 
     return plan._replace(splits=splits, k_bounds=_split_bounds(k, _SM90_BK, splits))
 
 
-def _tma_ok(n: int, k: int, dtype: torch.dtype, aligned: bool) -> bool:
-    """Whether TMA tensor maps describe bf16 A [m, k] and B [k, n]: row
-    strides ``2k`` and ``2n`` bytes and bases multiples of 16, ``k > 0``."""
-    return (dtype == torch.bfloat16 and k > 0 and (2 * k) % 16 == 0 and (2 * n) % 16 == 0
+def _tma_ok(n: int, k: int, dtype: Optional[torch.dtype], aligned: bool) -> bool:
+    """Whether TMA tensor maps describe bf16 or fp16 A [m, k] and B [k, n]
+    of one dtype: row strides ``2k`` and ``2n`` bytes and bases multiples of
+    16, ``k > 0``."""
+    return (dtype in _SM90_DTYPES and k > 0 and (2 * k) % 16 == 0 and (2 * n) % 16 == 0
             and aligned)
 
 
@@ -199,7 +248,7 @@ def _tile_plan(m: int, n: int, k: int) -> Plan:
 @functools.lru_cache(maxsize=4096)
 def _unsplit_plan(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool) -> Plan:
     """The route and tile of ``A[m,k] @ B[k,n]`` with K in one split: the
-    sm90 route for bf16 operands a TMA tensor map describes (:func:`_tma_ok`),
+    sm90 route for bf16 or fp16 operands a TMA tensor map describes (:func:`_tma_ok`),
     the 64-row tile at ``m <= 64``, the 128-row one above; else the tile
     route. The grouped kernel (K4) takes this plan for each of its groups."""
     if not _tma_ok(n, k, dtype, aligned):
@@ -303,12 +352,11 @@ def _check_shapes(a, b, c, out_dtype, epilogue, epilogue_operands):
 
 
 def _check_launch_operands(fn, a, b, c, out_dtype, epilogue, epilogue_operands):
-    """What a kernel launch takes: bf16 or fp32 inputs of one dtype, a known
-    out dtype, at most 8 epilogue steps, contiguous operands on one device."""
-    if a.dtype not in _IN_DTYPES or b.dtype != a.dtype:
-        raise TypeError(
-            f"{fn} takes bf16 or fp32 inputs of one dtype, got {a.dtype} @ {b.dtype}"
-        )
+    """What a kernel launch takes: inputs of the dtypes of the module's rule,
+    a known out dtype, at most 8 epilogue steps, contiguous operands on one
+    device."""
+    if a.dtype not in _IN_DTYPES or b.dtype not in _IN_DTYPES:
+        raise TypeError(f"{fn} takes inputs of {_IN_DTYPES}, got {a.dtype} @ {b.dtype}")
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"unsupported out_dtype {out_dtype}")
     if len(epilogue) > MAX_EPILOGUE_STEPS:
@@ -320,7 +368,7 @@ def _check_launch_operands(fn, a, b, c, out_dtype, epilogue, epilogue_operands):
         if not t.is_contiguous():
             raise ValueError(f"{fn} takes contiguous operands")
     for t in tensors[2:]:
-        if t.dtype not in _OPERAND_DTYPES:
+        if t.dtype not in _IN_DTYPES:
             raise TypeError(f"unsupported C/epilogue operand dtype {t.dtype}")
 
 
@@ -359,8 +407,9 @@ def opope_gemm_plain(
     epilogue: Tuple[str, ...] = (),
     epilogue_operands: Tuple[torch.Tensor, ...] = (),
 ) -> torch.Tensor:
-    """Plain PyTorch ``epilogue(A @ B (+ C))``: fp32 product (TF32 off),
-    C added in fp32, the epilogue chain in fp32, one cast."""
+    """Plain PyTorch ``epilogue(A @ B (+ C))``: both operands widened
+    exactly to fp32, fp32 product (TF32 off), C added in fp32, the epilogue
+    chain in fp32, one cast by the module's rule (:func:`.epilogue.cast_out`)."""
     out_dtype = out_dtype or a.dtype
     _check_shapes(a, b, c, out_dtype, epilogue, epilogue_operands)
     with full_fp32():
@@ -368,7 +417,7 @@ def opope_gemm_plain(
     if c is not None:
         acc = acc + c.float()
     acc = _ep.apply_epilogue(acc, tuple(epilogue), tuple(epilogue_operands))
-    return acc.to(out_dtype)
+    return _ep.cast_out(acc, out_dtype)
 
 
 def opope_gemm(
@@ -383,11 +432,12 @@ def opope_gemm(
 ) -> torch.Tensor:
     """``O = epilogue(A @ B (+ C))`` on the hand-written CUDA kernel.
 
-    a: [M, K], b: [K, N], both bf16 or both fp32, contiguous. c: [M, N] or
-    [N]. ``epilogue`` names up to 8 registered steps; ``epilogue_operands``
-    carries one canonical operand per operand-taking step (scalar ``(1,1)``,
-    row ``(1,N)``, full ``(M,N)``). ``out_dtype`` is bf16, fp16 or fp32, or
-    int8 behind ``requant_int8``; it defaults to ``a.dtype``. The route is
+    a: [M, K], b: [K, N], each fp32, bf16, fp16, e4m3 or e5m2 (the module's
+    dtype rule), contiguous. c: [M, N] or [N]. ``epilogue`` names up to 8
+    registered steps; ``epilogue_operands`` carries one canonical operand
+    per operand-taking step (scalar ``(1,1)``, row ``(1,N)``, full
+    ``(M,N)``). ``out_dtype`` is any of the five, or int8 behind
+    ``requant_int8``; it defaults to ``a.dtype``. The route is
     :func:`_plan`'s, or ``plan``'s tile and split count (:func:`validate_plan`
     on these operands; ValueError where the kernel cannot take it, on the CPU
     too).
@@ -406,7 +456,8 @@ def _forced(plan: Plan, m: int, n: int, k: int, a: torch.Tensor, b: torch.Tensor
     """``plan``'s knob re-planned for ``A[m,k] @ B[k,n]`` on these operands
     (their dtype and bases' alignment): one memo lookup, as :func:`_plan`;
     ValueError where illegal."""
-    return _validated(m, n, k, (plan.bm, plan.bn, plan.bk), plan.splits, a.dtype,
+    return _validated(m, n, k, (plan.bm, plan.bn, plan.bk), plan.splits,
+                      plan_dtype(a.dtype, b.dtype),
                       a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
 
 
@@ -429,7 +480,7 @@ def _run(a, b, c, out_dtype, epilogue, epilogue_operands, route: Optional[str] =
     if m == 0 or n == 0:
         return out
     if plan is None:
-        plan = _plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr())
+        plan = _plan(m, n, k, plan_dtype(a.dtype, b.dtype), a.data_ptr(), b.data_ptr())
     else:
         plan = _forced(plan, m, n, k, a, b)
     if route == "sm90" and plan.route != "sm90":
@@ -448,18 +499,18 @@ def _run(a, b, c, out_dtype, epilogue, epilogue_operands, route: Optional[str] =
                 counters = _counters(a.device, stream)
             rc = _launcher("sm90")(
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, c_ptr, c_kind, c_dtype,
-                _DTYPE_CODES[out_dtype], ctypes.byref(ep), plan.config, plan.splits,
+                _DTYPE_CODES[out_dtype], ctypes.byref(ep), plan.config,
+                int(a.dtype == torch.float16), plan.splits,
                 None if ws is None else ws.data_ptr(),
                 None if counters is None else counters.data_ptr(), stream,
             )
         else:
-            vec = 16 // a.element_size()
-            vec_a = k % vec == 0 and a.data_ptr() % 16 == 0
-            vec_b = n % vec == 0 and b.data_ptr() % 16 == 0
+            compute = compute_dtype(a.dtype, b.dtype)
+            vec_a, vec_b = _tile_vectors(compute, k, n, a, b)
             rc = _launcher("tile")(
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                _DTYPE_CODES[a.dtype], c_ptr, c_kind, c_dtype,
-                _DTYPE_CODES[out_dtype], int(vec_a), int(vec_b),
+                _DTYPE_CODES[a.dtype], _DTYPE_CODES[b.dtype], _DTYPE_CODES[compute],
+                c_ptr, c_kind, c_dtype, _DTYPE_CODES[out_dtype], int(vec_a), int(vec_b),
                 ctypes.byref(ep), stream,
             )
     if rc != 0:
@@ -467,6 +518,17 @@ def _run(a, b, c, out_dtype, epilogue, epilogue_operands, route: Optional[str] =
     opope_gemm.launches += 1
     opope_gemm.launches_by_route[route] += 1
     return out
+
+
+def _tile_vectors(compute: torch.dtype, k: int, n: int, a, b) -> Tuple[bool, bool]:
+    """Whether the tile route reads A's and B's panels in whole vectors: a
+    vector is 16 bytes of the compute type, so ``16 // compute.itemsize``
+    elements of the operand's own dtype; whole vectors stay inside a row,
+    each aligned to its own width, when the row length (K for A, N for B)
+    is a multiple of it and the base is 16-byte aligned. A grouped call's
+    group strides (M*K, K*N) are then multiples of it too."""
+    vec = 16 // compute.itemsize
+    return (k % vec == 0 and a.data_ptr() % 16 == 0, n % vec == 0 and b.data_ptr() % 16 == 0)
 
 
 opope_gemm.launches = 0

@@ -16,12 +16,14 @@ and one cast to ``out_dtype`` at the end.
 * :func:`_plan` chooses the route before the launch, from the operands
   alone: ``"sm90"`` (a TMA ring + ``wgmma`` over rank-3 per-group tensor
   maps, K1's sm90 body with the group as the third box coordinate, K never
-  split) for bf16 operands whose row strides and bases TMA can describe,
-  else ``"tile"`` (the 64x64 tile body shared with K1; fp32 inputs always
-  go there).
+  split) for bf16 or fp16 operands of one dtype whose row strides and
+  bases TMA can describe, else ``"tile"`` (the 64x64 tile body shared with
+  K1; fp32, the 8-bit floats and mixed pairs always go there). The dtype
+  rule (inputs, compute type, out dtype, the final cast) is K1's
+  (:mod:`.opope_gemm`).
 * :func:`opope_gemm_grouped_plain` is ``torch.bmm`` in fp32 (TF32 off) plus
-  C, the same epilogue chain, one cast: the CPU path and the reference the
-  kernel is held against on the card.
+  C, the same epilogue chain, one cast by K1's rule: the CPU path and the
+  reference the kernel is held against on the card.
 
 The tuning knob is the tile alone (K never splits): :func:`candidate_plans`
 and :func:`validate_plan` as K1's, and a ``plan=`` on
@@ -45,9 +47,12 @@ from .opope_gemm import (
     _SM90_BLOCKS,
     _check_launch_operands,
     _epilogue_struct,
+    _tile_vectors,
     _tma_ok,
     _unsplit_plan,
+    compute_dtype,
     full_fp32,
+    plan_dtype,
 )
 from .opope_gemm import _validated as _k1_validated
 
@@ -60,10 +65,10 @@ def _launcher(route: str):
     p, i, ep = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_Epilogue)
     if route == "sm90":
         fn = lib.opope_grouped_sm90_launch
-        argtypes = [p, p, p, i, i, i, i, p, i, i, i, ep, i, p]
+        argtypes = [p, p, p, i, i, i, i, p, i, i, i, ep, i, i, p]
     else:
         fn = lib.opope_grouped_launch
-        argtypes = [p, p, p, i, i, i, i, i, p, i, i, i, i, i, ep, p]
+        argtypes = [p, p, p, i, i, i, i, i, i, i, p, i, i, i, i, i, ep, p]
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -78,12 +83,14 @@ _SM90_DECODE_STAGES = 4
 def _plan(m: int, n: int, k: int, dtype: torch.dtype, a_ptr: int, b_ptr: int) -> Plan:
     """The route and tile of every group's ``A[g][m,k] @ B[g][k,n]``.
 
-    A pure function of its arguments, cached on the shape, the dtype and the
-    bases' 16-byte alignment. The sm90 route takes bf16 A and B whose bases
-    and row strides (``2k`` and ``2n`` bytes) are multiples of 16 bytes,
-    with ``k > 0``: then the group strides (``2mk`` and ``2kn``) are too, and
-    rank-3 tensor maps describe both operands whatever G is. Anything else
-    (fp32 inputs first of all) takes the tile route. The tile is K1's
+    A pure function of its arguments, cached on the shape, the dtype
+    (:func:`.opope_gemm.plan_dtype`'s: None for a mixed pair) and the bases'
+    16-byte alignment. The sm90 route takes bf16 or fp16 A and B of one
+    dtype whose bases and row strides (``2k`` and ``2n`` bytes) are
+    multiples of 16 bytes, with ``k > 0``: then the group strides (``2mk``
+    and ``2kn``) are too, and rank-3 tensor maps describe both operands
+    whatever G is. Anything else (fp32, the 8-bit floats and mixed pairs
+    first of all) takes the tile route. The tile is K1's
     (64 rows at ``m <= 64``, 128 above); K is never split, since G times the
     N tiles fill the card on every MoE path.
     """
@@ -154,8 +161,9 @@ def opope_gemm_grouped_plain(
     epilogue: Tuple[str, ...] = (),
     epilogue_operands: Tuple[torch.Tensor, ...] = (),
 ) -> torch.Tensor:
-    """Plain PyTorch ``epilogue(A[g] @ B[g] (+ C[g]))``: ``torch.bmm`` in
-    fp32 (TF32 off), C added in fp32, the epilogue chain in fp32, one cast."""
+    """Plain PyTorch ``epilogue(A[g] @ B[g] (+ C[g]))``: both operands
+    widened exactly, ``torch.bmm`` in fp32 (TF32 off), C added in fp32, the
+    epilogue chain in fp32, one cast by K1's rule."""
     out_dtype = out_dtype or a.dtype
     _check_shapes(a, b, c, out_dtype, epilogue, epilogue_operands)
     with full_fp32():
@@ -163,7 +171,7 @@ def opope_gemm_grouped_plain(
     if c is not None:
         acc = acc + (c.float()[:, None, :] if c.ndim == 2 else c.float())
     acc = _ep.apply_epilogue(acc, tuple(epilogue), tuple(epilogue_operands))
-    return acc.to(out_dtype)
+    return _ep.cast_out(acc, out_dtype)
 
 
 def opope_gemm_grouped(
@@ -179,11 +187,11 @@ def opope_gemm_grouped(
     """``O[g] = epilogue(A[g] @ B[g] (+ C[g]))`` on the hand-written CUDA
     kernel, every group in one launch.
 
-    a: [G, M, K], b: [G, K, N], both bf16 or both fp32, contiguous.
-    c: [G, M, N] or [G, N]. ``epilogue_operands`` carries one canonical
-    operand per operand-taking step (scalar ``(1,1,1)``, row ``(G,1,N)``,
-    full ``(G,M,N)``). ``out_dtype`` is bf16, fp16 or fp32, or int8 behind
-    ``requant_int8``; it defaults to ``a.dtype``. The route is :func:`_plan`'s,
+    a: [G, M, K], b: [G, K, N], each fp32, bf16, fp16, e4m3 or e5m2 (K1's
+    dtype rule), contiguous. c: [G, M, N] or [G, N]. ``epilogue_operands``
+    carries one canonical operand per operand-taking step (scalar
+    ``(1,1,1)``, row ``(G,1,N)``, full ``(G,M,N)``). ``out_dtype`` is any of
+    the five, or int8 behind ``requant_int8``; it defaults to ``a.dtype``. The route is :func:`_plan`'s,
     or ``plan``'s tile (:func:`validate_plan` on these operands; ValueError
     where the kernel cannot take it, on the CPU too).
     """
@@ -201,7 +209,8 @@ def _forced(plan: Plan, m: int, n: int, k: int, a: torch.Tensor, b: torch.Tensor
     """``plan``'s tile re-planned for each group's ``A[m,k] @ B[k,n]`` on
     these operands: one memo lookup, as :func:`_plan`; ValueError where
     illegal."""
-    return _validated(m, n, k, (plan.bm, plan.bn, plan.bk), plan.splits, a.dtype,
+    return _validated(m, n, k, (plan.bm, plan.bn, plan.bk), plan.splits,
+                      plan_dtype(a.dtype, b.dtype),
                       a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
 
 
@@ -226,7 +235,7 @@ def _run(a, b, c, out_dtype, epilogue, epilogue_operands, route: Optional[str] =
     if g == 0 or m == 0 or n == 0:
         return out
     if plan is None:
-        plan = _plan(m, n, k, a.dtype, a.data_ptr(), b.data_ptr())
+        plan = _plan(m, n, k, plan_dtype(a.dtype, b.dtype), a.data_ptr(), b.data_ptr())
     else:
         plan = _forced(plan, m, n, k, a, b)
     if route == "sm90" and plan.route != "sm90":
@@ -240,19 +249,16 @@ def _run(a, b, c, out_dtype, epilogue, epilogue_operands, route: Optional[str] =
         if route == "sm90":
             rc = _launcher("sm90")(
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), g, m, n, k, c_ptr, c_kind, c_dtype,
-                _DTYPE_CODES[out_dtype], ctypes.byref(ep), plan.config, stream,
+                _DTYPE_CODES[out_dtype], ctypes.byref(ep), plan.config,
+                int(a.dtype == torch.float16), stream,
             )
         else:
-            # Whole 16-byte vectors stay inside a row, and every group's base
-            # stays aligned, when K (for A) or N (for B) is a multiple of the
-            # vector.
-            vec = 16 // a.element_size()
-            vec_a = k % vec == 0 and a.data_ptr() % 16 == 0
-            vec_b = n % vec == 0 and b.data_ptr() % 16 == 0
+            compute = compute_dtype(a.dtype, b.dtype)
+            vec_a, vec_b = _tile_vectors(compute, k, n, a, b)
             rc = _launcher("tile")(
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), g, m, n, k,
-                _DTYPE_CODES[a.dtype], c_ptr, c_kind, c_dtype,
-                _DTYPE_CODES[out_dtype], int(vec_a), int(vec_b),
+                _DTYPE_CODES[a.dtype], _DTYPE_CODES[b.dtype], _DTYPE_CODES[compute],
+                c_ptr, c_kind, c_dtype, _DTYPE_CODES[out_dtype], int(vec_a), int(vec_b),
                 ctypes.byref(ep), stream,
             )
     if rc != 0:

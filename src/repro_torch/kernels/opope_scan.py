@@ -6,7 +6,8 @@ kernel ``_scan_kernel``). Both functions compute every state of
 
     h[t] = decay[t] * h[t-1] + update[t],   h[-1] = 0,
 
-over decay/update [S, D] (fp32 or bf16, upcast exactly) into fp32 [S, D].
+over decay/update [S, D] (each fp32, bf16, fp16, e4m3 or e5m2, on its own;
+widened exactly to fp32) into fp32 [S, D].
 Each step rounds once, as a fused multiply-add: the reference gives that on
 the CPU, where XLA contracts ``a[t] * h + b[t]`` in the interpret-mode
 kernel and in its oracle alike. ``chunk`` is the reference's panel length;
@@ -32,8 +33,9 @@ from .ref import reference_chunked_scan
 
 __all__ = ["opope_chunked_scan", "opope_chunked_scan_plain"]
 
-# dtype codes shared with csrc/opope_scan.cu
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes shared with csrc/opope_scan.cu (K1's codes, csrc/opope_tile.cuh)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                torch.float8_e4m3fn: 4, torch.float8_e5m2: 5}
 
 
 def _launcher():
@@ -67,7 +69,7 @@ def opope_chunked_scan(
     decay: torch.Tensor, update: torch.Tensor, *, chunk: int = 64
 ) -> torch.Tensor:
     """All-states linear scan on the hand-written kernel: decay/update
-    [S, D], each fp32 or bf16 -> states [S, D] fp32."""
+    [S, D], each fp32, bf16, fp16, e4m3 or e5m2 -> states [S, D] fp32."""
     _check(decay, update, chunk)
     if decay.device.type == "cpu" and update.device.type == "cpu":
         return opope_chunked_scan_plain(decay, update, chunk=chunk)

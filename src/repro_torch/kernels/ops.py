@@ -171,13 +171,19 @@ class Backend:
     grouped_calls: int = 0
 
 
+# The dtype whose plans an operand width keys (:func:`_fp_tile`).
+_ITEMSIZE_DTYPES = {4: torch.float32, 2: torch.bfloat16, 1: torch.float8_e4m3fn}
+
+
 def _fp_tile(shape_family: str, m: int, k: int, n: int, *, itemsize: int,
              aligned: bool = True, block=None, splits: int = 1) -> Plan:
     """The ``cuda`` backend's ``tile_fn``: K1's plan (``"dense"``) or K4's
-    (``"grouped"``) for bf16 operands (fp32 at ``itemsize`` 4). Without
-    ``block`` the kernel module's heuristic; with one, the plan of that tile
-    and split count, validated (ValueError where the kernel cannot take it)."""
-    dtype = torch.float32 if itemsize == 4 else torch.bfloat16
+    (``"grouped"``) for operands of ``itemsize`` bytes: bf16's plans at 2
+    (fp16 shares them), fp32's at 4 and the 8-bit floats' at 1 (e4m3 and
+    e5m2 share them; like fp32's, only the tile route). Without ``block``
+    the kernel module's heuristic; with one, the plan of that tile and split
+    count, validated (ValueError where the kernel cannot take it)."""
+    dtype = _ITEMSIZE_DTYPES[itemsize]
     grouped = shape_family == "grouped"
     if block is None:
         return (_k4_plan if grouped else _k1_plan)(m, n, k, dtype, aligned)
@@ -214,7 +220,8 @@ def _planned(name: str, kernel: Callable[..., torch.Tensor], grouped: bool, q8: 
             aligned, itemsize = x is a or x.data_ptr() % 16 == 0, 1
         else:
             aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
-            itemsize = a.element_size()
+            # A mixed pair runs the tile route alone: fp32's width keys it.
+            itemsize = a.element_size() if a.dtype == b.dtype else 4
         m, k, n = x.shape[-2], x.shape[-1], b.shape[-1]
         groups = x.shape[0] if grouped else 0
         plan = None
@@ -797,7 +804,7 @@ def _run(be: Backend, a, b, c, out_dtype, steps, ep_ops, grouped: bool = False):
     if be.epilogue_fused and _epi.fusable(steps) and _fused_here(be, a, b, grouped):
         return fn(a, b, c, out_dtype=out_dtype, epilogue=steps, epilogue_operands=ep_ops)
     acc = fn(a, b, c, out_dtype=torch.float32)
-    return _epi.apply_epilogue(acc, steps, ep_ops).to(out_dtype)
+    return _epi.cast_out(_epi.apply_epilogue(acc, steps, ep_ops), out_dtype)
 
 
 def _bwd_gemm(fn, x: torch.Tensor, y: torch.Tensor, out_dtype) -> torch.Tensor:

@@ -40,6 +40,12 @@ from repro_torch.models.transformer import param_dtype
 from repro_torch.serve import ContinuousEngine, ServeEngine, gen_len_spread, poisson_trace
 
 
+def cache_dtype(cfg) -> torch.dtype:
+    """The K/V cache's dtype, the reference launcher's rule: fp32 for an
+    fp32 model, bf16 for every other (an fp16 model included)."""
+    return torch.float32 if param_dtype(cfg) == torch.float32 else torch.bfloat16
+
+
 def static_batch(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
     """A static-engine batch drawn from ``seed`` with numpy, in
     :func:`api.input_specs`' layout: ``tokens`` [batch, prompt_len] and,
@@ -61,7 +67,7 @@ def static_batch(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
 def _static(cfg, params, device, args) -> dict:
     eng = ServeEngine(
         cfg=cfg, params=params, max_len=cfg.n_img_tokens + args.prompt_len + args.gen,
-        cache_dtype=param_dtype(cfg), temperature=args.temperature,
+        cache_dtype=cache_dtype(cfg), temperature=args.temperature,
     )
     batch = static_batch(cfg, args.batch, args.prompt_len, args.seed, device)
     t0 = time.perf_counter()
@@ -86,7 +92,7 @@ def _continuous(cfg, params, device, args) -> dict:
     )
     eng = ContinuousEngine(
         cfg=cfg, params=params, n_slots=args.slots,
-        max_len=args.prompt_len + args.gen, cache_dtype=param_dtype(cfg),
+        max_len=args.prompt_len + args.gen, cache_dtype=cache_dtype(cfg),
         temperature=args.temperature, kv_format=args.kv_format,
     )
     report = eng.timed_serve(

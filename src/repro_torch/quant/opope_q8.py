@@ -55,7 +55,6 @@ from repro_torch.kernels import epilogue as _ep
 from repro_torch.kernels.opope_gemm import (
     _DTYPE_CODES,
     _N_COUNTERS,
-    _OPERAND_DTYPES,
     _SM_COUNT,
     _TILE,
     MAX_EPILOGUE_STEPS,
@@ -80,6 +79,12 @@ __all__ = [
 
 MAX_K = (2**31 - 1) // (127 * 127)
 
+
+
+# What K2 and K5 write and take beside their int8 values (K1's 8-bit floats
+# are not among them: the int8 kernels' writeback has no 8-bit float cast).
+_OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8)
+_OPERAND_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 def _launcher(name: str, grouped: bool):
     fn = getattr(_build.load("opope_q8_grouped" if grouped else "opope_q8"), name)
@@ -318,7 +323,7 @@ def _check_launch_operands(fn, a_q, a_scale, b_q, b_scale, c, out_dtype, epilogu
         raise TypeError(f"{fn} takes int8 values, got {a_q.dtype} @ {b_q.dtype}")
     if a_scale.dtype != torch.float32 or b_scale.dtype != torch.float32:
         raise TypeError(f"{fn} takes fp32 scales, got {a_scale.dtype}, {b_scale.dtype}")
-    if out_dtype not in _DTYPE_CODES:
+    if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"unsupported out_dtype {out_dtype}")
     if len(epilogue) > MAX_EPILOGUE_STEPS:
         raise ValueError(f"at most {MAX_EPILOGUE_STEPS} epilogue steps, got {len(epilogue)}")

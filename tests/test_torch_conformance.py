@@ -150,6 +150,26 @@ def test_single_final_cast(name):
 
 
 @_over_backends
+def test_single_final_cast_to_every_narrow_dtype(name):
+    """Each narrow out dtype a family writes (bf16 and fp16; the fp family
+    also e4m3 and e5m2, which the int8 kernels do not write) is one cast of
+    the fp32 product by the kernels' rule (``epilogue.cast_out``: round to
+    nearest even, e4m3 past 448 NaN), bit for bit. The product is scaled
+    so that some sums pass 448."""
+    a, b = _operands(seed=1)
+    a = a * 40.0
+    wide = ops.matmul(*_t(a, b), backend=name, out_dtype=torch.float32)
+    narrow = [torch.bfloat16, torch.float16]
+    if ops.family_of(name) == "fp":
+        narrow += [torch.float8_e4m3fn, torch.float8_e5m2]
+    for dt in narrow:
+        got = ops.matmul(*_t(a, b), backend=name, out_dtype=dt)
+        assert got.dtype == dt
+        assert torch.equal(got.view(torch.uint8), tep.cast_out(wide, dt).view(torch.uint8))
+    assert tep.cast_out(wide, torch.float8_e4m3fn).float().isnan().any()
+
+
+@_over_backends
 def test_bias_rides_the_backend(name):
     a, b = _operands(seed=2)
     bias = np.random.default_rng(3).standard_normal(b.shape[1]).astype(np.float32)

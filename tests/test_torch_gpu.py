@@ -85,7 +85,7 @@ def test_kernel_matches_plain_for_every_op(cuda_device, shape, dtype):
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
-    a = torch.ones((4, 8), device=cuda_device, dtype=torch.float16)
+    a = torch.ones((4, 8), device=cuda_device, dtype=torch.float64)
     with pytest.raises(TypeError):
         opope_gemm(a, a.t().contiguous())
     a = torch.ones((8, 4), device=cuda_device).t()
@@ -230,7 +230,7 @@ def test_grouped_kernel_matches_plain_for_every_op(cuda_device, shape, dtype):
 
 
 def test_grouped_kernel_rejects_what_it_does_not_take(cuda_device):
-    a = torch.ones((2, 4, 8), device=cuda_device, dtype=torch.float16)
+    a = torch.ones((2, 4, 8), device=cuda_device, dtype=torch.float64)
     with pytest.raises(TypeError):
         tg.opope_gemm_grouped(a, a.transpose(1, 2).contiguous())
     a = torch.ones((2, 8, 4), device=cuda_device).transpose(1, 2)
@@ -930,11 +930,11 @@ def test_attention_kernel_reads_strided_views_in_place(cuda_device):
 def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     x = torch.ones((1, 1, 8, 64), device=cuda_device)
     with pytest.raises(ValueError, match="dtype"):
-        opope_attention_bhsd(x.half(), x.half(), x.half())
+        opope_attention_bhsd(x.double(), x.double(), x.double())
     with pytest.raises(ValueError, match="dtype"):
         opope_attention_bhsd(x, x.bfloat16(), x)
     with pytest.raises(ValueError, match="head dims"):
-        y = torch.ones((1, 1, 8, 48), device=cuda_device)
+        y = torch.ones((1, 1, 8, 0), device=cuda_device)
         opope_attention_bhsd(y, y, y)
     with pytest.raises(ValueError, match="cuda"):
         opope_attention_bhsd(x, x.cpu(), x)
@@ -1048,9 +1048,9 @@ def test_attention_raises_on_what_neither_route_takes(cuda_device):
     before = (k3.opope_attention.launches, dict(k3.opope_attention.launches_by_route))
     for route in (None, "sm90", "tile"):
         with pytest.raises(ValueError, match="dtype"):
-            k3._launch(x.half(), x.half(), x.half(), True, 128, 128, route=route)
+            k3._launch(x.double(), x.double(), x.double(), True, 128, 128, route=route)
         with pytest.raises(ValueError, match="head dims"):
-            y = torch.ones((1, 1, 8, 48), device=cuda_device, dtype=torch.bfloat16)
+            y = torch.ones((1, 1, 8, 0), device=cuda_device, dtype=torch.bfloat16)
             k3._launch(y, y, y, True, 128, 128, route=route)
         with pytest.raises(ValueError, match="cuda"):
             k3._launch(x, x.cpu(), x, True, 128, 128, route=route)
@@ -1082,7 +1082,7 @@ def test_scan_kernel_matches_plain_bitwise(cuda_device, shape, dtypes):
 def test_scan_kernel_rejects_what_it_does_not_take(cuda_device):
     x = torch.ones((4, 3), device=cuda_device)
     with pytest.raises(ValueError, match="takes"):
-        tscan.opope_chunked_scan(x.half(), x)
+        tscan.opope_chunked_scan(x.double(), x)
     with pytest.raises(ValueError, match="cuda"):
         tscan.opope_chunked_scan(x, x.cpu())
 
@@ -1959,3 +1959,211 @@ def test_jamba_and_xlstm_reduced_serve_on_the_kernels(cuda_device):
         for r in trace:
             out = report.outputs[r.rid]
             assert len(out) == r.max_new_tokens and all(0 <= t < cfg.vocab for t in out)
+
+
+# Every dtype the reference's kernels take (the dtype rule of
+# kernels/opope_gemm.py): K1 and K4 on every pair of fp32, bf16, fp16, e4m3
+# and e5m2, K3 in each at any head dim, K6 on fp16 and the 8-bit floats.
+# Integer-valued inputs make every fp32 sum exact, whatever its order, so
+# those cases are held bit for bit against the plain versions, NaNs
+# included; random ones at the tolerances above.
+FLOATS = [torch.float32, torch.bfloat16, torch.float16, torch.float8_e4m3fn, torch.float8_e5m2]
+FLOAT_IDS = ["fp32", "bf16", "fp16", "e4m3", "e5m2"]
+DTYPE_SHAPES = [(5, 40, 24), (130, 136, 264), (64, 256, 128)]
+
+
+def _ints(gen, shape, dtype, device):
+    """Integers in [-3, 3]: exact in every one of FLOATS."""
+    return torch.randint(-3, 4, shape, generator=gen, device=device).to(dtype)
+
+
+def _same_bits(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.contiguous().view(torch.uint8), want.contiguous().view(torch.uint8))
+
+
+def _k1_route(a, b):
+    k1 = _k1_module()
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    return k1._plan(m, n, k, k1.plan_dtype(a.dtype, b.dtype), a.data_ptr(), b.data_ptr()).route
+
+
+@pytest.mark.parametrize("b_dtype", FLOATS, ids=FLOAT_IDS)
+@pytest.mark.parametrize("a_dtype", FLOATS, ids=FLOAT_IDS)
+def test_k1_and_k4_take_every_dtype_pair(cuda_device, a_dtype, b_dtype):
+    """Each pair launches on its route (sm90 for two bf16 or two fp16
+    operands, tile otherwise), out in A's dtype by default: integer-valued
+    calls bitwise against the plain version, random ones in fp32 at
+    _check's tolerance."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for m, k, n in DTYPE_SHAPES:
+        for lead, kern, plain in (((), opope_gemm, opope_gemm_plain),
+                                  ((3,), tg.opope_gemm_grouped, tg.opope_gemm_grouped_plain)):
+            a = _ints(gen, lead + (m, k), a_dtype, cuda_device)
+            b = _ints(gen, lead + (k, n), b_dtype, cuda_device)
+            route = (_k1_route(a[0], b[0]) if lead else _k1_route(a, b))
+            assert route == ("sm90" if a_dtype == b_dtype and a_dtype in (torch.bfloat16,
+                                                                          torch.float16)
+                             else "tile")
+            before = dict(kern.launches_by_route)
+            got = kern(a, b)
+            torch.cuda.synchronize()
+            assert kern.launches_by_route == dict(before, **{route: before[route] + 1})
+            _same_bits(got, plain(a, b))
+            _same_bits(kern(a, b, out_dtype=torch.float32), plain(a, b, out_dtype=torch.float32))
+            x = torch.randn(lead + (m, k), generator=gen, device=cuda_device).to(a_dtype)
+            y = (torch.randn(lead + (k, n), generator=gen, device=cuda_device)
+                 * k ** -0.5).to(b_dtype)
+            _check(kern(x, y, out_dtype=torch.float32), x, y, None, torch.float32, (), (),
+                   plain=plain)
+
+
+@pytest.mark.parametrize("dtype", FLOATS, ids=FLOAT_IDS)
+def test_k1_and_k4_take_c_and_epilogue_operands_of_every_dtype(cuda_device, dtype):
+    """C and a two-step chain's row operand in each dtype, on e4m3 and fp16
+    operands (tile and sm90 routes), bit for bit on integer values."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    m, k, n = 65, 200, 136
+    for in_dtype in (torch.float8_e4m3fn, torch.float16):
+        for lead, kern, plain in (((), opope_gemm, opope_gemm_plain),
+                                  ((2,), tg.opope_gemm_grouped, tg.opope_gemm_grouped_plain)):
+            a = _ints(gen, lead + (m, k), in_dtype, cuda_device)
+            b = _ints(gen, lead + (k, n), in_dtype, cuda_device)
+            c = _ints(gen, lead + (m, n), dtype, cuda_device)
+            row = _ints(gen, (lead[0], 1, n) if lead else (1, n), dtype, cuda_device)
+            for out_dtype in (torch.float32, torch.float16):
+                got = kern(a, b, c, out_dtype=out_dtype)
+                _same_bits(got, plain(a, b, c, out_dtype=out_dtype))
+                kw = dict(out_dtype=out_dtype, epilogue=("relu", "scale"), epilogue_operands=(row,))
+                _same_bits(kern(a, b, **kw), plain(a, b, **kw))
+
+
+def test_e4m3_out_overflows_to_nan_bit_for_bit(cuda_device):
+    """Sums of 448, 464 (the tie, rounding down), 468 and 512 written as
+    e4m3 on both routes' dtype classes: 448, 448, NaN, NaN, as ml_dtypes
+    casts them (torch's own cast would saturate to 448)."""
+    a = torch.zeros((4, 128), device=cuda_device)
+    for i, count in enumerate((112, 116, 117, 128)):
+        a[i, :count] = 4.0
+    for b_dtype in (torch.float8_e4m3fn, torch.bfloat16):
+        x, y = a.to(torch.float8_e4m3fn), torch.ones((128, 64), device=cuda_device).to(b_dtype)
+        got = opope_gemm(x, y)
+        want = opope_gemm_plain(x, y)
+        _same_bits(got, want)
+        vals = got.float()[:, 0].tolist()
+        assert vals[:2] == [448.0, 448.0] and all(v != v for v in vals[2:])
+        grouped = tg.opope_gemm_grouped(x[None], y[None])
+        _same_bits(grouped, tg.opope_gemm_grouped_plain(x[None], y[None]))
+
+
+def _attn_close_any(got, want):
+    """_attn_close for fp32, bf16 and fp16; the 8-bit floats (P rounds to
+    v's format where the reference rounds it on both sides) at
+    chip_smoke's gate: within one ulp of the output format plus one at the
+    largest magnitude, and an error RMS within a sixteenth of the format's
+    relative spacing times the plain output's RMS."""
+    if got.dtype not in (torch.float8_e4m3fn, torch.float8_e5m2):
+        _attn_close(got, want)
+        return
+    assert got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all() and torch.isfinite(w).all()
+    mant = 4 if got.dtype == torch.float8_e4m3fn else 3
+    emin = -6 if got.dtype == torch.float8_e4m3fn else -14
+
+    def ulp(x):
+        _, e = torch.frexp(x)
+        return torch.ldexp(torch.ones_like(x), e.clamp(min=emin + 1) - mant)
+
+    assert ((g - w).abs() <= ulp(w) + ulp(w.abs().max())).all()
+    spacing = 2.0 ** (1 - mant)
+    assert (g - w).square().mean().sqrt() <= spacing / 16 * w.square().mean().sqrt()
+
+
+@pytest.mark.parametrize("d", [8, 16, 80, 256, 320])
+@pytest.mark.parametrize("dtype", FLOATS, ids=FLOAT_IDS)
+def test_attention_takes_every_dtype_and_head_dim(cuda_device, dtype, d):
+    k3 = _k3_module()
+    for b, h, s, t, causal in ((1, 2, 96, 160, True), (2, 1, 70, 70, False), (1, 1, 1, 300, True)):
+        gen = torch.Generator(device=cuda_device).manual_seed(d + s)
+        q, k, v = (torch.randn((b, h, n, d), generator=gen, device=cuda_device).to(dtype)
+                   for n in (s, t, t))
+        route = _k3_route(q, k, v, causal)
+        assert route == ("sm90" if dtype == torch.bfloat16 and d in (64, 128) else "tile")
+        before = dict(k3.opope_attention.launches_by_route)
+        got = opope_attention_bhsd(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert k3.opope_attention.launches_by_route == dict(before, **{route: before[route] + 1})
+        assert got.dtype == dtype and got.shape == q.shape
+        _attn_close_any(got, opope_attention_plain(q, k, v, causal=causal))
+        # A strided view (every other row of a wider tensor) reads in place.
+        wide = torch.randn((b, h, 2 * t, d + 8), generator=gen, device=cuda_device).to(dtype)
+        kv = wide[:, :, ::2, :d]
+        _attn_close_any(opope_attention_bhsd(q, kv, kv, causal=causal),
+                        opope_attention_plain(q, kv, kv, causal=causal))
+
+
+@pytest.mark.parametrize("block_k", [32, 64, 100, 128, 300])
+@pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.float8_e5m2], ids=["e4m3", "e5m2"])
+def test_fp8_attention_rounds_p_at_the_references_panels(cuda_device, dtype, block_k):
+    """8-bit v: P rounds at the running maximum through each of the
+    reference's KV panels of ``block_k`` keys: panels of 32 (two in each of
+    the kernel's 64-key panels), of 64 (the kernel's own), of 100 (which
+    the kernel's straddle), of 128 and of all 300 keys (each several of the
+    kernel's); causal and not, rows without a valid key (S > T) included."""
+    for s, t, causal in ((96, 300, True), (40, 300, False), (320, 300, True), (1, 300, True)):
+        gen = torch.Generator(device=cuda_device).manual_seed(block_k + s)
+        q, k, v = (torch.randn((1, 2, n, 80), generator=gen, device=cuda_device).to(dtype)
+                   for n in (s, t, t))
+        kw = dict(causal=causal, block_q=64, block_k=block_k)
+        _attn_close_any(opope_attention_bhsd(q, k, v, **kw), opope_attention_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float16, torch.float16),
+                                    (torch.float8_e4m3fn, torch.float8_e4m3fn),
+                                    (torch.float8_e5m2, torch.float8_e5m2),
+                                    (torch.float32, torch.float8_e4m3fn),
+                                    (torch.float16, torch.float8_e5m2)],
+                         ids=["fp16", "e4m3", "e5m2", "fp32-e4m3", "fp16-e5m2"])
+def test_scan_takes_fp16_and_fp8_bitwise(cuda_device, dtypes):
+    for s, d in SCAN_SHAPES:
+        gen = torch.Generator(device=cuda_device).manual_seed(s + d)
+        decay = (0.2 + 0.79 * torch.rand((s, d), generator=gen, device=cuda_device)).to(dtypes[0])
+        update = torch.randn((s, d), generator=gen, device=cuda_device).to(dtypes[1])
+        before = tscan.opope_chunked_scan.launches
+        got = tscan.opope_chunked_scan(decay, update)
+        torch.cuda.synchronize()
+        assert tscan.opope_chunked_scan.launches == before + 1
+        assert torch.equal(got, tscan.opope_chunked_scan_plain(decay, update))
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "deepseek-moe-16b"])
+def test_reduced_fp16_models_serve_on_the_sm90_routes(cuda_device, arch):
+    """A reduced fp16 model: prefill logits on the kernels against the
+    plain backend, and the continuous engine (K/V in bf16) with every K4
+    launch and every K1 launch on sm90 but the reduced router's (N = 4
+    experts: 8-byte rows, which TMA does not take; at full width 64)."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), param_dtype="float16")
+    params = api.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 24)))
+    tokens = tokens.to(cuda_device)
+    with torch.inference_mode():
+        ref, _ = api.prefill(cfg, params, {"tokens": tokens}, 32, backend="torch")
+        got, _ = api.prefill(cfg, params, {"tokens": tokens}, 32)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
+    trace = poisson_trace(6, seed=1, vocab=cfg.vocab, prompt_lens=(5, 12, 20),
+                          gen_lens=(3, 7), mean_interarrival=1.0)
+    for kern in (opope_gemm, tg.opope_gemm_grouped):
+        kern.launches = 0
+        kern.launches_by_route.update(sm90=0, tile=0)
+    report = ContinuousEngine(cfg=cfg, params=params, n_slots=2, max_len=32).serve(trace)
+    routers = 0 if cfg.moe is None else cfg.n_layers * (report.decode_steps
+                                                        + report.prefill_batches)
+    assert opope_gemm.launches_by_route == {"sm90": opope_gemm.launches - routers,
+                                            "tile": routers}
+    k4 = tg.opope_gemm_grouped
+    assert k4.launches_by_route == {"sm90": k4.launches, "tile": 0}
+    assert opope_gemm.launches > routers and (cfg.moe is None or k4.launches > 0)
+    assert all(len(report.outputs[r.rid]) == r.max_new_tokens for r in trace)
